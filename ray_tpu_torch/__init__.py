@@ -15,9 +15,9 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["llm", "models", "nn", "ops", "resolve_device"]
+__all__ = ["llm", "models", "nn", "ops", "resolve_device", "train"]
 
-_SUBPACKAGES = ("llm", "models", "nn", "ops")
+_SUBPACKAGES = ("llm", "models", "nn", "ops", "train")
 
 
 def resolve_device(device) -> "torch.device":  # noqa: F821

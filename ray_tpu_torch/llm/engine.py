@@ -180,12 +180,13 @@ class LLMEngine:
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-            params = llama.init_params(c.model, gen, self.device)
+            params = llama.init_params(c.model, gen, self.device, dtype=c.model.dtype)
         if params["embed"].device != self.device:
             raise ValueError(
                 f"params live on {params['embed'].device}, the engine on {self.device}"
             )
-        self.params = params
+        # serving keeps its weights in the compute dtype (a no-op when they are)
+        self.params = llama.cast_params(params, c.model.dtype)
         self.allocator = BlockAllocator(c.num_blocks, c.block_size)
         self.cache = init_cache(
             c.model, c.num_blocks * c.block_size, dtype=c.cache_dtype,

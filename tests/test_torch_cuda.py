@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import flash as tfl
 from ray_tpu_torch.ops import paged_attention as tpa
 from ray_tpu_torch.ops import ragged as trg
 
@@ -127,3 +128,110 @@ def test_engine_on_card_matches_cpu():
                                max_prefill_len=128, mixed_batch=mixed, mixed_prefill_chunk=16)
             outs.append(LLMEngine(cfg, params=p, device=dev).generate(prompts, sp))
         assert outs[0] == outs[1], mixed
+
+
+# flash: the reference's allclose bands (tests/test_flash.py:39,46,88)
+FLASH = {("fwd", torch.float32): 2e-5, ("bwd", torch.float32): 5e-4,
+         ("fwd", torch.bfloat16): 2e-2, ("bwd", torch.bfloat16): 2e-2}
+
+
+def _flash_case(seed, B, Sq, Sk, H, KVH, D, dtype):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                   for s in ((B, Sq, H, D), (B, Sk, KVH, D), (B, Sk, KVH, D), (B, Sq, H, D)))
+    q = q / D ** 0.5  # the scale folded in, as flash_attention does
+    dlse = torch.from_numpy(rng.normal(size=(B, H, Sq)).astype(np.float32)) * 0.1
+    return [t.to(dtype) for t in (q, k, v, do)] + [dlse]
+
+
+def _close(got, ref, band):
+    torch.testing.assert_close(got.float().cpu(), ref.float().cpu(), rtol=band, atol=band)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,H,KVH,S,causal,q_offset,segments", [
+    (64, 8, 4, 200, True, 0, False),     # ragged edge (200 = 3 x 64 + 8)
+    (128, 8, 2, 130, True, 0, True),     # two segments, GQA 4
+    (64, 4, 4, 96, False, 0, True),      # bidirectional, MHA
+    (128, 8, 8, 64, True, 40, False),    # q_offset, Sk > Sq
+])
+def test_flash_kernels_match_plain(D, H, KVH, S, causal, q_offset, segments, dtype):
+    _need_cuda()
+    Sk = S + q_offset
+    q, k, v, do, dlse = _flash_case(1, 2, S, Sk, H, KVH, D, dtype)
+    seg = None
+    if segments:
+        seg = torch.stack([(torch.arange(S) >= b).int() for b in (S // 3, S // 2)])
+    kw = dict(causal=causal, q_offset=q_offset)
+    ref_o, ref_lse = tfl.flash_attention_fwd_torch(q, k, v, seg, seg, **kw)
+    ref_g = tfl.flash_attention_bwd_torch(q, k, v, ref_o, ref_lse, do, dlse, seg, seg, **kw)
+    cu = [None if t is None else t.cuda() for t in (q, k, v, ref_o, ref_lse, do, dlse, seg)]
+    o, lse = tfl.flash_fwd_cuda(cu[0], cu[1], cu[2], cu[7], cu[7], **kw)
+    g = tfl.flash_bwd_cuda(*cu[:7], cu[7], cu[7], **kw)
+    torch.cuda.synchronize()
+    _close(o, ref_o, FLASH[("fwd", dtype)])
+    _close(lse, ref_lse, FLASH[("fwd", dtype)])
+    for got, ref in zip(g, ref_g):
+        _close(got, ref, FLASH[("bwd", dtype)])
+
+
+def test_flash_kernel_fully_masked_rows_follow_pallas():
+    """q rows in a segment the kv side lacks: the mean of V over the row's
+    window and lse ~ NEG_INF, zero gradient (ROADMAP Queue 3)."""
+    _need_cuda()
+    q, k, v, do, dlse = _flash_case(2, 1, 64, 64, 4, 2, 64, torch.float32)
+    qseg = torch.cat([torch.full((1, 8), 7), torch.zeros(1, 56)], 1).int()
+    kseg = torch.zeros(1, 64, dtype=torch.int32)
+    ref_o, ref_lse = tfl.flash_attention_fwd_torch(q, k, v, qseg, kseg, causal=False)
+    o, lse = tfl.flash_fwd_cuda(*(t.cuda() for t in (q, k, v, qseg, kseg)), causal=False)
+    _close(o, ref_o, 2e-5)
+    _close(lse, ref_lse, 2e-5)
+    torch.testing.assert_close(o[0, :8, 0].cpu(), v[0, :, 0].mean(0).expand(8, 64))
+    g = tfl.flash_bwd_cuda(*(t.cuda() for t in (q, k, v, ref_o, ref_lse, do, dlse, qseg, kseg)),
+                           causal=False)
+    assert float(g[0][0, :8].abs().max()) == 0.0
+
+
+def test_flash_counts_launches_and_refuses_bad_input():
+    _need_cuda()
+    q, k, v, do, dlse = (t.cuda() for t in _flash_case(3, 1, 32, 32, 4, 2, 64, torch.float32))
+    f0, b0 = tfl.flash_fwd_cuda.launches, tfl.flash_bwd_cuda.launches
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    tfl.flash_attention(qg, kg, vg).sum().backward()
+    assert (tfl.flash_fwd_cuda.launches, tfl.flash_bwd_cuda.launches) == (f0 + 1, b0 + 1)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfl.flash_fwd_cuda(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                           v[..., :32].contiguous())
+    with pytest.raises(ValueError, match="GQA group"):
+        tfl.flash_fwd_cuda(q.repeat(1, 1, 48, 1), k[:, :, :1].contiguous(),
+                           v[:, :, :1].contiguous())
+    with pytest.raises(TypeError, match="dtype"):
+        tfl.flash_fwd_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tfl.flash_fwd_cuda(q.transpose(1, 2), k, v)
+    assert tfl.flash_fwd_cuda.launches == f0 + 1
+
+
+def test_train_step_on_card_matches_cpu():
+    """A small fp32 model with flash attention: 3 AdamW steps on the card
+    (kernels) and on the CPU (plain versions) from the same params."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import dataclasses
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train import TrainState, adamw, make_train_step
+
+    cfg = dataclasses.replace(llama.LLAMA_TINY, dtype=torch.float32, attention_impl="flash",
+                              d_model=256, n_heads=4, n_kv_heads=2, remat=True)
+    base = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, 512, size=(2, 65)))
+    hist = {}
+    for dev in ("cuda", "cpu"):
+        params = {k: (v.to(dev, copy=True) if torch.is_tensor(v) else
+                      {n: t.to(dev, copy=True) for n, t in v.items()}) for k, v in base.items()}
+        state = TrainState.create(params, adamw())
+        step = make_train_step(lambda p, b: llama.loss_and_weight_fn(p, b, cfg))
+        batch = {"tokens": toks[:, :-1].to(dev), "targets": toks[:, 1:].to(dev)}
+        hist[dev] = [tuple(float(x) for x in step(state, batch)[1].values()) for _ in range(3)]
+    np.testing.assert_allclose(hist["cuda"], hist["cpu"], rtol=1e-4)

@@ -44,7 +44,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
 
 def test_port_imports_without_jax_triton_or_gpu():
     """Every module of the port imports with jax, optax, ray_tpu and triton
-    blocked, and the plain path runs a decode step on the CPU."""
+    blocked, and the plain path runs a decode step and a train step on the
+    CPU."""
     code = """
 import sys
 for name in ("jax", "jaxlib", "optax", "ray_tpu", "triton"):
@@ -52,13 +53,25 @@ for name in ("jax", "jaxlib", "optax", "ray_tpu", "triton"):
 import ray_tpu_torch
 import ray_tpu_torch.llm, ray_tpu_torch.llm.decode_loop
 import ray_tpu_torch.ops._build, ray_tpu_torch.ops.ragged
-import torch
+import ray_tpu_torch.ops.attention, ray_tpu_torch.ops.flash
+import ray_tpu_torch.nn.layers, ray_tpu_torch.models.llama
+import ray_tpu_torch.train, ray_tpu_torch.train.step
+import dataclasses, torch
 from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.llama import LLAMA_TINY
+from ray_tpu_torch.train import TrainState, adamw, make_train_step
 eng = LLMEngine(EngineConfig(model=LLAMA_TINY, num_blocks=32, block_size=4,
                              max_num_seqs=2, max_prefill_len=32), device="cpu")
 out = eng.generate([[5, 6, 7]], SamplingParams(max_tokens=3, temperature=0.0))
 assert len(out[0]) == 3
+cfg = dataclasses.replace(LLAMA_TINY, attention_impl="flash", remat=True)
+state = TrainState.create(llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
+                          adamw())
+step = make_train_step(lambda p, b: llama.loss_and_weight_fn(p, b, cfg))
+toks = torch.randint(0, cfg.vocab_size, (2, 17))
+state, m = step(state, {"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+assert torch.isfinite(m["loss"]) and state.step == 1
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")

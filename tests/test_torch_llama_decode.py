@@ -171,7 +171,8 @@ def test_params_from_numpy_checks_the_tree():
     assert params["layers"]["wq"].shape == (2, 64, 64)
     assert params["lm_head"].dtype == torch.float32
     np.testing.assert_array_equal(params["embed"].numpy(), tree["embed"])
-    bf16 = tllama.params_from_numpy(tree, dataclasses.replace(tc, dtype=torch.bfloat16), "cpu")
+    bf16 = tllama.params_from_numpy(tree, dataclasses.replace(tc, param_dtype=torch.bfloat16),
+                                    "cpu")
     assert bf16["layers"]["w_up"].dtype == torch.bfloat16
     with pytest.raises(ValueError, match="untied"):
         tllama.params_from_numpy({k: v for k, v in tree.items() if k != "lm_head"}, tc, "cpu")
