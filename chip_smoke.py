@@ -9,7 +9,7 @@ Phases, each printing one JSON line:
   device   card name and power limit; TF32 off for matmuls and cuDNN, so
            fp32 means fp32 on the card
   build    compile the CUDA kernels from ops/csrc (one nvcc per source,
-           started together)
+           started together); ptxas registers and spills per kernel
   kernels  the paged and ragged kernels against their plain PyTorch
            versions at the LLAMA3_8B engine shapes (H 32, KVH 8, D 128,
            block_size 16) and at D 64, in bf16 (band 2e-2) and fp32 (band
@@ -21,8 +21,14 @@ Phases, each printing one JSON line:
            plain versions (gradients with a nonzero lse cotangent) at the
            train shape (B 8, S 1024, H 16, KVH 8, D 64), the 8B head shape
            (H 32, KVH 8, D 128, S 2048), a two-segment S 1000 case and a
-           q_offset case, bf16 and fp32, with the reference's allclose
-           bands; times at the train shape beside SDPA
+           q_offset case, bf16 (tensor-core kernels) and fp32 (CUDA-core
+           kernels), with the reference's allclose bands; the bf16
+           backward launched twice must give the same bits. Times at the
+           train shape beside the bound, SDPA (the forward alone for K1,
+           the backward alone for K2) and the earlier CUDA-core kernels'
+           bf16 time, with TFLOP/s, the
+           bound's share, the dK/dV vs dQ split (torch.profiler) and the
+           wrapper's delta ops
   engine   LLMEngine at LLAMA3_8B width (bf16, 32 layers, random weights
            from a seeded generator on the card), mixed batching, 12
            requests; the kernels' launch counters are zeroed just before
@@ -36,7 +42,8 @@ Phases, each printing one JSON line:
            initial loss near ln V, timed runs of 10 and 30 chained steps
            linear in the count, the loss decreasing, MFU in (0, 1]; the
            flash counters are zeroed just before the steps and read just
-           after; then one step under torch.profiler
+           after; then one step under torch.profiler (it fails if a flash
+           kernel launched but its kernel-name group reads no time)
   train_parity  a small fp32 model trained 5 steps on the card and on
            the CPU from the same params and batch: losses, grad norms and
            params within the bands stated at PARITY_*
@@ -274,6 +281,30 @@ def _close(name, got, ref, band, results) -> float:
     return err
 
 
+# bf16 at the train shape: the CUDA-core kernels that served bf16 before
+# the tensor-core kernels (PERF.md's kernel table, measured by this script
+# on an NVIDIA H100 80GB HBM3, 700 W) and the times the tensor-core
+# kernels are held to
+CUDA_CORE_MS = {"flash_fwd": 0.7003, "flash_bwd": 2.6348}
+TARGET_MS = {"flash_fwd": 0.12, "flash_bwd": 0.45}
+
+
+def _split_ms(fn, names, reps: int = 10) -> dict:
+    """Mean device ms per call of each kernel whose name contains one of
+    ``names``, from torch.profiler over ``reps`` calls of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    _, by_name = _device_time(prof)
+    return {n: sum(ms for k, ms, _ in by_name if n in k) / reps for n in names}
+
+
 def flash_kernels_phase(dev) -> dict:
     """Hold the flash forward and backward kernels against their plain
     versions (gradients with a nonzero lse cotangent) and time both, with
@@ -336,6 +367,16 @@ def flash_kernels_phase(dev) -> dict:
             checks[-1]["grad_max_abs"] = [float(r.float().abs().max()) for r in ref_g]
             if label != "train":
                 continue
+            # the bf16 backward is deterministic (no atomics): a second launch
+            # on the same inputs gives the same bits
+            if dn == "bfloat16":
+                again = flash_bwd_cuda(*bargs, **kw)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got_g, again))
+                checks.append({"check": f"flash_bwd bitwise repeatable {tag} [{dn}]", "ok": same})
+                if not same:
+                    raise AssertionError(f"flash_bwd {tag}: two launches on the same inputs differ")
+                del again
             # timings at the train shape: the bound counts each input read
             # once and each output written once, and the visible pairs
             _, valid = _masks(B, Sq, Sk, causal, q_off, qseg, kseg, dev)
@@ -359,25 +400,49 @@ def flash_kernels_phase(dev) -> dict:
                                                      enable_gqa=True)
                 return torch.autograd.grad(out, (qg, kg, vg), dot)
 
+            # K2's like-for-like yardstick: SDPA's backward alone, on a graph
+            # kept from one forward
+            sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, scale=1.0,
+                                                      enable_gqa=True)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(sdpa_out, (qg, kg, vg), dot, retain_graph=True)
+
+            fwd_ms = time_ms(lambda: flash_fwd_cuda(q, k, v, **kw), iters=20)
+            bwd_ms = time_ms(lambda: flash_bwd_cuda(*bargs, **kw), iters=20)
+
             summary.setdefault("flash_fwd", {})[dn] = {
-                "max_abs_err": err_o,
-                "ms": time_ms(lambda: flash_fwd_cuda(q, k, v, **kw), iters=20),
+                "max_abs_err": err_o, "ms": fwd_ms,
                 "plain_ms": time_ms(lambda: flash_attention_fwd_torch(q, k, v, **kw),
                                     iters=5, warmup=1),
                 "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
                 "library_ms": time_ms(sdpa_fwd, iters=20), "shape": tag + " causal",
+                "gflop": fwd_flops / 1e9, "tflops": fwd_flops / fwd_ms / 1e9,
+                "bound_share": fwd_bound[0] / fwd_ms,
+                **({"cuda_core_ms": CUDA_CORE_MS["flash_fwd"], "target_ms": TARGET_MS["flash_fwd"]}
+                   if dn == "bfloat16" else {}),
             }
             summary.setdefault("flash_bwd", {})[dn] = {
-                "max_abs_err": err_g,
-                "ms": time_ms(lambda: flash_bwd_cuda(*bargs, **kw), iters=20),
+                "max_abs_err": err_g, "ms": bwd_ms,
                 "plain_ms": time_ms(lambda: flash_attention_bwd_torch(*bargs, **kw),
                                     iters=5, warmup=1),
                 "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
-                "library_ms": time_ms(sdpa_fwd_bwd, iters=20),
+                "library_ms": time_ms(sdpa_bwd, iters=20),
+                "library_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, iters=20),
                 "shape": tag + " causal, dlse != 0",
-                "library_note": "SDPA forward + backward",
+                "library_note": "SDPA backward alone (library_fwd_bwd_ms: forward + backward)",
+                "gflop": 2.5 * fwd_flops / 1e9, "tflops": 2.5 * fwd_flops / bwd_ms / 1e9,
+                "bound_share": bwd_bound[0] / bwd_ms,
+                "kernels_ms": _split_ms(lambda: flash_bwd_cuda(*bargs, **kw),
+                                        ("flash_dkv_kernel", "flash_dq_kernel")),
+                # the wrapper's delta = rowsum(dO * O) - dlse (PyTorch ops), in "ms"
+                "delta_ms": time_ms(lambda: (do.to(torch.float32, copy=True).mul_(ref_o)
+                                             .sum(-1).transpose(1, 2) - dlse).contiguous(),
+                                    iters=20),
+                **({"cuda_core_ms": CUDA_CORE_MS["flash_bwd"], "target_ms": TARGET_MS["flash_bwd"]}
+                   if dn == "bfloat16" else {}),
             }
-            del ref_g, got_g
+            del ref_g, got_g, sdpa_out
         torch.cuda.empty_cache()
     emit({"phase": "flash_kernels", "checks": checks, "timings": summary,
           "library_note": "scaled_dot_product_attention(is_causal, enable_gqa) on [B, H, S, D] "
@@ -700,12 +765,17 @@ def _profile_train(step, state, batch) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from ray_tpu_torch.ops.flash import flash_bwd_cuda, flash_fwd_cuda
+
     torch.cuda.synchronize()
+    fwd0, bwd0 = flash_fwd_cuda.launches, flash_bwd_cuda.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         float(metrics["loss"])
         wall = time.perf_counter() - t0
+    launches = {"flash_fwd": flash_fwd_cuda.launches - fwd0,
+                "flash_bwd": flash_bwd_cuda.launches - bwd0}
     busy_ms, by_name = _device_time(prof)
     device_ms = sum(ms for _, ms, _ in by_name)
 
@@ -714,7 +784,14 @@ def _profile_train(step, state, batch) -> dict:
 
     groups = {"gemm_ms": share(*GEMM_WORDS), "flash_fwd_ms": share("flash_fwd_kernel"),
               "flash_bwd_ms": share("flash_dkv_kernel", "flash_dq_kernel")}
+    # the groups match kernel names: a renamed kernel must not read as 0 ms
+    for name, n in launches.items():
+        if n > 0 and groups[f"{name}_ms"] <= 0.0:
+            raise AssertionError(f"train_profile: {n} {name} launches but no device time "
+                                 f"under its kernel names: {[k for k, _, _ in by_name[:20]]}")
     return {
+        "flash_launches": launches,
+        "flash_ms": groups["flash_fwd_ms"] + groups["flash_bwd_ms"],
         "phase": "train_profile", "wall_ms_profiled": wall * 1e3, "device_busy_ms": busy_ms,
         "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / 1e3 / wall,
         "device_kernel_ms": device_ms, **groups,
@@ -800,6 +877,22 @@ SOURCES = {
 }
 
 
+def _ptxas_summary(log: str) -> list:
+    """One line per kernel from ``nvcc -Xptxas -v``: the entry's (mangled)
+    name, its registers, and its stack and spills."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln and name is not None:
+            regs = ln.split("Used", 1)[-1].split(",")[0].strip()
+            out.append(f"{name}: {regs}; {spill}")
+            name, spill = None, ""
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -831,8 +924,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     built = _build.build()  # every kernel, one nvcc per source, started together
-    ptxas = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-             for name, log in _build.build_logs.items()}
+    ptxas = {name: _ptxas_summary(log) for name, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": {k: round(v, 2) for k, v in built.items()}, "ptxas": ptxas})
     timings, launches = {}, {}

@@ -1,6 +1,7 @@
-// Shared core of the flash-attention training kernels (flash_fwd.cu,
+// Shared core of the fp32 flash-attention training kernels (flash_fwd.cu,
 // flash_bwd.cu): 64 x 64 tiles of scores computed on fp32 CUDA cores from
-// operands staged in shared memory.
+// operands staged in shared memory. bf16 inputs take the tensor-core
+// kernels built on flash_sm90.cuh instead.
 //
 // Thread map (256 threads, 8 warps): thread (tr, tc) = (tid / 16, tid % 16).
 //  * A score tile S[r][c] (64 rows x 64 columns): the thread owns rows
@@ -40,12 +41,10 @@ constexpr int kPad = 4;            // floats of padding after each operand row
 __device__ __forceinline__ float minus_inf() { return __int_as_float(0xff800000); }
 
 // Round to the input dtype and back, where the reference casts p or dS
-// to the input dtype before a product.
+// to the input dtype before a product (a no-op for fp32, the one type
+// these kernels are built for).
 template <typename T> __device__ __forceinline__ float round_to(float x);
 template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 __device__ __forceinline__ float group16_max(float x) {
 #pragma unroll

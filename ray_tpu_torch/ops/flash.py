@@ -8,7 +8,9 @@
  * ``flash_fwd_cuda`` / ``flash_bwd_cuda`` — launch the hand-written
    Hopper kernels ``csrc/flash_fwd.cu`` (replacing the Pallas
    ``_fwd_kernel``) and ``csrc/flash_bwd.cu`` (replacing
-   ``_bwd_fused_kernel``, ``_dq_kernel`` and ``_dkv_kernel``).
+   ``_bwd_fused_kernel``, ``_dq_kernel`` and ``_dkv_kernel``): bf16 runs
+   on the tensor cores (wgmma, ``csrc/flash_sm90.cuh``), fp32 on the CUDA
+   cores. ``check_kernel_shape`` says what each dtype's kernels take.
  * ``flash_attention`` — the public function, with the reference's
    checks and signature (less the TPU block and fold knobs). Its gradient
    is a ``torch.autograd.Function``; both of its passes take the plain
@@ -44,7 +46,10 @@ from ray_tpu_torch.ops.paged_attention import pick_impl, raise_on_error
 NEG_INF = -1e30  # finite: -inf would breed NaN through (-inf) - (-inf)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_ROWS = 64  # q rows per kernel tile; the GQA group must divide it
+# fp32 runs on CUDA cores with the G heads of a GQA group folded into one
+# 64-row tile, so G must divide 64; bf16 runs on the tensor cores (wgmma)
+# with one CTA per q head, so any whole group works
+_FP32_ROWS = 64
 
 
 def _masks(B, Sq, Sk, causal, q_offset, qseg, kseg, device):
@@ -120,21 +125,31 @@ def flash_attention_bwd_torch(q, k, v, o, lse, do, dlse=None, qseg=None, kseg=No
 # ---------------------------------------------------------------------------
 
 
+def check_kernel_shape(name, dtype, H: int, KVH: int, D: int) -> None:
+    """Raise unless the kernels of ``dtype`` take this head layout: head_dim
+    64 or 128; H a whole multiple of KVH; for fp32 also a group that
+    divides 64 (bf16 takes any whole group)."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {dtype} not supported (float32, bfloat16)")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {D} not supported {_HEAD_DIMS}")
+    if KVH <= 0 or H % KVH:
+        raise ValueError(f"{name}: GQA group {H}/{KVH} must be whole")
+    if dtype == torch.float32 and _FP32_ROWS % (H // KVH):
+        raise ValueError(f"{name}: GQA group {H}/{KVH} must divide {_FP32_ROWS} for the fp32 "
+                         f"kernel (bf16 takes any whole group)")
+
+
 def _check(name, q, k, v, qseg, kseg, extra=()):
-    """What the kernels take; anything else raises before launch."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: q is on {q.device}, the kernel needs CUDA tensors")
+    """What the kernels take; anything else raises before launch. The
+    shape checks come first, so they also hold for CPU tensors."""
     B, Sq, H, D = q.shape
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"{name}: k/v must be [B, Sk, KVH, {D}], got "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name}: dtype {q.dtype} not supported (float32, bfloat16)")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {D} not supported {_HEAD_DIMS}")
-    KVH = k.shape[2]
-    if H % KVH or _ROWS % (H // KVH):
-        raise ValueError(f"{name}: GQA group {H}/{KVH} must be whole and divide {_ROWS}")
+    check_kernel_shape(name, q.dtype, H, k.shape[2], D)
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: q is on {q.device}, the kernel needs CUDA tensors")
     for t_name, t in (("q", q), ("k", k), ("v", v), *extra):
         if t.device != q.device:
             raise ValueError(f"{name}: {t_name} is on {t.device}, q on {q.device}")
@@ -202,7 +217,9 @@ def flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, qseg=None, kseg=None, *,
     if o.shape != q.shape:
         raise ValueError(f"flash_bwd: o shape {tuple(o.shape)} != q shape {tuple(q.shape)}")
     B, Sq, H, D = q.shape
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    # the same fp32 products and sum as (do.float() * o.float()).sum(-1),
+    # with one fp32 copy instead of three (mul_ reads o in its own dtype)
+    delta = do.to(torch.float32, copy=True).mul_(o).sum(-1).transpose(1, 2)
     if dlse is not None:
         delta = delta - dlse.float()
     delta = delta.contiguous()

@@ -154,11 +154,23 @@ def _close(got, ref, band):
     (128, 8, 2, 130, True, 0, True),     # two segments, GQA 4
     (64, 4, 4, 96, False, 0, True),      # bidirectional, MHA
     (128, 8, 8, 64, True, 40, False),    # q_offset, Sk > Sq
+    (64, 16, 4, 1000, True, 0, True),    # S 1000: no multiple of the 64/128-row tiles, segments
+    (128, 16, 8, 200, True, 800, False), # Sq 200 into Sk 1000 at q_offset 800
+    (64, 32, 4, 150, True, 0, False),    # GQA 8
+    (64, 16, 1, 136, True, 0, True),     # GQA 16
+    (128, 12, 4, 72, False, 0, False),   # GQA 3: bf16 only (fp32 folds groups dividing 64)
 ])
 def test_flash_kernels_match_plain(D, H, KVH, S, causal, q_offset, segments, dtype):
     _need_cuda()
     Sk = S + q_offset
     q, k, v, do, dlse = _flash_case(1, 2, S, Sk, H, KVH, D, dtype)
+    if dtype == torch.float32 and 64 % (H // KVH):
+        # a shape the fp32 kernel does not take raises in the wrapper
+        f0 = tfl.flash_fwd_cuda.launches
+        with pytest.raises(ValueError, match="GQA group"):
+            tfl.flash_fwd_cuda(q.cuda(), k.cuda(), v.cuda())
+        assert tfl.flash_fwd_cuda.launches == f0
+        return
     seg = None
     if segments:
         seg = torch.stack([(torch.arange(S) >= b).int() for b in (S // 3, S // 2)])
@@ -175,21 +187,56 @@ def test_flash_kernels_match_plain(D, H, KVH, S, causal, q_offset, segments, dty
         _close(got, ref, FLASH[("bwd", dtype)])
 
 
-def test_flash_kernel_fully_masked_rows_follow_pallas():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_fully_masked_rows_follow_pallas(dtype):
     """q rows in a segment the kv side lacks: the mean of V over the row's
-    window and lse ~ NEG_INF, zero gradient (ROADMAP Queue 3)."""
+    window and lse ~ NEG_INF, zero gradient (ROADMAP Queue 3); on both the
+    fp32 CUDA-core and the bf16 tensor-core kernels."""
     _need_cuda()
-    q, k, v, do, dlse = _flash_case(2, 1, 64, 64, 4, 2, 64, torch.float32)
+    q, k, v, do, dlse = _flash_case(2, 1, 64, 64, 4, 2, 64, dtype)
     qseg = torch.cat([torch.full((1, 8), 7), torch.zeros(1, 56)], 1).int()
     kseg = torch.zeros(1, 64, dtype=torch.int32)
     ref_o, ref_lse = tfl.flash_attention_fwd_torch(q, k, v, qseg, kseg, causal=False)
     o, lse = tfl.flash_fwd_cuda(*(t.cuda() for t in (q, k, v, qseg, kseg)), causal=False)
-    _close(o, ref_o, 2e-5)
-    _close(lse, ref_lse, 2e-5)
-    torch.testing.assert_close(o[0, :8, 0].cpu(), v[0, :, 0].mean(0).expand(8, 64))
+    band = FLASH[("fwd", dtype)]
+    _close(o, ref_o, band)
+    _close(lse, ref_lse, band)
+    torch.testing.assert_close(o[0, :8, 0].float().cpu(),
+                               v[0, :, 0].float().mean(0).expand(8, 64), rtol=band, atol=band)
     g = tfl.flash_bwd_cuda(*(t.cuda() for t in (q, k, v, ref_o, ref_lse, do, dlse, qseg, kseg)),
                            causal=False)
     assert float(g[0][0, :8].abs().max()) == 0.0
+
+
+def test_flash_bf16_backward_is_deterministic():
+    """No atomics: two backward launches on the same inputs give the same
+    bits (S 1000 with segments and GQA 4, so every tile edge is crossed)."""
+    _need_cuda()
+    q, k, v, do, dlse = (t.cuda() for t in _flash_case(4, 2, 1000, 1000, 16, 4, 64, torch.bfloat16))
+    seg = torch.stack([(torch.arange(1000) >= b).int() for b in (300, 700)]).cuda()
+    o, lse = tfl.flash_fwd_cuda(q, k, v, seg, seg)
+    first = tfl.flash_bwd_cuda(q, k, v, o, lse, do, dlse, seg, seg)
+    second = tfl.flash_bwd_cuda(q, k, v, o, lse, do, dlse, seg, seg)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert all(float(g.float().abs().max()) > 0 for g in first)
+
+
+@pytest.mark.parametrize("B,S,H,KVH", [(1, 256, 4, 2), (2, 1000, 16, 4)])
+def test_flash_fp32_backward_bit_identical_to_plain_on_card(B, S, H, KVH):
+    """The fp32 CUDA-core backward stays as it was: its sums are the plain
+    version's fp32 FMA chains in cuBLAS's SGEMM order, so on the card the
+    two agree bit for bit (TF32 off)."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, dlse = (t.cuda() for t in _flash_case(5, B, S, S, H, KVH, 64, torch.float32))
+    o, lse = tfl.flash_attention_fwd_torch(q, k, v)
+    got = tfl.flash_bwd_cuda(q, k, v, o, lse, do, dlse)
+    ref = tfl.flash_attention_bwd_torch(q, k, v, o, lse, do, dlse)
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", got, ref):
+        assert torch.equal(a, b), f"d{name}: max diff {float((a - b).abs().max())}"
 
 
 def test_flash_counts_launches_and_refuses_bad_input():

@@ -169,6 +169,36 @@ def test_plain_backward_formulas_take_dlse():
     assert not torch.allclose(shifted[0], base[0])
 
 
+@pytest.mark.parametrize("dtype,H,KVH,D,match", [
+    (torch.bfloat16, 96, 1, 64, None),        # bf16 (tensor cores): any whole group
+    (torch.bfloat16, 24, 8, 128, None),
+    (torch.float32, 96, 1, 64, "divide 64"),  # fp32 folds the group into a 64-row tile
+    (torch.bfloat16, 6, 4, 64, "whole"),
+    (torch.bfloat16, 4, 2, 96, "head_dim"),
+    (torch.float16, 4, 2, 64, "dtype"),
+])
+def test_kernel_shape_checks_per_dtype_raise_before_launch(dtype, H, KVH, D, match):
+    """The wrappers' checks of what each dtype's kernels take run before
+    the device check, so they hold here; shapes the kernels take reach the
+    device check (CPU tensors) and nothing launches."""
+    q = torch.zeros(1, 8, H, D, dtype=dtype)
+    k = v = torch.zeros(1, 8, KVH, D, dtype=dtype)
+    lse = torch.zeros(1, H, 8)
+    f0, b0 = tflash.flash_fwd_cuda.launches, tflash.flash_bwd_cuda.launches
+    calls = (lambda: tflash.flash_fwd_cuda(q, k, v),
+             lambda: tflash.flash_bwd_cuda(q, k, v, q, lse, q))
+    for call in calls:
+        if match is None:
+            with pytest.raises(ValueError, match="CUDA tensors"):
+                call()
+        else:
+            with pytest.raises((ValueError, TypeError), match=match):
+                call()
+    assert (tflash.flash_fwd_cuda.launches, tflash.flash_bwd_cuda.launches) == (f0, b0)
+    if match is None:
+        tflash.check_kernel_shape("x", dtype, H, KVH, D)
+
+
 def test_dispatch_and_checks():
     q, k, v = _t(*_qkv(9, 1, 16, 16, 4, 2, 64))
     before = tflash.flash_fwd_cuda.launches
