@@ -13,10 +13,14 @@ Phases, each printing one JSON line:
   kernels  the paged and ragged kernels against their plain PyTorch
            versions at the LLAMA3_8B engine shapes (H 32, KVH 8, D 128,
            block_size 16) and at D 64, in bf16 (band 2e-2) and fp32 (band
-           2e-5); times from CUDA events (median of 30 after warm-up)
-           beside the bytes/operations bound and a PyTorch yardstick
-           (scaled_dot_product_attention on K/V already gathered dense,
-           gather excluded; the port never calls it)
+           2e-5); decode-only ragged must equal paged bit for bit, and two
+           launches of each kernel must give the same bits. Times from
+           CUDA events around 30 calls queued behind a spin kernel (no
+           host launch cost, no idle gaps), kernel and yardstick in turns
+           over 3 rounds, beside the bytes/operations bound, the
+           kernel's GB/s and its share of the bound; the yardstick is
+           scaled_dot_product_attention on K/V already gathered dense
+           (gather excluded; the port never calls it)
   flash_kernels  the flash forward and backward kernels against their
            plain versions (gradients with a nonzero lse cotangent) at the
            train shape (B 8, S 1024, H 16, KVH 8, D 64), the 8B head shape
@@ -50,7 +54,9 @@ Phases, each printing one JSON line:
 
 The engine phase also serves the same requests twice more: warm (its
 numbers say what the first pass spent on first-call costs) and under
-torch.profiler (device busy time and idle share, time by kernel).
+torch.profiler (device busy time and idle share, time by kernel, and the
+paged and ragged kernel families by name prefix with their launches; it
+fails if a family's wrapper ran but its prefix reads no device time).
 
 Then the line {"kernels": [...]}, the nvidia-smi name/power line, and
 last {"ok": true, "device": {...}}. Any failed check raises, so the
@@ -82,23 +88,40 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# cycles of torch.cuda._sleep that park the card while the host queues a
+# timed run (tens of ms at any clock the card runs at)
+PARK_CYCLES = 50_000_000
+
+
 def time_ms(fn, iters: int = 30, warmup: int = 5) -> float:
-    """Median device time of one call, from CUDA events."""
-    import numpy as np
+    """Device time of one call, from CUDA events around ``iters`` calls
+    queued back to back behind a spin kernel: the host's launch cost stays
+    out of the reading (it exceeds the serving kernels' own time), and the
+    card runs the calls without idle gaps that would let its clock drop."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    events = []
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(PARK_CYCLES)
+    s.record()
     for _ in range(iters):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
         fn()
-        e.record()
-        events.append((s, e))
+    e.record()
     torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in events]))
+    return s.elapsed_time(e) / iters
+
+
+def time_rounds(fns: dict, rounds: int = 3, iters: int = 30) -> dict:
+    """Median device ms of each callable, timed in turns (a, b, a, b, ...)
+    over ``rounds`` rounds in this call: a yardstick whose reading drifts
+    between calls is read beside the kernel each time."""
+    out = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            out[name].append(time_ms(fn, iters=iters))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -122,10 +145,51 @@ def _paged_case(gen, dev, dtype, B, H, KVH, D, bs, ctx_lens, MB):
     return q, k, v, bt.contiguous(), ctx
 
 
+def _split_sweep(q, k, v, bt, ctx, bs) -> dict:
+    """The paged kernel's time at other split counts than the host rule's,
+    on these inputs and on every context at the table's full width (over
+    distinct pages): the measurement behind ``num_splits``."""
+    import torch
+
+    from ray_tpu_torch.ops.paged_attention import _DTYPE_CODES, _paged_lib
+
+    lib = _paged_lib()
+    B, H, D = q.shape
+    KVH, MB = k.shape[0], bt.shape[1]
+    full = torch.full_like(ctx, MB * bs)
+    bt_full = torch.randperm(B * MB, device=q.device).reshape(B, MB).int()
+    out = torch.empty_like(q)
+    sweep = {}
+    for label, lens, table in (("these contexts", ctx, bt), ("all at the full width", full, bt_full)):
+        for splits in (1, 2, 3, 4, 8):
+            ws = torch.empty(B, H, splits, D + 2, device=q.device) if splits > 1 else None
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(), lens.data_ptr(),
+                    out.data_ptr(), B, H, KVH, D, k.shape[1], MB, bs, splits,
+                    None if ws is None else ws.data_ptr(), _DTYPE_CODES[q.dtype],
+                    torch.cuda.current_stream().cuda_stream)
+            rc = lib.paged_attention_launch(*args)
+            if rc:
+                raise AssertionError(f"paged_attention at {splits} splits: cudaError {rc}")
+            sweep.setdefault(label, {})[splits] = time_ms(lambda: lib.paged_attention_launch(*args))
+    return sweep
+
+
 def _bound(bytes_moved: float, ops: float, dtype: str) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _rate(rounds: dict, bytes_moved: float, bound: float, by: str) -> dict:
+    """A kernel's time (median of its rounds) beside the yardstick's, with
+    its bytes per second and its share of the bound."""
+    import numpy as np
+
+    ms = float(np.median(rounds["ms"]))
+    return {"ms": ms, "library_ms": float(np.median(rounds["library_ms"])),
+            "rounds_ms": rounds["ms"], "rounds_library_ms": rounds["library_ms"],
+            "bound_ms": bound, "bound_by": by, "gb_per_s": bytes_moved / ms / 1e6,
+            "bound_share": bound / ms}
 
 
 def _check(name, got, ref, dtype_name, results):
@@ -146,7 +210,9 @@ def kernels_phase(dev) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda, paged_attention_torch
+    from ray_tpu_torch.ops.paged_attention import (
+        num_splits, paged_attention_cuda, paged_attention_torch, sm_count,
+    )
     from ray_tpu_torch.ops.ragged import ragged_attention_cuda, ragged_attention_torch
 
     gen = torch.Generator(device=dev)
@@ -183,8 +249,14 @@ def kernels_phase(dev) -> dict:
             # the decode-only ragged case is the paged kernel
             cu = torch.arange(B + 1, dtype=torch.int32, device=dev)
             got4 = ragged_attention_cuda(q, k, v, bt, cu, ctx, block_size=bs, max_q_len=1)
+            again = paged_attention_cuda(q, k, v, bt, ctx, block_size=bs)
             torch.cuda.synchronize()
-            _check(f"ragged_attention decode-only == paged D{D}", got4, got, dn, checks)
+            # one split-KV core in both libraries: the same bits, launch after launch
+            same = {"ragged decode-only == paged": torch.equal(got4, got),
+                    "paged twice": torch.equal(again, got)}
+            checks.append({"check": f"bitwise D{D}", "dtype": dn, **same})
+            if not all(same.values()):
+                raise AssertionError(f"paged/ragged decode D{D} [{dn}]: bits differ: {same}")
             if D != 128:
                 continue
             elt = q.element_size()
@@ -195,12 +267,15 @@ def kernels_phase(dev) -> dict:
             qd = q[:, :, None, :]
             kd, vd = dense_kv(k, v, bt, KVH)
             mask = (torch.arange(MB * bs, device=dev)[None, :] < ctx[:, None])[:, None, None, :]
+            rounds = time_rounds({
+                "ms": lambda: paged_attention_cuda(q, k, v, bt, ctx, block_size=bs),
+                "library_ms": sdpa(qd, kd, vd, mask, H, KVH)})
             summary.setdefault("paged_attention", {})[dn] = {
                 "max_abs_err": err,
-                "ms": time_ms(lambda: paged_attention_cuda(q, k, v, bt, ctx, block_size=bs)),
+                **_rate(rounds, bytes_moved, bound, by),
                 "plain_ms": time_ms(lambda: paged_attention_torch(q, k, v, bt, ctx, block_size=bs)),
-                "bound_ms": bound, "bound_by": by,
-                "library_ms": time_ms(sdpa(qd, kd, vd, mask, H, KVH)),
+                "splits": num_splits(B, KVH, MB * bs, sm_count(dev)),
+                "split_sweep_ms": _split_sweep(q, k, v, bt, ctx, bs),
                 "shape": f"B{B} H{H} KVH{KVH} D{D} bs{bs} ctx 0..2048 (sum {n_kv})",
             }
 
@@ -221,9 +296,12 @@ def kernels_phase(dev) -> dict:
             cu = torch.tensor(np.concatenate([[0], np.cumsum(q_lens)]), dtype=torch.int32, device=dev)
             run = lambda: ragged_attention_cuda(q, k, v, bt, cu, ctx, block_size=bs, max_q_len=256)  # noqa: E731
             got = run()
+            again = run()
             ref = ragged_attention_torch(q, k, v, bt, cu, ctx, block_size=bs)
             torch.cuda.synchronize()
             err = _check(f"ragged_attention mixed D{D}", got, ref, dn, checks)
+            if not torch.equal(got, again):
+                raise AssertionError(f"ragged_attention mixed D{D} [{dn}]: two launches differ")
             if float(got[T:].float().abs().max()) != 0.0:
                 raise AssertionError("ragged_attention wrote packed rows past cu_q_lens[B]")
             if D != 128:
@@ -246,12 +324,15 @@ def kernels_phase(dev) -> dict:
             kvpos = torch.arange(MB * bs, device=dev)
             mask = ((kvpos[None, None, :] <= qpos[:, :, None])
                     & (kvpos[None, None, :] < ctx[:, None, None].long()))[:, None]
+            rounds = time_rounds({"ms": run, "library_ms": sdpa(qd, kd, vd, mask, H, KVH)})
             summary.setdefault("ragged_attention", {})[dn] = {
                 "max_abs_err": err,
-                "ms": time_ms(run),
+                **_rate(rounds, bytes_moved, bound, by),
                 "plain_ms": time_ms(lambda: ragged_attention_torch(q, k, v, bt, cu, ctx, block_size=bs)),
-                "bound_ms": bound, "bound_by": by,
-                "library_ms": time_ms(sdpa(qd, kd, vd, mask, H, KVH)),
+                "kernels_ms": _split_ms(run, ("ragged_attention_decode_kernel",
+                                              "ragged_attention_combine_kernel",
+                                              "ragged_attention_chunk_kernel",
+                                              "ragged_attention_kernel<")),
                 "shape": f"T{T}(pad {T_pad}) q_lens 256+128+12x1+2x0 H{H} KVH{KVH} D{D} bs{bs}",
             }
     emit({"phase": "kernels", "checks": checks, "timings": summary,
@@ -567,28 +648,55 @@ def _serve(eng, prompts, sps, tag):
     return finals, reqs, time.perf_counter() - t0, steps
 
 
+# kernel-name prefixes of the serving kernels' families: the paged family
+# (split-KV kernel and its combine kernel) and the ragged family (decode
+# rows, their combine, the bf16 chunk kernel, the fp32 chunk kernel)
+SERVING_FAMILIES = {"paged_attention": "paged_attention_", "ragged_attention": "ragged_attention_"}
+
+
 def _profile_serving(eng, prompts, sps) -> dict:
     """Serve under torch.profiler: device busy time (union of kernel
-    intervals) against the host wall time, and device time by kernel."""
+    intervals) against the host wall time, and device time by kernel and
+    by serving-kernel family. Raises if a family's wrapper launched but no
+    kernel of its name prefix shows device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from ray_tpu_torch.ops.ragged import ragged_attention_cuda
+
+    wrappers = {"paged_attention": paged_attention_cuda, "ragged_attention": ragged_attention_cuda}
+    before = {n: f.launches for n, f in wrappers.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, _, wall, _ = _serve(eng, prompts, sps, "p")
+    calls = {n: f.launches - before[n] for n, f in wrappers.items()}
     busy_ms, by_name = _device_time(prof)
     device_ms = sum(ms for _, ms, _ in by_name)
 
     def share(*words):
         return sum(ms for k, ms, _ in by_name if any(w in k for w in words))
 
+    families = {}
+    for fam, prefix in SERVING_FAMILIES.items():
+        kernels = [(k, ms, n) for k, ms, n in by_name if prefix in k]
+        ms = sum(x[1] for x in kernels)
+        if calls[fam] > 0 and ms <= 0.0:
+            raise AssertionError(f"engine_profile: {calls[fam]} {fam} calls but no device time "
+                                 f"under '{prefix}*': {[k for k, _, _ in by_name[:20]]}")
+        families[fam] = {
+            "ms": ms, "wrapper_calls": calls[fam],
+            "ms_per_call": ms / calls[fam] if calls[fam] else None,
+            "kernels": [{"name": k[:90], "ms": t, "launches": n, "ms_per_launch": t / n}
+                        for k, t, n in kernels],
+        }
     return {
         "phase": "engine_profile", "wall_s_profiled": wall,
         "device_busy_ms": busy_ms,
         "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / 1e3 / wall,
         "device_kernel_ms": device_ms,
-        "paged_attention_ms": share("paged_attention_kernel"),
-        "ragged_attention_ms": share("ragged_attention_kernel"),
+        "paged_attention_ms": families["paged_attention"]["ms"],
+        "ragged_attention_ms": families["ragged_attention"]["ms"],
+        "serving_families": families,
         "gemm_ms": share(*GEMM_WORDS),
         "top": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in by_name[:12]],
     }

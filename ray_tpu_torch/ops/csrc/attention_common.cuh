@@ -1,7 +1,10 @@
-// Shared core of the paged attention kernels (paged_attention.cu,
-// ragged_attention.cu): up to R query rows of ONE kv head attend over one
-// sequence's kv positions [0, kv_end), read through its block-table row
-// from the head-major paged cache [KVH, num_slots, D].
+// CUDA-core attention over the paged cache, and helpers the serving
+// kernels share. `attend` serves the fp32 prefill chunks of the ragged
+// kernel (ragged_attention.cu); decode rows go to the split-KV core
+// (decode_split.cuh) and bf16 chunks to the tensor cores. In `attend`, up
+// to R query rows of ONE kv head attend over one sequence's kv positions
+// [0, kv_end), read through its block-table row from the head-major paged
+// cache [KVH, num_slots, D].
 //
 // Bound on an H100: bytes. Decode and short-query attention do about one
 // multiply-add per K/V element they read (G query rows per kv head), far
@@ -33,22 +36,10 @@ constexpr float kNegInf = -1e30f;
 
 template <typename T> struct VecOf;        // 16-byte vector of T
 template <> struct VecOf<float> { static constexpr int n = 4; };
-template <> struct VecOf<__nv_bfloat16> { static constexpr int n = 8; };
 
 __device__ __forceinline__ void load16(const float* src, float* dst) {
   const float4 v = *reinterpret_cast<const float4*>(src);
   dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
 }
 
 __device__ __forceinline__ void store(float* dst, float x) { *dst = x; }

@@ -5,7 +5,9 @@
    softmax, mirroring ``paged_attention_xla``. The CPU path and the
    yardstick the CUDA kernel is held against.
  * ``paged_attention_cuda`` — launches the hand-written Hopper kernel
-   ``csrc/paged_attention.cu`` (replacing the Pallas ``_paged_attn_kernel``).
+   ``csrc/paged_attention.cu`` (replacing the Pallas ``_paged_attn_kernel``):
+   split-KV flash-decoding, with a split count fixed by shapes alone
+   (``num_splits``) and an fp32 workspace for the splits' partials.
  * ``paged_attention`` — dispatch: the plain version for CPU tensors, the
    kernel for CUDA tensors. Unlike the reference, whose ``auto`` means
    XLA everywhere, ``auto`` never runs the plain version on the card, and
@@ -28,7 +30,6 @@ import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_MAX_GROUP = 16  # query heads per kv head the decode kernel's row tile holds
 
 
 def paged_attention_torch(
@@ -62,13 +63,9 @@ def paged_attention_torch(
 
 def check_kernel_args(name: str, q, k_cache, v_cache, int_arrays: dict,
                       block_size: int) -> None:
-    """What the CUDA kernels take; anything else raises before launch."""
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: q is on {dev}, the kernel needs CUDA tensors")
-    for t_name, t in (("k_cache", k_cache), ("v_cache", v_cache), *int_arrays.items()):
-        if t.device != dev:
-            raise ValueError(f"{name}: {t_name} is on {t.device}, q on {dev}")
+    """What the CUDA kernels take; anything else raises before launch. The
+    device checks come last, so every other check also holds for CPU
+    tensors."""
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {q.dtype} not supported (float32, bfloat16)")
     if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
@@ -86,7 +83,7 @@ def check_kernel_args(name: str, q, k_cache, v_cache, int_arrays: dict,
     H, KVH = q.shape[-2], k_cache.shape[0]
     if H % KVH:
         raise ValueError(f"{name}: {H} query heads not a multiple of {KVH} kv heads")
-    if k_cache.shape[1] % block_size:
+    if block_size <= 0 or k_cache.shape[1] % block_size:
         raise ValueError(
             f"{name}: cache slots {k_cache.shape[1]} not a multiple of "
             f"block_size {block_size}"
@@ -99,6 +96,59 @@ def check_kernel_args(name: str, q, k_cache, v_cache, int_arrays: dict,
     for t_name, t in int_arrays.items():
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"{name}: {t_name} must be a contiguous int32 tensor")
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: q is on {dev}, the kernel needs CUDA tensors")
+    for t_name, t in (("k_cache", k_cache), ("v_cache", v_cache), *int_arrays.items()):
+        if t.device != dev:
+            raise ValueError(f"{name}: {t_name} is on {t.device}, q on {dev}")
+
+
+# Split-KV decode (csrc/decode_split.cuh): each (sequence, kv head)'s pages
+# are cut into `splits` ranges, one CTA each. The count comes from shapes
+# alone, never from the context lengths, so the engine's decode loop reads
+# nothing back and a (batch, table-width) bucket always launches the same
+# grid. One CTA per SM measured better than two (chip_smoke.py's
+# `split_sweep_ms`): more splits add merge work and shorten no split enough
+# to pay for it.
+SPLIT_MIN_POSITIONS = 256   # no split is cut shorter than this much of the table's width
+MAX_SPLITS = 32
+
+
+def num_splits(B: int, KVH: int, max_kv: int, sm_count: int) -> int:
+    """Splits per (sequence, kv head): enough CTAs for one on every SM,
+    but none covering less than SPLIT_MIN_POSITIONS positions of the
+    block table's width ``max_kv`` (= max_blocks * block_size)."""
+    if B * KVH <= 0 or max_kv <= 0:
+        return 1
+    want = -(-sm_count // (B * KVH))
+    cap = -(-max_kv // SPLIT_MIN_POSITIONS)
+    return max(1, min(want, cap, MAX_SPLITS))
+
+
+def split_plan(B: int, H: int, KVH: int, D: int, max_kv: int, sm_count: int):
+    """(splits, workspace shape): the fp32 partials [B, H, splits, D + 2]
+    (unnormalised output, running max, sum) that the combine kernel merges;
+    no workspace with one split, where the kernel writes the output."""
+    s = num_splits(B, KVH, max_kv, sm_count)
+    return s, ((B, H, s, D + 2) if s > 1 else None)
+
+
+_SM_COUNTS: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    n = _SM_COUNTS.get(device.index)
+    if n is None:
+        n = _SM_COUNTS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+def decode_workspace(q, H: int, KVH: int, D: int, B: int, max_kv: int):
+    """(splits, workspace tensor or None) for a launch on q's device."""
+    splits, shape = split_plan(B, H, KVH, D, max_kv, sm_count(q.device))
+    ws = None if shape is None else torch.empty(shape, dtype=torch.float32, device=q.device)
+    return splits, ws
 
 
 def raise_on_error(lib, name: str, rc: int) -> None:
@@ -115,33 +165,33 @@ def _paged_lib():
     lib = _build.load("paged_attention")
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
 
 def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens, *,
                          block_size: int) -> torch.Tensor:
-    """Launch ``csrc/paged_attention.cu`` on the current stream."""
+    """Launch ``csrc/paged_attention.cu`` on the current stream: the
+    split-KV kernel, then the combine kernel when there are several splits."""
     B, H, D = q.shape
+    if block_tables.ndim != 2 or block_tables.shape[0] != B or context_lens.shape != (B,):
+        raise ValueError("paged_attention: block_tables / context_lens batch != q batch")
     check_kernel_args(
         "paged_attention", q, k_cache, v_cache,
         {"block_tables": block_tables, "context_lens": context_lens}, block_size,
     )
-    if H // k_cache.shape[0] > _MAX_GROUP:
-        raise ValueError(
-            f"paged_attention: GQA group {H // k_cache.shape[0]} > {_MAX_GROUP}"
-        )
-    if block_tables.shape[0] != B or context_lens.shape != (B,):
-        raise ValueError("paged_attention: block_tables / context_lens batch != q batch")
+    KVH, MB = k_cache.shape[0], block_tables.shape[1]
+    splits, ws = decode_workspace(q, H, KVH, D, B, MB * block_size)
     out = torch.empty_like(q)
     lib = _paged_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.paged_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        B, H, k_cache.shape[0], D, k_cache.shape[1], block_tables.shape[1],
-        block_size, _DTYPE_CODES[q.dtype], stream,
+        B, H, KVH, D, k_cache.shape[1], MB, block_size, splits,
+        None if ws is None else ws.data_ptr(), _DTYPE_CODES[q.dtype], stream,
     )
     raise_on_error(lib, "paged_attention", rc)
     paged_attention_cuda.launches += 1

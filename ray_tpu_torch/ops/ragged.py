@@ -15,7 +15,11 @@ q_len = 1) is exactly ``paged_attention``.
    gather at [S, D] on the card). Packed rows past cu_q_lens[B] are 0,
    as the Pallas kernel leaves them.
  * ``ragged_attention_cuda`` — launches ``csrc/ragged_attention.cu``
-   (replacing the Pallas ``_ragged_attn_kernel``).
+   (replacing the Pallas ``_ragged_attn_kernel``). Two kinds of sequence:
+   q_len = 1 decode rows take the paged kernel's split-KV core (same split
+   count, same bits as ``paged_attention_cuda``); q_len >= 2 chunks take
+   the wgmma kernel in bf16 and the CUDA-core kernel in fp32. Each kernel
+   reads q_len on the device and skips the other kind.
  * ``ragged_attention`` — dispatch as in ``ops/paged_attention.py``.
 """
 
@@ -29,6 +33,7 @@ import torch
 from ray_tpu_torch.ops.paged_attention import (
     _DTYPE_CODES,
     check_kernel_args,
+    decode_workspace,
     pick_impl,
     raise_on_error,
 )
@@ -81,7 +86,8 @@ def _ragged_lib():
     lib = _build.load("ragged_attention")
     fn = lib.ragged_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -89,30 +95,33 @@ def _ragged_lib():
 def ragged_attention_cuda(q, k_cache, v_cache, block_tables, cu_q_lens, context_lens,
                           *, block_size: int, max_q_len: int) -> torch.Tensor:
     """Launch ``csrc/ragged_attention.cu`` on the current stream.
-    ``max_q_len`` sizes the grid; a longer sequence is still served in
-    full (each CTA strides over its sequence's row tiles)."""
+    ``max_q_len`` sizes the chunk grid; a longer sequence is still served
+    in full (each CTA strides over its sequence's row tiles)."""
     T, H, D = q.shape
-    check_kernel_args(
-        "ragged_attention", q, k_cache, v_cache,
-        {"block_tables": block_tables, "cu_q_lens": cu_q_lens,
-         "context_lens": context_lens}, block_size,
-    )
     B = context_lens.shape[0]
-    if block_tables.shape[0] != B or cu_q_lens.shape != (B + 1,):
+    if (context_lens.ndim != 1 or block_tables.ndim != 2 or block_tables.shape[0] != B
+            or cu_q_lens.shape != (B + 1,)):
         raise ValueError(
             "ragged_attention: block_tables [B, MB], cu_q_lens [B+1] and "
             "context_lens [B] disagree on B"
         )
     if max_q_len < 1:
         raise ValueError(f"max_q_len must be >= 1, got {max_q_len}")
+    check_kernel_args(
+        "ragged_attention", q, k_cache, v_cache,
+        {"block_tables": block_tables, "cu_q_lens": cu_q_lens,
+         "context_lens": context_lens}, block_size,
+    )
+    KVH, MB = k_cache.shape[0], block_tables.shape[1]
+    splits, ws = decode_workspace(q, H, KVH, D, B, MB * block_size)
     out = torch.zeros_like(q)  # rows past cu_q_lens[B] stay 0
     lib = _ragged_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.ragged_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), cu_q_lens.data_ptr(), context_lens.data_ptr(),
-        out.data_ptr(), B, H, k_cache.shape[0], D, k_cache.shape[1],
-        block_tables.shape[1], block_size, max_q_len, _DTYPE_CODES[q.dtype], stream,
+        out.data_ptr(), B, H, KVH, D, k_cache.shape[1], MB, block_size, max_q_len, splits,
+        None if ws is None else ws.data_ptr(), _DTYPE_CODES[q.dtype], stream,
     )
     raise_on_error(lib, "ragged_attention", rc)
     ragged_attention_cuda.launches += 1

@@ -41,31 +41,83 @@ def _paged_case(seed, ctx_lens, H=8, KVH=2, D=64, bs=4, MB=8, dtype=torch.float3
     return q, k, v, bt, ctx, bs
 
 
+# (kv heads, block_size, table width, contexts): one split at a narrow
+# table; split edges (ctx 0, 1, block_size, one split's exact page count
+# 256 = 16 pages, the full width 1024) with B x KVH below the SM count (4
+# splits); and B x KVH above it (one split a row, 160 CTAs)
+PAGED_CASES = {
+    "one_split": (2, 4, 8, [7, 0, 13, 32, 1]),
+    "split_edges": (2, 16, 64, [0, 1, 16, 17, 256, 1000, 1023, 1024]),
+    "many_ctas": (4, 16, 32, [int(x) for x in np.random.default_rng(9).integers(0, 513, 40)]),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D,G", [(64, 4), (128, 4), (128, 16), (64, 1)])
-def test_paged_kernel_matches_plain(D, G, dtype):
+@pytest.mark.parametrize("case", list(PAGED_CASES))
+@pytest.mark.parametrize("D,G", [(64, 4), (128, 4), (128, 16), (64, 1), (64, 24)])
+def test_paged_kernel_matches_plain(D, G, case, dtype):
+    """Split-KV decode against the plain version; a second launch gives the
+    same bits, and so does the ragged kernel on the same rows (q_len 1)."""
     _need_cuda()
-    q, k, v, bt, ctx, bs = _paged_case(0, [7, 0, 13, 32, 1], H=2 * G, KVH=2, D=D, dtype=dtype)
+    KVH, bs, MB, ctx_lens = PAGED_CASES[case]
+    q, k, v, bt, ctx, bs = _paged_case(0, ctx_lens, H=KVH * G, KVH=KVH, D=D, bs=bs, MB=MB,
+                                       dtype=dtype)
     ref = tpa.paged_attention_torch(q, k, v, bt, ctx, block_size=bs)
-    got = tpa.paged_attention(*(t.cuda() for t in (q, k, v, bt, ctx)), block_size=bs).cpu()
+    args = [t.cuda() for t in (q, k, v, bt, ctx)]
+    got = tpa.paged_attention(*args, block_size=bs)
+    again = tpa.paged_attention(*args, block_size=bs)
+    cu = torch.arange(len(ctx_lens) + 1, dtype=torch.int32, device="cuda")
+    ragged = trg.ragged_attention(*args[:4], cu, args[4], block_size=bs, max_q_len=1)
     torch.cuda.synchronize()
-    assert float((got.float() - ref.float()).abs().max()) <= BANDS[dtype]
-    assert torch.all(got[1] == 0)  # ctx = 0 pad row
+    assert float((got.cpu().float() - ref.float()).abs().max()) <= BANDS[dtype]
+    assert torch.equal(got, again)
+    assert torch.equal(ragged, got)
+    for b, c in enumerate(ctx_lens):
+        if c == 0:
+            assert torch.all(got[b] == 0)  # ctx = 0 pad row
+
+
+def test_split_count_follows_shapes_on_card():
+    """The host rule on the card's SM count: splits at a short batch over a
+    wide table, none when B x KVH already fills the card."""
+    _need_cuda()
+    n_sm = tpa.sm_count(torch.device("cuda", 0))
+    assert tpa.num_splits(8, 2, 1024, n_sm) == 4
+    assert tpa.num_splits(40, 4, 512, n_sm) == 1
+
+
+# (H, KVH, D, block_size, table width, q_lens, contexts, T_pad, max_q_lens)
+RAGGED_CASES = {
+    "small": (8, 2, 128, 4, 16, [5, 1, 0, 40, 3, 0], [5, 20, 0, 52, 9, 0], 64, (40, 8)),
+    # a 256-token chunk, a mid-prompt chunk, decode rows, a q_len 0
+    # sequence, a chunk whose folded rows (77 x 4) are no multiple of 64,
+    # trailing pad rows; max_q_len 128 leaves the 256-token chunk longer
+    "engine": (32, 8, 128, 16, 128, [256, 128, 1, 1, 1, 1, 0, 77],
+               [256, 1024, 300, 17, 1, 2000, 0, 500], 768, (256, 128)),
+    "engine_d64": (32, 8, 64, 16, 128, [256, 128, 1, 1, 0, 77],
+                   [256, 1024, 300, 2048, 0, 500], 512, (256,)),
+    "gqa16": (16, 1, 64, 16, 16, [70, 1, 3], [100, 33, 3], 80, (70, 16)),
+}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ragged_kernel_matches_plain(dtype):
+@pytest.mark.parametrize("case", list(RAGGED_CASES))
+def test_ragged_kernel_matches_plain(case, dtype):
     _need_cuda()
+    H, KVH, D, bs, MB, q_lens, ctx_lens, T_pad, max_q_lens = RAGGED_CASES[case]
     rng = np.random.default_rng(1)
-    q_lens, ctx_lens, T_pad = [5, 1, 0, 40, 3, 0], [5, 20, 0, 52, 9, 0], 64
-    _, k, v, bt, ctx, bs = _paged_case(1, ctx_lens, H=8, KVH=2, D=128, MB=16, dtype=dtype)
-    q = torch.from_numpy(rng.normal(size=(T_pad, 8, 128)).astype(np.float32)).to(dtype)
+    _, k, v, bt, ctx, bs = _paged_case(1, ctx_lens, H=H, KVH=KVH, D=D, bs=bs, MB=MB, dtype=dtype)
+    q = torch.from_numpy(rng.normal(size=(T_pad, H, D)).astype(np.float32)).to(dtype)
     cu = torch.tensor(np.concatenate([[0], np.cumsum(q_lens)]), dtype=torch.int32)
     ref = trg.ragged_attention_torch(q, k, v, bt, cu, ctx, block_size=bs)
-    # max_q_len below the real 40 rows: the kernel strides over the rest
-    for max_q_len in (40, 8):
-        got = trg.ragged_attention(*(t.cuda() for t in (q, k, v, bt, cu, ctx)),
-                                   block_size=bs, max_q_len=max_q_len).cpu()
+    args = [t.cuda() for t in (q, k, v, bt, cu, ctx)]
+    # max_q_len below the longest chunk: the kernel strides over the rest
+    for max_q_len in max_q_lens:
+        got = trg.ragged_attention(*args, block_size=bs, max_q_len=max_q_len)
+        again = trg.ragged_attention(*args, block_size=bs, max_q_len=max_q_len)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        got = got.cpu()
         assert float((got.float() - ref.float()).abs().max()) <= BANDS[dtype]
         assert torch.all(got[sum(q_lens):] == 0)
 

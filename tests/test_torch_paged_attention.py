@@ -109,3 +109,69 @@ def test_library_name_tracks_sources():
     b = _build._library_path("ragged_attention")
     assert a != b and a.parent == _build.BUILD_DIR
     assert a == _build._library_path("paged_attention")
+
+
+# -- the split-KV kernel's host logic (runs before any launch) --------------
+
+
+@pytest.mark.parametrize("B,KVH,max_kv,sms,want", [
+    (16, 8, 2048, 132, 2),    # the kernels-phase shape: ceil(132 / 128)
+    (1, 8, 2048, 132, 8),     # one long sequence: capped at 2048 / 256 positions' worth
+    (12, 8, 2048, 132, 2),    # the engine's decode rows at full table width
+    (40, 4, 512, 132, 1),     # B x KVH above the SM count: no split
+    (4, 8, 64, 132, 1),       # a narrow table is never split
+    (1, 1, 1 << 20, 132, tpa.MAX_SPLITS),
+    (0, 8, 2048, 132, 1),
+])
+def test_num_splits_rule(B, KVH, max_kv, sms, want):
+    assert tpa.num_splits(B, KVH, max_kv, sms) == want
+
+
+def test_split_plan_is_fixed_by_shapes_alone():
+    """The wrapper's plan takes shapes only: the same (batch, table width)
+    bucket always gives the same grid and workspace, whatever the contexts."""
+    assert tpa.split_plan(16, 32, 8, 128, 2048, 132) == (2, (16, 32, 2, 130))
+    assert tpa.split_plan(2, 8, 2, 64, 1024, 132) == (4, (2, 8, 4, 66))
+    assert tpa.split_plan(200, 32, 8, 128, 2048, 132) == (1, None)  # the kernel writes the output
+    for sms in (66, 132, 264):
+        s, shape = tpa.split_plan(8, 16, 4, 64, 4096, sms)
+        assert 1 <= s <= tpa.MAX_SPLITS and (shape is None) == (s == 1)
+        assert 8 * 4 * s < sms + 8 * 4  # no more than one wave of CTAs
+
+
+def _cuda_args(**over):
+    q, k, v, bt, ctx, bs = _case(1, [7, 20, 13], D=64)
+    args = dict(zip(("q", "k_cache", "v_cache", "block_tables", "context_lens"),
+                    _torch_args(q, k, v, bt, ctx)))
+    args.update(over)
+    return args, bs
+
+
+@pytest.mark.parametrize("change,exc,match", [
+    (lambda a: {"q": a["q"].half()}, TypeError, "dtype"),
+    (lambda a: {"k_cache": a["k_cache"].double()}, TypeError, "cache dtypes"),
+    (lambda a: {"q": a["q"][..., :32].contiguous(), "k_cache": a["k_cache"][..., :32].contiguous(),
+                "v_cache": a["v_cache"][..., :32].contiguous()}, ValueError, "head_dim"),
+    (lambda a: {"v_cache": a["v_cache"][:, :128].contiguous()}, ValueError, "caches must be"),
+    (lambda a: {"q": a["q"][:, :5].contiguous()}, ValueError, "not a multiple"),
+    (lambda a: {"q": a["q"].transpose(0, 1).contiguous().transpose(0, 1)}, ValueError, "contiguous"),
+    (lambda a: {"block_tables": a["block_tables"].long()}, TypeError, "int32"),
+    (lambda a: {"context_lens": a["context_lens"][:2]}, ValueError, "batch"),
+    (lambda a: {}, ValueError, "needs CUDA tensors"),
+], ids=["q_dtype", "cache_dtype", "head_dim", "cache_shape", "group", "contiguous", "int32",
+        "batch", "device"])
+def test_kernel_wrapper_raises_before_launch(change, exc, match):
+    """Each check of the kernel wrapper raises before anything is built or
+    launched; on CPU tensors the device check comes last."""
+    args, bs = _cuda_args()
+    args.update(change(args))
+    before = tpa.paged_attention_cuda.launches
+    with pytest.raises(exc, match=match):
+        tpa.paged_attention_cuda(**args, block_size=bs)
+    assert tpa.paged_attention_cuda.launches == before
+
+
+def test_kernel_wrapper_refuses_bad_block_size():
+    args, _ = _cuda_args()
+    with pytest.raises(ValueError, match="block_size"):
+        tpa.paged_attention_cuda(**args, block_size=3)

@@ -97,3 +97,42 @@ def test_dispatch_on_cpu_and_refusals():
         trg.ragged_attention(*args, block_size=4, max_q_len=2, impl="cuda")
     with pytest.raises(ValueError, match="max_q_len"):
         trg.ragged_attention(*args, block_size=4, max_q_len=0)
+
+
+def _kernel_args(**over):
+    q, k, v, bt, cu, ctx, bs = _case(2, [3, 1, 0], [9, 4, 0], T_pad=8, D=64)
+    args = dict(zip(("q", "k_cache", "v_cache", "block_tables", "cu_q_lens", "context_lens"),
+                    (torch.from_numpy(a) for a in (q, k, v, bt, cu, ctx))))
+    args.update(over)
+    return args, bs
+
+
+@pytest.mark.parametrize("change,max_q_len,exc,match", [
+    (lambda a: {"cu_q_lens": a["cu_q_lens"][:-1]}, 3, ValueError, "disagree on B"),
+    (lambda a: {"block_tables": a["block_tables"][:2]}, 3, ValueError, "disagree on B"),
+    (lambda a: {}, 0, ValueError, "max_q_len"),
+    (lambda a: {"q": a["q"].half()}, 3, TypeError, "dtype"),
+    (lambda a: {"cu_q_lens": a["cu_q_lens"].long()}, 3, TypeError, "int32"),
+    (lambda a: {"q": a["q"][..., :32].contiguous(), "k_cache": a["k_cache"][..., :32].contiguous(),
+                "v_cache": a["v_cache"][..., :32].contiguous()}, 3, ValueError, "head_dim"),
+    (lambda a: {}, 3, ValueError, "needs CUDA tensors"),
+], ids=["cu_len", "bt_rows", "max_q_len", "q_dtype", "int32", "head_dim", "device"])
+def test_kernel_wrapper_raises_before_launch(change, max_q_len, exc, match):
+    """Each check of the kernel wrapper raises before anything is built or
+    launched; on CPU tensors the device check comes last."""
+    args, bs = _kernel_args()
+    args.update(change(args))
+    before = trg.ragged_attention_cuda.launches
+    with pytest.raises(exc, match=match):
+        trg.ragged_attention_cuda(**args, block_size=bs, max_q_len=max_q_len)
+    assert trg.ragged_attention_cuda.launches == before
+
+
+def test_decode_rows_share_the_paged_split_plan():
+    """The ragged wrapper plans its decode rows with the paged wrapper's
+    rule on the same shapes, so decode-only batches launch the same grid."""
+    B, H, KVH, D, MB, bs = 12, 32, 8, 128, 128, 16
+    splits, shape = tpa.split_plan(B, H, KVH, D, MB * bs, 132)
+    assert splits == tpa.num_splits(B, KVH, MB * bs, 132) == 2
+    assert shape == (B, H, 2, D + 2)
+    assert trg.decode_workspace is tpa.decode_workspace
