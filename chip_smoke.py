@@ -35,11 +35,22 @@ Phases, each printing one JSON line:
            wrapper's delta ops
   engine   LLMEngine at LLAMA3_8B width (bf16, 32 layers, random weights
            from a seeded generator on the card), mixed batching, 12
-           requests; the kernels' launch counters are zeroed just before
-           and read just after
+           requests, served with the default pipelined decode (every
+           decode chunk a replay of a CUDA graph captured per bucket), then
+           the same requests on the sync path (pipeline_decode=False) with
+           the same weights; the kernels' launches (eager launches plus
+           those of graph replays) are counted from just before the first
+           pass to just after it
   parity   a reduced fp32 model served by the same engine on the card
-           (kernels) and on the CPU (plain versions): identical greedy
-           tokens, mixed batching on and off
+           (kernels; pipelined on graphs, and sync) and on the CPU (plain
+           versions): identical greedy tokens, mixed batching on and off
+  spec     speculative decoding at LLAMA3_8B (bf16, mixed batching, so the
+           verify pass runs the ragged kernel at q_len 1..5): prompt lookup
+           with k = 4, then a LLAMA3_1B draft model at full width, random
+           weights; acceptance, tok/s and ragged launches (> 0); then fp32
+           greedy spec == non-spec tokens on the parity model (vocabulary
+           cut to 256, prompts holding every id, so prompt lookup always
+           drafts), both drafters
   train    LLAMA_400M at full width and depth (bf16 compute, fp32 params,
            remat "dots", flash attention, AdamW lr 3e-4 wd 1e-4), B 8,
            S 1024, one fixed batch (numpy seed 0), with bench.py's gates:
@@ -52,11 +63,16 @@ Phases, each printing one JSON line:
            the CPU from the same params and batch: losses, grad norms and
            params within the bands stated at PARITY_*
 
-The engine phase also serves the same requests twice more: warm (its
-numbers say what the first pass spent on first-call costs) and under
-torch.profiler (device busy time and idle share, time by kernel, and the
-paged and ragged kernel families by name prefix with their launches; it
-fails if a family's wrapper ran but its prefix reads no device time).
+The engine phase also serves the same requests again on each path: warm
+(its numbers say what the first pass spent on first-call costs and graph
+captures; the pipelined path adds a third, steady pass, since a longer
+chunk picked by the controller captures its graph on first use) and under
+torch.profiler (device busy time and idle
+share, of the whole pass and split between the mixed steps and the
+decode-only rounds; time by kernel; the paged and ragged kernel families
+by name prefix with their launches; it fails if a family launched but
+its prefix reads no device time). The kernels phase also times the
+ragged kernel at the speculative verify shape (q_len 1..5).
 
 Then the line {"kernels": [...]}, the nvidia-smi name/power line, and
 last {"ok": true, "device": {...}}. Any failed check raises, so the
@@ -335,6 +351,51 @@ def kernels_phase(dev) -> dict:
                                               "ragged_attention_kernel<")),
                 "shape": f"T{T}(pad {T_pad}) q_lens 256+128+12x1+2x0 H{H} KVH{KVH} D{D} bs{bs}",
             }
+
+    # ---- K4 at the speculative verify shape: 16 sequences of q_len 1..5 ----
+    # ---- (1 + draft length, k = 4) over contexts up to 2048 ------------------
+    q_lens = [int(x) for x in rng.integers(1, 6, size=16)]
+    seq_ctx = [int(x) for x in rng.integers(64, 2049, size=16)]
+    T = sum(q_lens)
+    H, KVH, D, B = 32, 8, 128, 16
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        _, k, v, bt, ctx = _paged_case(gen, dev, dtype, B, H, KVH, D, bs, seq_ctx, MB)
+        q = torch.randn(T, H, D, generator=gen, device=dev).to(dtype)
+        cu = torch.tensor(np.concatenate([[0], np.cumsum(q_lens)]), dtype=torch.int32, device=dev)
+        run = lambda: ragged_attention_cuda(q, k, v, bt, cu, ctx, block_size=bs, max_q_len=5)  # noqa: E731
+        got = run()
+        ref = ragged_attention_torch(q, k, v, bt, cu, ctx, block_size=bs)
+        torch.cuda.synchronize()
+        err = _check("ragged_attention verify q_len 1..5", got, ref, dn, checks)
+        elt = q.element_size()
+        visible = sum(c - ql + j + 1 for c, ql in zip(seq_ctx, q_lens) for j in range(ql))
+        pages = sum(-(-c // bs) for c in seq_ctx)
+        bytes_moved = (2 * T * H * D * elt + 2 * sum(seq_ctx) * KVH * D * elt
+                       + 4 * (pages + 2 * B + 1))
+        bound, by = _bound(bytes_moved, 4 * H * D * visible, dn)
+        qd = torch.zeros(B, H, 5, D, dtype=dtype, device=dev)
+        qpos = torch.full((B, 5), -1, dtype=torch.long, device=dev)
+        for b, (c, ql) in enumerate(zip(seq_ctx, q_lens)):
+            s0 = int(cu[b])
+            qd[b, :, :ql] = q[s0 : s0 + ql].transpose(0, 1)
+            qpos[b, :ql] = torch.arange(c - ql, c, device=dev)
+        kd, vd = dense_kv(k, v, bt, KVH)
+        kvpos = torch.arange(MB * bs, device=dev)
+        mask = ((kvpos[None, None, :] <= qpos[:, :, None])
+                & (kvpos[None, None, :] < ctx[:, None, None].long()))[:, None]
+        rounds = time_rounds({"ms": run, "library_ms": sdpa(qd, kd, vd, mask, H, KVH)})
+        summary["ragged_attention"][dn]["verify_shape"] = {
+            "max_abs_err": err,
+            **_rate(rounds, bytes_moved, bound, by),
+            "plain_ms": time_ms(lambda: ragged_attention_torch(q, k, v, bt, cu, ctx, block_size=bs)),
+            "kernels_ms": _split_ms(run, ("ragged_attention_decode_kernel",
+                                          "ragged_attention_combine_kernel",
+                                          "ragged_attention_chunk_kernel",
+                                          "ragged_attention_kernel<")),
+            "shape": f"T{T} q_lens {q_lens} H{H} KVH{KVH} D{D} bs{bs} ctx 64..2048 "
+                     f"(sum {sum(seq_ctx)})",
+        }
     emit({"phase": "kernels", "checks": checks, "timings": summary,
           "library_note": "scaled_dot_product_attention on K/V gathered dense beforehand; "
                           "gather excluded"})
@@ -536,26 +597,62 @@ def flash_kernels_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def engine_phase(dev) -> dict:
-    """Serve 12 requests through LLMEngine at LLAMA3_8B width."""
+ENGINE_KW = dict(num_blocks=2048, block_size=16, max_num_seqs=16, max_prefill_len=2048,
+                 mixed_batch=True, mixed_prefill_chunk=256, decode_chunk=8,
+                 enable_prefix_caching=True)
+
+
+def params_8b(dev):
+    """LLAMA3_8B's random bf16 weights from a seeded generator on the card
+    (shared by the engine and spec phases), and the seconds they took."""
+    import torch
+
+    from ray_tpu_torch.models.llama import LLAMA3_8B, init_params
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(LLAMA3_8B, gen, dev, dtype=LLAMA3_8B.dtype)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def _launch_counts(eng, before: dict) -> dict:
+    """Kernel launches on the device since ``before`` (from ``_launch_marks``):
+    the wrappers' eager launches plus the launches of graph replays (a
+    wrapper counts a launch once, when it is recorded into a graph)."""
+    now = _launch_marks(eng)
+    return {n: now[n] - before[n] for n in now}
+
+
+def _launch_marks(eng) -> dict:
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from ray_tpu_torch.ops.ragged import ragged_attention_cuda
+
+    g = eng._graphs
+    return {n: f.launches - g.captured_launches.get(n, 0) + g.launches.get(n, 0)
+            for n, f in (("paged_attention", paged_attention_cuda),
+                         ("ragged_attention", ragged_attention_cuda))}
+
+
+def engine_phase(dev, params, params_s: float) -> dict:
+    """Serve 12 requests through LLMEngine at LLAMA3_8B width: the default
+    (pipelined decode on captured CUDA graphs), then the same requests on
+    the sync path with the same weights."""
     import numpy as np
     import torch
 
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
     from ray_tpu_torch.models.llama import LLAMA3_8B
-    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
-    from ray_tpu_torch.ops.ragged import ragged_attention_cuda
 
     model = LLAMA3_8B
-    cfg = EngineConfig(
-        model=model, num_blocks=2048, block_size=16, max_num_seqs=16,
-        max_prefill_len=2048, mixed_batch=True, mixed_prefill_chunk=256,
-        decode_chunk=8, enable_prefix_caching=True,
-    )
+    cfg = EngineConfig(model=model, **ENGINE_KW)
+    if not cfg.pipeline_decode:
+        raise AssertionError("EngineConfig no longer defaults to the pipelined path")
     t0 = time.perf_counter()
-    eng = LLMEngine(cfg, seed=0, device=dev)
+    eng = LLMEngine(cfg, params=params, device=dev)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    init_s = params_s + time.perf_counter() - t0
 
     rng = np.random.default_rng(0)
     lens = rng.integers(64, 1537, size=12)
@@ -569,26 +666,26 @@ def engine_phase(dev) -> dict:
     sps = [greedy] * 10 + seeded
 
     # the kernels' counters, zeroed just before the main path runs
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from ray_tpu_torch.ops.ragged import ragged_attention_cuda
+
     paged_attention_cuda.launches = 0
     ragged_attention_cuda.launches = 0
+    marks = _launch_marks(eng)
     finals, reqs, wall, steps = _serve(eng, prompts, sps, "r")
-    launches = {"paged_attention": paged_attention_cuda.launches,
-                "ragged_attention": ragged_attention_cuda.launches}
+    launches = _launch_counts(eng, marks)
 
     st = eng.stats()
-    for rid, toks in finals.items():
-        if len(toks) != 32 or not all(0 <= t < model.vocab_size for t in toks):
-            raise AssertionError(f"{rid}: {len(toks)} tokens, not 32 in [0, vocab)")
-    if len(finals) != 12:
-        raise AssertionError(f"{len(finals)} of 12 requests finished")
+    _check_served(eng, finals, model, 12, 32)
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if st.get("mixed", {}).get("dispatches", 0) <= 0:
         raise AssertionError("no mixed dispatch ran")
     if st["prefix_cache"]["hit_tokens"] <= 0:
         raise AssertionError("the prefix cache recorded no hit")
-    if eng.allocator.num_free != cfg.num_blocks:
-        raise AssertionError(f"KV not returned: {eng.allocator.num_free} of {cfg.num_blocks} free")
+    graphs = st["pipeline"]["graphs"]
+    if graphs["replays"] <= 0 or graphs["replay_kernel_launches"].get("paged_attention", 0) <= 0:
+        raise AssertionError(f"no decode chunk ran as a graph replay with the paged kernel: {graphs}")
     ttft = [r.t_first_token - r.arrival for r in reqs.values()]
     res = {
         "phase": "engine", "model": "LLAMA3_8B", "layers": model.n_layers,
@@ -596,56 +693,117 @@ def engine_phase(dev) -> dict:
         "prompt_tokens": int(sum(len(p) for p in prompts)), "output_tokens": 12 * 32,
         "engine_steps": steps, "init_s": init_s, "wall_s": wall,
         "output_tok_per_s": 12 * 32 / wall, "mean_ttft_s": float(np.mean(ttft)),
-        "kernel_launches": launches, "mixed": st["mixed"],
+        "kernel_launches": launches, "pipeline": st["pipeline"], "mixed": st["mixed"],
         "prefix_cache": st["prefix_cache"], "free_blocks": eng.allocator.num_free,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
-    # the same work again, warm (the first pass pays cuBLAS plan choice and
-    # allocator growth for every new shape), then under torch.profiler:
-    # where the device time goes, and its idle share. The prefix cache is
+    # the same work again, warm (the first pass pays graph captures, cuBLAS
+    # plan choice and allocator growth for every new shape), then under
+    # torch.profiler: where the device time goes, and its idle share in the
+    # decode-only rounds and in the mixed steps. The prefix cache is
     # emptied first so each pass runs the same prefill.
+    # A later pass may capture graphs too: the chunk controller may step to
+    # a longer chunk, whose bucket is captured on first use. So a third pass
+    # reads the steady state, and each says how many graphs exist after it.
+    for key, tag in (("warm", "w"), ("steady", "x")):
+        eng.allocator.drop_prefix_cache()
+        finals_w, reqs_w, wall_w, _ = _serve(eng, prompts, sps, tag)
+        res[key] = {**_pass_summary(finals_w, reqs_w, wall_w, finals),
+                    "graphs_captured_so_far": eng._graphs.captures,
+                    "chunks_by_steps_so_far": eng.stats()["pipeline"]["chunks_by_steps"]}
     eng.allocator.drop_prefix_cache()
-    finals_w, reqs_w, wall_w, _ = _serve(eng, prompts, sps, "w")
-    res["warm"] = {"wall_s": wall_w, "output_tok_per_s": 12 * 32 / wall_w,
-                   "mean_ttft_s": float(np.mean([r.t_first_token - r.arrival
-                                                 for r in reqs_w.values()])),
-                   "greedy_tokens_equal_first_pass": all(
-                       finals_w[f"w{i}"] == finals[f"r{i}"] for i in range(10))}
-    emit(res)
-    eng.allocator.drop_prefix_cache()
-    emit(_profile_serving(eng, prompts, sps))
+    prof = _profile_serving(eng, prompts, sps)
+    res["graphs_after_all_passes"] = eng.stats()["pipeline"]["graphs"]
     del eng
     torch.cuda.empty_cache()
+
+    # the sync decode path (pipeline_decode=False), same weights and requests
+    eng = LLMEngine(EngineConfig(model=model, pipeline_decode=False, **ENGINE_KW),
+                    params=params, device=dev)
+    finals_s, reqs_s, wall_s, steps_s = _serve(eng, prompts, sps, "s")
+    _check_served(eng, finals_s, model, 12, 32)
+    res["sync"] = {"engine_steps": steps_s, **_pass_summary(finals_s, reqs_s, wall_s, finals)}
+    eng.allocator.drop_prefix_cache()
+    finals_sw, reqs_sw, wall_sw, _ = _serve(eng, prompts, sps, "t")
+    res["sync"]["warm"] = _pass_summary(finals_sw, reqs_sw, wall_sw, finals)
+    eng.allocator.drop_prefix_cache()
+    prof_sync = _profile_serving(eng, prompts, sps)
+    del eng
+    torch.cuda.empty_cache()
+    emit(res)
+    emit({**prof, "phase": "engine_profile", "decode": "pipelined"})
+    emit({**prof_sync, "phase": "engine_profile", "decode": "sync"})
     return res
 
 
-def _serve(eng, prompts, sps, tag):
-    """Run the 12 requests to completion; request 11 (the second on the
-    shared prefix) arrives once request 0's prompt is in the cache (sealed),
-    so its admission can hit the prefix cache."""
+def _check_served(eng, finals, model, n, max_tokens) -> None:
+    for rid, toks in finals.items():
+        if len(toks) != max_tokens or not all(0 <= t < model.vocab_size for t in toks):
+            raise AssertionError(f"{rid}: {len(toks)} tokens, not {max_tokens} in [0, vocab)")
+    if len(finals) != n:
+        raise AssertionError(f"{len(finals)} of {n} requests finished")
+    if eng.allocator.num_free != eng.config.num_blocks:
+        raise AssertionError(
+            f"KV not returned: {eng.allocator.num_free} of {eng.config.num_blocks} free")
+
+
+def _pass_summary(finals, reqs, wall, first) -> dict:
+    """tok/s, TTFT and how many greedy streams (requests 0-9) equal the
+    first pipelined pass's (bf16: an equal count is reported, not asserted,
+    since a different padded batch may take another cuBLAS algorithm)."""
+    import numpy as np
+
+    tag = next(iter(finals))[0]
+    same = sum(finals[f"{tag}{i}"] == first[f"r{i}"] for i in range(10))
+    tokens_same = sum(a == b for i in range(10)
+                      for a, b in zip(finals[f"{tag}{i}"], first[f"r{i}"]))
+    return {"wall_s": wall, "output_tok_per_s": sum(map(len, finals.values())) / wall,
+            "mean_ttft_s": float(np.mean([r.t_first_token - r.arrival for r in reqs.values()])),
+            "greedy_streams_equal_first_pass": f"{same}/10",
+            "greedy_tokens_equal_first_pass": f"{tokens_same}/{10 * len(first['r0'])}"}
+
+
+def _serve(eng, prompts, sps, tag, mark_steps: bool = False):
+    """Run the requests to completion; the last request (the second on the
+    shared prefix) arrives once the first one has its first token, so its
+    admission can hit the prefix cache. With ``mark_steps`` each step runs
+    inside a profiler range and its kind is recorded: "mixed" when it made
+    a mixed dispatch, else "decode"."""
     import torch
+    from torch.profiler import record_function
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    n = len(prompts)
     reqs = {}
-    for i in range(11):
+    for i in range(n - 1):
         rid = eng.add_request(prompts[i], sps[i], request_id=f"{tag}{i}")
         reqs[rid] = eng.requests[rid]
     finals: dict = {}
+    kinds: list = []
     late = None
     steps = 0
     while eng.has_unfinished() or late is None:
         if late is None and reqs[f"{tag}0"].output_token_ids:
-            late = eng.add_request(prompts[11], sps[11], request_id=f"{tag}11")
+            late = eng.add_request(prompts[n - 1], sps[n - 1], request_id=f"{tag}{n - 1}")
             reqs[late] = eng.requests[late]
-        for out in eng.step():
+        mixed0 = eng._mixed_stats.dispatches if eng._mixed_stats else 0
+        if mark_steps:
+            with record_function("chip_smoke.step"):
+                outs = eng.step()
+        else:
+            outs = eng.step()
+        kinds.append("mixed" if eng._mixed_stats and eng._mixed_stats.dispatches > mixed0
+                     else "decode")
+        for out in outs:
             if out.finished:
                 finals[out.request_id] = out.output_token_ids
         steps += 1
         if steps > 10_000:
             raise AssertionError("the engine made no progress")
     torch.cuda.synchronize()
-    return finals, reqs, time.perf_counter() - t0, steps
+    wall = time.perf_counter() - t0
+    return (finals, reqs, wall, steps) if not mark_steps else (finals, reqs, wall, steps, kinds)
 
 
 # kernel-name prefixes of the serving kernels' families: the paged family
@@ -656,20 +814,18 @@ SERVING_FAMILIES = {"paged_attention": "paged_attention_", "ragged_attention": "
 
 def _profile_serving(eng, prompts, sps) -> dict:
     """Serve under torch.profiler: device busy time (union of kernel
-    intervals) against the host wall time, and device time by kernel and
-    by serving-kernel family. Raises if a family's wrapper launched but no
-    kernel of its name prefix shows device time."""
-    import torch
+    intervals) against the host wall time, split between the mixed steps'
+    windows and the rest of the pass (the decode-only rounds, whose chunks
+    run while the host is already in the next step); device time by kernel
+    and by serving-kernel family with its launches on the device. Raises
+    if a family launched but no kernel of its name prefix shows device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
-    from ray_tpu_torch.ops.ragged import ragged_attention_cuda
-
-    wrappers = {"paged_attention": paged_attention_cuda, "ragged_attention": ragged_attention_cuda}
-    before = {n: f.launches for n, f in wrappers.items()}
+    marks = _launch_marks(eng)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, wall, _ = _serve(eng, prompts, sps, "p")
-    calls = {n: f.launches - before[n] for n, f in wrappers.items()}
+        _, _, wall, _, kinds = _serve(eng, prompts, sps, "p", mark_steps=True)
+    calls = _launch_counts(eng, marks)
     busy_ms, by_name = _device_time(prof)
     device_ms = sum(ms for _, ms, _ in by_name)
 
@@ -681,18 +837,40 @@ def _profile_serving(eng, prompts, sps) -> dict:
         kernels = [(k, ms, n) for k, ms, n in by_name if prefix in k]
         ms = sum(x[1] for x in kernels)
         if calls[fam] > 0 and ms <= 0.0:
-            raise AssertionError(f"engine_profile: {calls[fam]} {fam} calls but no device time "
-                                 f"under '{prefix}*': {[k for k, _, _ in by_name[:20]]}")
+            raise AssertionError(f"engine_profile: {calls[fam]} {fam} launches but no device "
+                                 f"time under '{prefix}*': {[k for k, _, _ in by_name[:20]]}")
         families[fam] = {
-            "ms": ms, "wrapper_calls": calls[fam],
-            "ms_per_call": ms / calls[fam] if calls[fam] else None,
+            "ms": ms, "launches": calls[fam],
+            "ms_per_launch": ms / calls[fam] if calls[fam] else None,
             "kernels": [{"name": k[:90], "ms": t, "launches": n, "ms_per_launch": t / n}
                         for k, t, n in kernels],
         }
+    # step windows (host clock of the trace) and kernel intervals
+    steps = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CPU and e.name == "chip_smoke.step")
+    if len(steps) != len(kinds):
+        raise AssertionError(f"{len(steps)} step ranges in the trace for {len(kinds)} steps")
+    spans = _merged(sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                           if e.device_type == DeviceType.CUDA and e.name not in ANNOTATIONS))
+    mixed = [w for w, k in zip(steps, kinds) if k == "mixed"]
+    whole = [(steps[0][0], max(steps[-1][1], spans[-1][1] if spans else steps[-1][1]))]
+    whole_us = whole[0][1] - whole[0][0]
+    mixed_us = sum(e - s for s, e in mixed)
+    busy_all = _overlap(spans, whole)
+    busy_mixed = _overlap(spans, mixed)
+    decode_us = whole_us - mixed_us
     return {
-        "phase": "engine_profile", "wall_s_profiled": wall,
+        "wall_s_profiled": wall,
         "device_busy_ms": busy_ms,
         "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / 1e3 / wall,
+        "steps": {"mixed": kinds.count("mixed"), "decode": kinds.count("decode")},
+        "mixed_steps": {"wall_ms": mixed_us / 1e3, "share_of_pass": mixed_us / whole_us,
+                        "device_busy_ms": busy_mixed / 1e3,
+                        "device_idle_share": 1.0 - busy_mixed / mixed_us if mixed_us else None},
+        "decode_rounds": {"wall_ms": decode_us / 1e3, "share_of_pass": decode_us / whole_us,
+                          "device_busy_ms": (busy_all - busy_mixed) / 1e3,
+                          "device_idle_share": (1.0 - (busy_all - busy_mixed) / decode_us
+                                                if decode_us else None)},
         "device_kernel_ms": device_ms,
         "paged_attention_ms": families["paged_attention"]["ms"],
         "ragged_attention_ms": families["ragged_attention"]["ms"],
@@ -702,7 +880,34 @@ def _profile_serving(eng, prompts, sps) -> dict:
     }
 
 
+def _merged(spans: list) -> list:
+    out: list = []
+    for s, e in spans:
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _overlap(spans: list, windows: list) -> float:
+    """Total length of the (merged, sorted) spans inside the (sorted,
+    disjoint) windows."""
+    total, i = 0.0, 0
+    for ws, we in windows:
+        while i < len(spans) and spans[i][1] <= ws:
+            i += 1
+        j = i
+        while j < len(spans) and spans[j][0] < we:
+            total += max(0.0, min(we, spans[j][1]) - max(ws, spans[j][0]))
+            j += 1
+    return total
+
+
 GEMM_WORDS = ("nvjet", "gemm", "Gemm", "cutlass", "xmma")
+# profiler ranges the script opens itself (they also appear as device-side
+# ranges): never counted as device time
+ANNOTATIONS = ("chip_smoke.step",)
 
 
 def _device_time(prof):
@@ -711,7 +916,7 @@ def _device_time(prof):
     from torch.autograd import DeviceType
 
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   if e.device_type == DeviceType.CUDA and e.name not in ANNOTATIONS)
     busy_us, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -724,7 +929,8 @@ def _device_time(prof):
     # device-side entries only (an aten op's entry repeats its kernels' time)
     by_name = sorted(
         ((a.key, a.self_device_time_total / 1e3, a.count) for a in prof.key_averages()
-         if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0),
+         if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0
+         and a.key not in ANNOTATIONS),
         key=lambda x: -x[1],
     )
     return (busy_us / 1e3 if spans else None), by_name
@@ -735,40 +941,154 @@ def _device_time(prof):
 # ---------------------------------------------------------------------------
 
 
+PARITY_MODEL = dict(vocab_size=2048, d_model=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                    d_ff=1024, max_seq=512)
+
+
+def _parity_setup(dev):
+    """The fp32 parity model's weights on the CPU and the card, and its
+    greedy prompts."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+
+    model = LlamaConfig(**PARITY_MODEL, dtype=torch.float32)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(3)
+    params_cpu = init_params(model, gen, "cpu")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(3, model.vocab_size, size=int(n)).tolist()
+               for n in (5, 37, 90, 130, 200, 17)]
+    return model, params_cpu, _to(params_cpu, dev), prompts
+
+
+def _to(params, dev):
+    import torch
+
+    return {k: (v.to(dev) if torch.is_tensor(v) else {kk: vv.to(dev) for kk, vv in v.items()})
+            for k, v in params.items()}
+
+
 def parity_phase(dev) -> None:
     """The same fp32 weights and greedy prompts through the engine on the
-    card (CUDA kernels) and on the CPU (plain versions)."""
+    card (CUDA kernels; pipelined decode on graphs, and the sync path) and
+    on the CPU (plain versions): the same tokens, mixed batching on and off."""
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+
+    model, params_cpu, params_gpu, prompts = _parity_setup(dev)
+    sp = SamplingParams(max_tokens=16, temperature=0.0, ignore_eos=True)
+    result = {"phase": "parity", "model": "fp32 d512 L2 H4 KVH2 D128 V2048"}
+    for mixed in (True, False):
+        outs, replays = {}, 0
+        for where, params, pipelined in (("cuda pipelined", params_gpu, True),
+                                         ("cuda sync", params_gpu, False),
+                                         ("cpu", params_cpu, True)):
+            cfg = EngineConfig(model=model, num_blocks=256, block_size=16, max_num_seqs=8,
+                               max_prefill_len=256, mixed_batch=mixed,
+                               mixed_prefill_chunk=64, decode_chunk=8,
+                               pipeline_decode=pipelined)
+            eng = LLMEngine(cfg, params=params, device=dev if where != "cpu" else "cpu")
+            outs[where] = eng.generate(prompts, sp)
+            if where == "cuda pipelined":
+                replays = eng.stats()["pipeline"]["graphs"]["replays"]
+        same = outs["cuda pipelined"] == outs["cuda sync"] == outs["cpu"]
+        result[f"mixed_{mixed}"] = {"identical": same, "graph_replays": replays,
+                                    "tokens": sum(map(len, outs["cpu"]))}
+        if not same or replays <= 0:
+            emit(result)
+            raise AssertionError(f"mixed_batch={mixed}: pipelined-card, sync-card and CPU "
+                                 f"tokens differ, or no graph replay ran ({replays})")
+    emit(result)
+
+
+# ---------------------------------------------------------------------------
+# spec
+# ---------------------------------------------------------------------------
+
+
+def spec_phase(dev, params) -> dict:
+    """Speculative decoding at LLAMA3_8B (bf16, full width and depth, mixed
+    batching so that verify runs the ragged kernel): prompt lookup with k=4,
+    then a LLAMA3_1B draft model at full width, both on random weights.
+    Then fp32 greedy spec == non-spec tokens on the parity model, both
+    drafters, on the card."""
     import numpy as np
     import torch
 
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
-    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_tpu_torch.llm.kv_cache import KVCacheConfig
+    from ray_tpu_torch.llm.spec import SpecConfig
+    from ray_tpu_torch.models.llama import LLAMA3_1B, LLAMA3_8B, LlamaConfig, init_params
 
-    model = LlamaConfig(vocab_size=2048, d_model=512, n_layers=2, n_heads=4, n_kv_heads=2,
-                        d_ff=1024, max_seq=512, dtype=torch.float32)
+    model = LLAMA3_8B
+    # 8 requests of 256-768 prompt tokens, each a 16-64-token phrase repeated
+    # (prompt lookup finds n-gram matches from the first round on)
+    rng = np.random.default_rng(2)
+    prompts = []
+    for _ in range(8):
+        phrase = rng.integers(3, model.vocab_size, size=int(rng.integers(16, 65))).tolist()
+        n = int(rng.integers(256, 769))
+        prompts.append((phrase * (n // len(phrase) + 1))[:n])
+    sp = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
+    result = {"phase": "spec", "model": "LLAMA3_8B", "dtype": "bfloat16", "requests": 8,
+              "prompt_tokens": sum(map(len, prompts)), "output_tokens": 8 * 32}
+    for method in ("prompt_lookup", "draft_model"):
+        spec = SpecConfig(num_draft_tokens=4, method=method,
+                          **({"draft_model": LLAMA3_1B,
+                              "draft_kv": KVCacheConfig(num_blocks=1024, block_size=16)}
+                             if method == "draft_model" else {}))
+        eng = LLMEngine(EngineConfig(model=model, spec=spec, **ENGINE_KW), params=params,
+                        device=dev)
+        marks = _launch_marks(eng)
+        finals, reqs, wall, steps = _serve(eng, prompts, [sp] * 8, method[0])
+        launches = _launch_counts(eng, marks)
+        _check_served(eng, finals, model, 8, 32)
+        st = eng.stats()["spec"]
+        if st["steps"] <= 0:
+            raise AssertionError(f"{method}: no verify pass ran: {st}")
+        if launches["ragged_attention"] < st["steps"] * model.n_layers:
+            raise AssertionError(f"{method}: {launches['ragged_attention']} ragged launches for "
+                                 f"{st['steps']} verify passes of {model.n_layers} layers")
+        result[method] = {
+            "engine_steps": steps, "wall_s": wall, "output_tok_per_s": 8 * 32 / wall,
+            "mean_ttft_s": float(np.mean([r.t_first_token - r.arrival for r in reqs.values()])),
+            "spec": st, "kernel_launches": launches,
+        }
+        if method == "draft_model":
+            result[method]["draft_model"] = "LLAMA3_1B bf16, random weights (seed 0)"
+        del eng
+        torch.cuda.empty_cache()
+
+    # fp32 greedy: spec == non-spec on the card, both drafters. The parity
+    # model with a 256-token vocabulary, and prompts that each hold every
+    # token id: whatever a row generates occurred earlier in its history,
+    # so prompt lookup drafts in every round, whatever the random weights
+    smodel = LlamaConfig(**{**PARITY_MODEL, "vocab_size": 256}, dtype=torch.float32)
+    draft = LlamaConfig(**{**PARITY_MODEL, "vocab_size": 256, "d_model": 256, "n_layers": 1,
+                           "d_ff": 512}, dtype=torch.float32)
     gen = torch.Generator(device="cpu")
-    gen.manual_seed(3)
-    params_cpu = init_params(model, gen, "cpu")
-    params_gpu = {k: (v.to(dev) if torch.is_tensor(v) else {kk: vv.to(dev) for kk, vv in v.items()})
-                  for k, v in params_cpu.items()}
-    rng = np.random.default_rng(11)
-    prompts = [rng.integers(3, model.vocab_size, size=int(n)).tolist()
-               for n in (5, 37, 90, 130, 200, 17)]
-    sp = SamplingParams(max_tokens=16, temperature=0.0, ignore_eos=True)
-    result = {"phase": "parity", "model": "fp32 d512 L2 H4 KVH2 D128 V2048"}
-    for mixed in (True, False):
-        outs = {}
-        for where, params in (("cuda", params_gpu), ("cpu", params_cpu)):
-            cfg = EngineConfig(model=model, num_blocks=256, block_size=16, max_num_seqs=8,
-                               max_prefill_len=256, mixed_batch=mixed,
-                               mixed_prefill_chunk=64, decode_chunk=8)
-            outs[where] = LLMEngine(cfg, params=params, device=where).generate(prompts, sp)
-        same = outs["cuda"] == outs["cpu"]
-        result[f"mixed_{mixed}"] = {"identical": same, "tokens": sum(map(len, outs["cuda"]))}
-        if not same:
+    gen.manual_seed(4)
+    sparams = _to(init_params(smodel, gen, "cpu"), dev)
+    prng = np.random.default_rng(13)
+    pprompts = [prng.permutation(256).tolist() for _ in range(4)]
+    psp = SamplingParams(max_tokens=16, temperature=0.0, ignore_eos=True)
+    base = dict(model=smodel, num_blocks=256, block_size=16, max_num_seqs=8,
+                max_prefill_len=256, mixed_batch=True, mixed_prefill_chunk=64)
+    ref = LLMEngine(EngineConfig(**base), params=sparams, device=dev).generate(pprompts, psp)
+    for method in ("prompt_lookup", "draft_model"):
+        spec = SpecConfig(num_draft_tokens=4, method=method,
+                          **({"draft_model": draft} if method == "draft_model" else {}))
+        eng = LLMEngine(EngineConfig(spec=spec, **base), params=sparams, device=dev)
+        got = eng.generate(pprompts, psp)
+        st = eng.stats()["spec"]
+        result[f"fp32_{method}"] = {"identical_to_non_spec": got == ref, "spec": st}
+        if got != ref or st["steps"] <= 0:
             emit(result)
-            raise AssertionError(f"mixed_batch={mixed}: GPU tokens != CPU tokens")
+            raise AssertionError(f"fp32 greedy spec ({method}): tokens != non-spec tokens, "
+                                 f"or no verify pass ran ({st['steps']})")
     emit(result)
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -972,7 +1292,8 @@ def train_parity_phase(dev) -> None:
 
 # ---------------------------------------------------------------------------
 
-PHASES = ("build", "kernels", "flash_kernels", "engine", "parity", "train", "train_parity")
+PHASES = ("build", "kernels", "flash_kernels", "engine", "parity", "spec", "train",
+          "train_parity")
 
 SOURCES = {
     "paged_attention": ("ray_tpu_torch/ops/csrc/paged_attention.cu",
@@ -1040,10 +1361,15 @@ def main(argv=None) -> int:
         timings.update(kernels_phase(dev))
     if "flash_kernels" in phases:
         timings.update(flash_kernels_phase(dev))
+    params, params_s = params_8b(dev) if {"engine", "spec"} & set(phases) else (None, 0.0)
     if "engine" in phases:
-        launches.update(engine_phase(dev)["kernel_launches"])
+        launches.update(engine_phase(dev, params, params_s)["kernel_launches"])
     if "parity" in phases:
         parity_phase(dev)
+    if "spec" in phases:
+        spec_phase(dev, params)
+    del params  # the 8B weights go before training
+    torch.cuda.empty_cache()
     if "train" in phases:
         launches.update(train_phase(dev)["kernel_launches"])
     if "train_parity" in phases:
@@ -1062,6 +1388,7 @@ def main(argv=None) -> int:
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
             "library_ms": bf["library_ms"], "dtype": "bfloat16", "shape": bf["shape"],
             "fp32": timings[name]["float32"],
+            **({"verify_shape": bf["verify_shape"]} if "verify_shape" in bf else {}),
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

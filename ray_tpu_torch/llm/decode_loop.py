@@ -15,11 +15,9 @@ and steps at or past a row's ``remaining`` budget write the trash page
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
-
 import torch
 
-from ray_tpu_torch.llm.sampling import row_seed, sample_tokens
+from ray_tpu_torch.llm.sampling import row_seeds, sample_tokens
 from ray_tpu_torch.models.llama_decode import decode_step
 
 
@@ -33,8 +31,8 @@ def decode_chunk(
     temperatures: torch.Tensor,  # [B]
     top_ks: torch.Tensor,        # [B]
     top_ps: torch.Tensor,        # [B]
-    seed_bases: Sequence[Optional[int]],  # [B] per-request seed bases (None: no noise)
-    starts: Sequence[int],       # [B] absolute output index of step 0's token
+    seed_bases: torch.Tensor,    # [B] int64 per-request seed bases (sampling.as_int64)
+    starts: torch.Tensor,        # [B] absolute output index of step 0's token
     remaining: torch.Tensor,     # [B] tokens each request can still KEEP
     config,
     *,
@@ -46,8 +44,9 @@ def decode_chunk(
 ):
     """Returns (tokens [n_steps, B], logprobs [n_steps, B], cache), on the
     device. The seed of step s for row i is row_seed(seed_bases[i],
-    starts[i] + s): a pure function of the request and the token's
-    absolute index, so seeded requests reproduce whatever the chunking."""
+    starts[i] + s), computed on the device: a pure function of the request
+    and the token's absolute index, so seeded requests reproduce whatever
+    the chunking."""
     B = tokens.shape[0]
     MB = block_tables.shape[1]
     rows = torch.arange(B, device=tokens.device)
@@ -71,10 +70,7 @@ def decode_chunk(
             params, tok, pos, slot, block_tables, ctx, cache, config,
             block_size=block_size, attn_impl=attn_impl,
         )
-        seeds = [
-            None if base is None else row_seed(base, start + s)
-            for base, start in zip(seed_bases, starts)
-        ]
+        seeds = None if sample_mode == "greedy" else row_seeds(seed_bases, starts + s)
         tok, logprob = sample_tokens(
             logits, temperatures, top_ks, top_ps, seeds, mode=sample_mode
         )

@@ -5,17 +5,20 @@
    priority admission, host-side and O(batch);
  * mixed batching (``mixed_batch=True``): in-flight prefill chunks and
    every decode row in ONE ragged dispatch per step (``llm/mixed.py``,
-   ``ops/ragged.py``); steps without prefill work take the decode path
-   (``ops/paged_attention.py``);
- * chunked decode: up to ``decode_chunk`` decode+sample steps per host
-   sync (``llm/decode_loop.py``).
+   ``ops/ragged.py``); steps without prefill work take a decode round;
+ * decode rounds, as in the reference: pipelined (the default,
+   ``llm/pipeline.py``: batch state on the device, stop ladder in the
+   chunk, chunk N+1 dispatched before chunk N is synced, every chunk a
+   CUDA graph replay on the card, ``llm/graphs.py``), speculative
+   (``spec=SpecConfig(...)``, ``llm/spec``), or the sync chunked path
+   (``pipeline_decode=False``, ``llm/decode_loop.py``).
 
 The API mirrors the reference (add_request / step / generate / stats).
 Not ported yet, and refused by ``EngineConfig`` with NotImplementedError
-so no caller silently gets a different engine: speculative decoding,
-the tiered KV cache, tensor-parallel meshes, LoRA adapters, pipelined
-decode and the profiling hooks (ROADMAP.md, Queue 1). Chaos hooks, trace
-spans and telemetry gauges are left out likewise.
+so no caller silently gets a different engine: the tiered KV cache,
+tensor-parallel meshes, LoRA adapters and the profiling hooks (ROADMAP.md,
+Queue 1). Chaos hooks, trace spans, telemetry gauges and recover/handoff
+are left out likewise.
 """
 
 from __future__ import annotations
@@ -30,8 +33,10 @@ import numpy as np
 import torch
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.llm import pipeline
+from ray_tpu_torch.llm.graphs import ChunkGraphs
 from ray_tpu_torch.llm.kv_cache import BlockAllocator, NoFreeBlocksError, SequenceBlocks
-from ray_tpu_torch.llm.mixed import MixedBatchPlan, MixedStats
+from ray_tpu_torch.llm.mixed import MixedBatchPlan, MixedStats, token_bucket
 from ray_tpu_torch.llm.pipeline import CHUNK_BUCKETS, assemble_batch_arrays
 from ray_tpu_torch.llm.sampling import (
     SamplingParams,
@@ -39,8 +44,16 @@ from ray_tpu_torch.llm.sampling import (
     row_seed,
     sample_tokens,
 )
+from ray_tpu_torch.llm.spec import SpecConfig, SpecStats, accept_draft
 from ray_tpu_torch.models import llama
-from ray_tpu_torch.models.llama_decode import decode_step, init_cache, mixed_step, prefill
+from ray_tpu_torch.models.llama_decode import (
+    decode_step,
+    init_cache,
+    mixed_step,
+    prefill,
+    verify_tokens,
+    verify_tokens_ragged,
+)
 from ray_tpu_torch.ops.paged_attention import pick_impl
 
 
@@ -60,11 +73,17 @@ class EngineConfig:
     lora_rank: int = 8
     lora_targets: tuple = ("wq", "wv")
     # decode+sample steps per host round trip (llm/decode_loop.py);
-    # 1 = one sync per token. EOS overshoot is discarded host-side.
+    # 1 = one sync per token. EOS overshoot is discarded host-side. With
+    # pipeline_decode this is only the chunk controller's starting length
     decode_chunk: int = 8
-    # the reference defaults to True; the pipelined path is not ported yet
-    pipeline_decode: bool = False
+    # pipelined decode (llm/pipeline.py, llm/graphs.py): batch state on the
+    # device, stop ladder in the chunk, chunk N+1 dispatched before chunk N
+    # is synced; token streams equal the sync path's. False keeps the sync
+    # path (also taken for batches with > pipeline.STOP_WIDTH_CAP stop ids)
+    pipeline_decode: bool = True
     profile: bool = False
+    # speculative decoding (llm/spec): a SpecConfig (or a dict of one)
+    # turns each decode round into draft -> one verify pass -> accept
     spec: Any = None
     kvtier: Any = None
     # mixed ragged batching (llm/mixed.py over ops/ragged.py): prompts
@@ -80,11 +99,9 @@ class EngineConfig:
                 "(the model registry is not ported yet)"
             )
         unported = (
-            ("spec", self.spec is not None, "speculative decoding (Queue 1, B5)"),
             ("kvtier", self.kvtier is not None, "the tiered KV cache (Queue 1, C3)"),
             ("mesh_spec", self.mesh_spec is not None, "tensor-parallel serving (Queue 1, B4)"),
             ("max_loras", self.max_loras > 0, "LoRA adapters (Queue 1, B3/B4)"),
-            ("pipeline_decode", self.pipeline_decode, "pipelined decode (Queue 1, B4)"),
             ("profile", self.profile, "the decode profiling hooks (Queue 1, slice E)"),
         )
         for name, requested, item in unported:
@@ -101,6 +118,13 @@ class EngineConfig:
         self.mixed_prefill_chunk = max(
             1, min(self.mixed_prefill_chunk, self.max_prefill_len)
         )
+        if self.spec is not None:
+            if isinstance(self.spec, dict):
+                self.spec = SpecConfig(**self.spec)
+            if not isinstance(self.spec, SpecConfig):
+                raise ValueError(
+                    f"EngineConfig.spec must be a SpecConfig, got {type(self.spec)}"
+                )
 
     def prefill_buckets(self) -> list[int]:
         out, b = [], 16
@@ -207,6 +231,23 @@ class LLMEngine:
         # unconditionally so preempt/abort never need a mode check.
         self._mixed_prefills: dict[str, int] = {}
         self._mixed_stats = MixedStats() if c.mixed_batch else None
+        # pipelined decode: the device-resident batch state, the in-flight
+        # chunk, the chunk controller, the captured graphs, and outputs
+        # produced by internal flushes (returned by the next step(), so no
+        # token or finish event is dropped)
+        self._pipe_state = None
+        self._pipe_inflight = None
+        self._pipe_ctl = None
+        self._pipe_stats = None
+        self._pipe_last_sync_t = None
+        self._pending_outputs: list[RequestOutput] = []
+        self._graphs = ChunkGraphs(self.device)
+        # speculative decoding: drafter + stats
+        self.drafter = None
+        self.spec_stats = None
+        if c.spec is not None:
+            self.drafter = c.spec.build_drafter(c.model, self.device)
+            self.spec_stats = SpecStats()
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
@@ -273,6 +314,13 @@ class LLMEngine:
         if req is None or req.status in (RequestStatus.FINISHED, RequestStatus.ABORTED):
             return
         if req in self.running:
+            # removing a decode-batch row is a membership change: land the
+            # in-flight chunk first (its outputs go out with the next
+            # step()); the flush may finish this request normally
+            self._pipe_flush(deliver=True)
+            if req.status in (RequestStatus.FINISHED, RequestStatus.ABORTED):
+                return
+        if req in self.running:
             self.running.remove(req)
         if req in self.waiting:
             self.waiting.remove(req)
@@ -282,13 +330,21 @@ class LLMEngine:
         req.status = RequestStatus.ABORTED
         req.finish_reason = "abort"
         self.requests.pop(request_id, None)
+        if self.drafter is not None:
+            self.drafter.release(request_id)
 
     def has_unfinished(self) -> bool:
-        return bool(self.waiting or self.running)
+        # pending flush outputs count: an abort's flush may have finished
+        # the last running request, whose finish event still needs a step()
+        return bool(self.waiting or self.running or self._pending_outputs)
 
     def step(self) -> list[RequestOutput]:
         """One engine iteration: admit + prefill waiting requests, else
         decode (or, with mixed batching, one mixed dispatch)."""
+        if self._pending_outputs:
+            # outputs of an internal pipeline flush (abort) go out first
+            out, self._pending_outputs = self._pending_outputs, []
+            return out
         if self.waiting:
             # QoS admission order: the highest-priority waiting request
             # first (strictly FIFO when priorities are uniform)
@@ -303,6 +359,9 @@ class LLMEngine:
                 # which recomputes later
                 victim = min(self.running, key=lambda r: (r.priority, -r.arrival))
                 if victim.priority < head.priority:
+                    flushed = self._pipe_flush()
+                    if flushed:
+                        return flushed
                     self._preempt_one(below_priority=head.priority)
                     self._promote_priority()
         if self.config.mixed_batch:
@@ -314,6 +373,11 @@ class LLMEngine:
             # minus live-shared prefix-cache hits
             and self._admission_need(self.waiting[0]) <= self.allocator.num_free
         ):
+            # admission is a membership change: the in-flight chunk
+            # (dispatched for the old batch) lands first
+            flushed = self._pipe_flush()
+            if flushed:
+                return flushed
             admitted: list = []  # (req, last-token logits [1, V]) pairs
             while self.waiting and len(self.running) < self.config.max_num_seqs:
                 got = self._prefill_one()
@@ -364,6 +428,12 @@ class LLMEngine:
                 ),
             },
         }
+        if self.spec_stats is not None:
+            out["spec"] = self.spec_stats.to_dict()
+        if self._pipe_stats is not None and self._pipe_stats.dispatches:
+            # chunk sizes, host/device split, overlap ratio, steps run
+            # after every row was done, and the captured graphs
+            out["pipeline"] = {**self._pipe_stats.to_dict(), "graphs": self._graphs.stats()}
         if self._mixed_stats is not None and self._mixed_stats.dispatches:
             out["mixed"] = self._mixed_stats.to_dict()
         return out
@@ -487,11 +557,20 @@ class LLMEngine:
             and len(self.running) < c.max_num_seqs
             and self._admission_need(self.waiting[0]) <= self.allocator.num_free
         ):
+            # admission is a membership change for the pipelined carry
+            flushed = self._pipe_flush()
+            if flushed:
+                return flushed
             while self.waiting and len(self.running) < c.max_num_seqs:
                 if self._mixed_admit() is None:
                     break  # no cache room: decode to free blocks
         if not self._mixed_prefills:
             return self._decode_step() if self.running else []
+        # prefill chunks in flight: the mixed dispatch replaces the decode
+        # round this step, so the pipelined carry lands first
+        flushed = self._pipe_flush()
+        if flushed:
+            return flushed
         # KV for this step's writes: mid-prompt rows reserved their full
         # recompute prompt at admission; decode rows grow one position
         while True:
@@ -573,6 +652,9 @@ class LLMEngine:
         victim.num_preemptions += 1
         self.num_preemptions += 1
         self.waiting.appendleft(victim)
+        if self.drafter is not None:
+            # re-admission recomputes; stale draft-cache state would desync
+            self.drafter.release(victim.request_id)
         return True
 
     def _bt_width(self, page_counts) -> int:
@@ -599,7 +681,327 @@ class LLMEngine:
         return max(1, r.sampling_params.max_tokens - len(r.output_token_ids))
 
     def _decode_step(self) -> list[RequestOutput]:
+        if self.config.spec is not None:
+            return self._spec_decode_step()
+        if self.config.pipeline_decode:
+            return self._pipelined_decode_step()
         return self._plain_decode_step()
+
+    # -- pipelined decode (llm/pipeline.py over llm/graphs.py) ----------------
+    # Chunk N+1 is dispatched from the device-resident carry BEFORE chunk N's
+    # tokens are synced, so host bookkeeping overlaps device work.
+    # Membership changes (admission, abort, preemption) flush first; rows
+    # that finish during the overlap are already done on the device, so the
+    # early-dispatched chunk computes the same stream for live rows and
+    # nothing for finished ones. Token identity with the sync path is the
+    # contract.
+
+    def _masked_chunk(self, bufs, n_steps: int, mode: str, early_exit: bool):
+        """One masked chunk on a bucket's static buffers, carry written
+        back in place (what ``ChunkGraphs`` captures and replays)."""
+        c = self.config
+        toks, lps, n_emit, steps_run, carry, self.cache = pipeline.decode_chunk_masked(
+            self.params, bufs.tokens, bufs.positions, bufs.block_tables,
+            bufs.context_lens, self.cache, bufs.temps, bufs.top_ks, bufs.top_ps,
+            bufs.seed_bases, bufs.starts, bufs.max_toks, bufs.done, bufs.stop_ids,
+            bufs.stop_on_eos, c.model, n_steps=n_steps, block_size=c.block_size,
+            trash_slot=c.num_blocks * c.block_size, eos_id=c.eos_token_id,
+            attn_impl=c.attn_impl, sample_mode=mode, early_exit=early_exit,
+        )
+        for dst, src in zip(bufs.carry(), carry):
+            dst.copy_(src)
+        return toks, lps, n_emit, steps_run
+
+    def _pipe_flush(self, deliver: bool = False) -> list[RequestOutput]:
+        """Land the in-flight chunk (if any) and drop the device-resident
+        state (callers flush because membership is about to change).
+        Returns the synced outputs; with ``deliver`` they are queued for
+        the next step() instead."""
+        rec, self._pipe_inflight = self._pipe_inflight, None
+        self._pipe_state = None
+        # the gap to the next dispatch spans a membership change, which
+        # does not amortize with chunk length: keep it out of the
+        # controller's per-round overhead signal (also when nothing is in
+        # flight: the last chunk of a batch may have been synced already)
+        self._pipe_last_sync_t = None
+        if rec is None:
+            return []
+        self._pipe_stats.flushes += 1
+        outs = self._pipe_sync(rec)
+        self._pipe_last_sync_t = None
+        if deliver and outs:
+            self._pending_outputs.extend(outs)
+            return []
+        return outs
+
+    def _pipe_drop(self) -> None:
+        """Discard the in-flight chunk without syncing it. Its tokens were
+        never booked into output_token_ids, so a recompute from the
+        requests' prefixes stays correct."""
+        self._pipe_inflight = None
+        self._pipe_state = None
+        self._pipe_last_sync_t = None
+
+    def _pipelined_decode_step(self) -> list[RequestOutput]:
+        c = self.config
+        if self._pipe_ctl is None:
+            self._pipe_ctl = pipeline.ChunkController(initial=max(1, c.decode_chunk))
+            self._pipe_stats = pipeline.PipelineStats()
+        if any(
+            len(r.sampling_params.stop_token_ids) > pipeline.STOP_WIDTH_CAP
+            for r in self.running
+        ):
+            # a stop set wider than the padded device matrix: serve this
+            # batch on the sync path (identical tokens)
+            self._pipe_stats.sync_fallbacks += 1
+            outs = self._pipe_flush()
+            return outs if outs else self._plain_decode_step()
+
+        t_prep0 = time.perf_counter()
+        prev = self._pipe_inflight
+        self._pipe_inflight = None
+        # chunk length: adaptive from the measured host round overhead vs
+        # chunk wall, capped by the batch's largest remaining budget
+        gap_ms = (
+            (t_prep0 - self._pipe_last_sync_t) * 1e3
+            if self._pipe_last_sync_t is not None else 0.0
+        )
+        pending = prev["n_steps"] if prev is not None else 0
+        left = max((self._remaining(r) for r in self.running), default=1) - pending
+        if prev is not None and left <= 0:
+            # every row's max_tokens budget ends inside the chunk in flight:
+            # another chunk would only compute frozen rows (the reference's
+            # while-loop leaves such a chunk at once; a graph runs it whole)
+            return self._pipe_sync(prev)
+        n_steps = self._pipe_ctl.next_steps(cap=max(1, left))
+
+        # reserve KV for the chunk's writes, per row clamped to its budget
+        # and the max_seq wall. The horizon includes the un-synced chunk in
+        # flight: this dispatch continues from the device carry, up to
+        # prev_steps tokens past the host's num_tokens, and a write past the
+        # reserved blocks would read table padding (0) and clobber another
+        # sequence's block 0
+        try:
+            for r in self.running:
+                r.seq.ensure_capacity(
+                    r.num_tokens + max(1, min(
+                        pending + n_steps, self._remaining(r),
+                        c.model.max_seq - r.num_tokens,
+                    ))
+                )
+        except NoFreeBlocksError:
+            # real cache pressure: preemption is a membership change — land
+            # the in-flight chunk first so its tokens aren't lost, then
+            # preempt and let the next round rebuild
+            if prev is not None:
+                self._pipe_inflight = prev
+                return self._pipe_flush()
+            self._pipe_state = None
+            if not self._preempt_one():
+                raise  # single running request can't fit: cache too small
+            return []
+
+        state = self._pipe_state
+        if state is None:
+            state = pipeline.DeviceBatchState.build(self, self.running)
+            self._pipe_state = state
+            if prev is None:
+                self._pipe_stats.rebuilds += 1
+        elif not state.refresh_block_tables(self.running):
+            # a row outgrew the padded block-table width: flush + rebuild
+            if prev is not None:
+                self._pipe_inflight = prev
+                return self._pipe_flush()
+            state = pipeline.DeviceBatchState.build(self, self.running)
+            self._pipe_state = state
+            self._pipe_stats.rebuilds += 1
+
+        # dispatch chunk N+1 from the device-resident carry (a graph replay
+        # on the card: it does not wait for chunk N)
+        t_dispatch = time.perf_counter()
+        host_prep_ms = (t_dispatch - t_prep0) * 1e3
+        capture_s0 = self._graphs.capture_s
+        inflight = self._graphs.run(self._masked_chunk, state.bufs, n_steps, state.sample_mode)
+        # a first use of a bucket captures its graph: neither host prep nor
+        # chunk time
+        t_dispatch += self._graphs.capture_s - capture_s0
+        self._pipe_stats.record_dispatch(n_steps, host_prep_ms)
+        self._pipe_inflight = {
+            "batch": list(self.running), "row_of": dict(state.row_of),
+            "inflight": inflight, "n_steps": n_steps,
+            "t_dispatch": t_dispatch, "gap_ms": gap_ms,
+        }
+        if prev is None:
+            # cold start: nothing to overlap with yet; the next step()
+            # dispatches chunk 2 and syncs this one
+            return []
+        return self._pipe_sync(prev)
+
+    def _pipe_sync(self, rec) -> list[RequestOutput]:
+        """Sync one dispatched chunk's tokens and run the host ladder for
+        the rows still alive."""
+        t0 = time.perf_counter()
+        toks, lps, n_emit, steps_run = rec["inflight"].wait()  # the host sync
+        t1 = time.perf_counter()
+        self._pipe_last_sync_t = t1
+        sync_wait_ms = (t1 - t0) * 1e3
+        chunk_ms = (t1 - rec["t_dispatch"]) * 1e3
+        self._pipe_ctl.note_overhead(rec["gap_ms"] + sync_wait_ms)
+        self._pipe_ctl.note_chunk(chunk_ms, rec["n_steps"], steps_run)
+        self._pipe_stats.record_sync(
+            steps_run=steps_run, sync_wait_ms=sync_wait_ms, chunk_ms=chunk_ms
+        )
+        # rows that finished in an earlier sync are done on the device and
+        # emitted nothing; only live rows get bookkeeping
+        live = [
+            r for r in rec["batch"]
+            if r.status == RequestStatus.RUNNING and r.seq is not None
+        ]
+        if not live:
+            return []
+        cols = [rec["row_of"][r.request_id] for r in live]
+        return self._append_chunk(
+            live, toks[:, cols], lps[:, cols], row_counts=[int(n_emit[j]) for j in cols],
+        )
+
+    # -- speculative decoding (llm/spec) ---------------------------------------
+
+    def _spec_decode_step(self) -> list[RequestOutput]:
+        """One speculative round: draft -> one batched verify pass ->
+        distribution-preserving accept -> KV rollback. A row whose drafter
+        proposed nothing feeds only its current token (its column-0 logits
+        are a decode step's) and emits one token; only when no row has a
+        draft does the round take the sync decode path. Eager: the packed
+        token count changes every round."""
+        c = self.config
+        k = c.spec.num_draft_tokens
+        batch = list(self.running)
+
+        # draft first (host-side): capacity needs depend on draft lengths
+        draft_by_rid: dict[str, list] = {}
+        for r in batch:
+            # positions fed this round reach num_tokens-1+L and the pass
+            # emits up to L+1 tokens: cap L by the max_tokens budget and the
+            # max_seq wall
+            cap = min(k, self._remaining(r) - 1, c.model.max_seq - r.num_tokens)
+            d = (
+                self.drafter.propose(
+                    r.request_id, r.prompt_token_ids + r.output_token_ids, cap
+                )
+                if cap > 0 else []
+            )
+            draft_by_rid[r.request_id] = list(d)
+        if not any(draft_by_rid.values()):
+            return self._plain_decode_step()
+
+        # reserve KV for the drafted positions; preempt on real pressure only
+        while True:
+            try:
+                for r in self.running:
+                    r.seq.ensure_capacity(r.num_tokens + len(draft_by_rid[r.request_id]))
+                break
+            except NoFreeBlocksError:
+                if not self._preempt_one():
+                    raise
+
+        batch = list(self.running)
+        drafts = [draft_by_rid[r.request_id] for r in batch]
+        B = len(batch)
+        B_pad = self._pad_to_bucket(B, c.decode_buckets())
+        K1 = k + 1
+        num_slots = c.num_blocks * c.block_size
+
+        context_lens = np.zeros(B_pad, np.int32)
+        draft_tokens = np.zeros((B_pad, k), np.int32)
+        draft_lens = np.zeros(B_pad, np.int32)
+        bt = np.zeros((B_pad, self._bt_width([len(r.seq.blocks) for r in batch])), np.int32)
+        rows = []  # (fed token + draft, position of the fed token) per row
+        for i, r in enumerate(batch):
+            d = drafts[i]
+            context_lens[i] = r.num_tokens + len(d)
+            draft_tokens[i, : len(d)] = d
+            draft_lens[i] = len(d)
+            bt[i, : len(r.seq.blocks)] = r.seq.blocks
+            last = r.output_token_ids[-1] if r.output_token_ids else r.prompt_token_ids[-1]
+            rows.append(([last] + d, r.num_tokens - 1))
+
+        if c.mixed_batch:
+            # ragged verify: pack only the real 1 + draft_len tokens per row;
+            # gather_idx recovers the [B, K+1] logits layout accept_draft
+            # expects (positions past a row's draft repeat its last token and
+            # are masked by draft_lens)
+            T_pad = token_bucket(sum(len(row) for row, _ in rows))
+            p_tokens = np.zeros(T_pad, np.int32)
+            p_positions = np.zeros(T_pad, np.int32)
+            p_slots = np.full(T_pad, num_slots, np.int32)
+            cu = np.zeros(B_pad + 1, np.int32)
+            gather = np.zeros((B_pad, K1), np.int32)
+            t = 0
+            for i, (r, (row, pos0)) in enumerate(zip(batch, rows)):
+                n = len(row)
+                p_tokens[t : t + n] = row
+                p_positions[t : t + n] = np.arange(pos0, pos0 + n)
+                p_slots[t : t + n] = r.seq.slots_for_range(pos0, pos0 + n)
+                gather[i] = t + np.minimum(np.arange(K1), n - 1)
+                t += n
+                cu[i + 1] = t
+            cu[B + 1 :] = t  # pad sequences: q_len 0
+            logits, self.cache = verify_tokens_ragged(
+                self.params, self._tensor(p_tokens), self._tensor(p_positions),
+                self._tensor(p_slots), self._tensor(bt), self._tensor(cu),
+                self._tensor(context_lens), self._tensor(gather), self.cache, c.model,
+                block_size=c.block_size, max_q_len=K1, attn_impl=c.attn_impl,
+            )
+        else:
+            tokens = np.zeros((B_pad, K1), np.int32)
+            positions = np.zeros((B_pad, K1), np.int32)
+            slots = np.full((B_pad, K1), num_slots, np.int32)  # trash by default
+            for i, (r, (row, pos0)) in enumerate(zip(batch, rows)):
+                n = len(row)
+                tokens[i, :n] = row
+                positions[i, :n] = np.arange(pos0, pos0 + n)
+                slots[i, :n] = r.seq.slots_for_range(pos0, pos0 + n)
+            logits, self.cache = verify_tokens(
+                self.params, self._tensor(tokens), self._tensor(positions),
+                self._tensor(slots), self._tensor(bt), self._tensor(context_lens),
+                self.cache, c.model, block_size=c.block_size,
+            )
+
+        # acceptance follows the batch's sampler mode: greedy -> argmax
+        # comparisons; categorical -> tempered softmax; else exact filtering
+        batch_mode = self._sample_mode(batch)
+        mode = batch_mode if batch_mode in ("greedy", "categorical") else "sample"
+        pad = B_pad - B
+        sps = [r.sampling_params for r in batch]
+        out_toks, out_lps, accepted = accept_draft(
+            logits, self._tensor(draft_tokens), self._tensor(draft_lens),
+            self._tensor(np.asarray([sp.temperature for sp in sps] + [1.0] * pad, np.float32)),
+            self._tensor(np.asarray([sp.top_k for sp in sps] + [0] * pad, np.int64)),
+            self._tensor(np.asarray([sp.top_p for sp in sps] + [1.0] * pad, np.float32)),
+            self._row_seeds(batch, B_pad), mode=mode,
+        )
+        out_toks = out_toks.cpu().numpy()  # the host sync
+        out_lps = out_lps.cpu().numpy()
+        accepted = accepted.cpu().numpy()
+
+        # keep accepted + 1 tokens per row through the usual stop ladder
+        counts = (accepted[:B] + 1).tolist()
+        outputs = self._append_chunk(batch, out_toks[:B].T, out_lps[:B].T, row_counts=counts)
+        # KV rollback: blocks reserved for rejected draft positions go back;
+        # their stale K/V is masked by context_lens and rewritten later
+        for r in batch:
+            if r.status == RequestStatus.RUNNING and r.seq is not None:
+                r.seq.truncate_to(r.num_tokens)
+
+        st = self.spec_stats
+        st.steps += 1
+        st.rows += B
+        st.drafted += int(draft_lens[:B].sum())
+        st.accepted += int(accepted[:B].sum())
+        st.emitted += sum(len(o.new_token_ids) for o in outputs)
+        return outputs
+
+    # -- sync decode ----------------------------------------------------------
 
     def _plain_decode_step(self) -> list[RequestOutput]:
         c = self.config
@@ -650,7 +1052,7 @@ class LLMEngine:
             self.params, self._tensor(a["tokens"]), self._tensor(a["positions"]),
             self._tensor(a["bt"]), self._tensor(a["context_lens"]), self.cache,
             self._tensor(a["temps"]), self._tensor(a["top_ks"]),
-            self._tensor(a["top_ps"]), seed_bases, a["starts"].tolist(),
+            self._tensor(a["top_ps"]), self._tensor(seed_bases), self._tensor(a["starts"]),
             self._tensor(remaining), c.model, n_steps=n_steps,
             block_size=c.block_size, trash_slot=num_slots,
             attn_impl=c.attn_impl, sample_mode=self._sample_mode(batch),
@@ -660,40 +1062,47 @@ class LLMEngine:
 
     # -- sampling + bookkeeping ----------------------------------------------
 
+    def _row_seeds(self, batch: list, n: int) -> torch.Tensor:
+        """[n] int64 seeds of each request's next token (pad rows 0): a pure
+        function of (request seed base, absolute output index), so the same
+        request samples the same stream in any chunking, under any load."""
+        seeds = np.zeros(n, np.int64)
+        for i, r in enumerate(batch):
+            seeds[i] = row_seed(r.seed_base, len(r.output_token_ids))
+        return self._tensor(seeds)
+
     def _sample_batch(self, logits, batch: list) -> tuple[np.ndarray, np.ndarray]:
         B = len(batch)
         sps = [r.sampling_params for r in batch]
-        # seed = f(request seed base, absolute output index): the same
-        # request samples the same stream in any chunking, under any load
-        seeds = [
-            None if sp.greedy else row_seed(r.seed_base, len(r.output_token_ids))
-            for r, sp in zip(batch, sps)
-        ]
         toks, logprobs = sample_tokens(
             logits[:B],
             self._tensor(np.asarray([sp.temperature for sp in sps], np.float32)),
             self._tensor(np.asarray([sp.top_k for sp in sps], np.int64)),
             self._tensor(np.asarray([sp.top_p for sp in sps], np.float32)),
-            seeds,
+            self._row_seeds(batch, B),
             mode=self._sample_mode(batch),
         )
         return toks.cpu().numpy(), logprobs.cpu().numpy()
 
-    def _append_chunk(self, batch: list, toks, logprobs) -> list[RequestOutput]:
+    def _append_chunk(self, batch: list, toks, logprobs,
+                      row_counts: Optional[list] = None) -> list[RequestOutput]:
         """Host bookkeeping after a device-side chunk: walk each request's
         token column in order, keep until a stop condition fires, discard
         the overshoot (its KV sits in the request's own unsealed blocks,
-        released with the sequence). One RequestOutput per request."""
+        released with the sequence). One RequestOutput per request.
+        ``row_counts`` caps the walk per row (the pipelined chunk's
+        n_emitted; a spec round's accepted + 1)."""
         c = self.config
         outputs = []
         now = time.time()
+        n = toks.shape[0]
         for i, r in enumerate(batch):
             sp = r.sampling_params
             new_toks: list[int] = []
             finished = False
             if r.t_first_token is None:
                 r.t_first_token = now
-            for s in range(toks.shape[0]):
+            for s in range(n if row_counts is None else min(n, row_counts[i])):
                 t = int(toks[s, i])
                 lp = float(logprobs[s, i])
                 new_toks.append(t)
@@ -721,6 +1130,8 @@ class LLMEngine:
                 self.running.remove(r)
                 r.seq.release()
                 self.requests.pop(r.request_id, None)
+                if self.drafter is not None:
+                    self.drafter.release(r.request_id)
             else:
                 r.seq.num_tokens = r.num_tokens
             outputs.append(

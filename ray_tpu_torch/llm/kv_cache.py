@@ -19,6 +19,23 @@ salts and salt-scoped drops (LoRA), and the read-only ``probe_prefix`` /
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
+
+
+@dataclasses.dataclass
+class KVCacheConfig:
+    """Capacity knobs of a paged cache (the draft model's, in speculative
+    decoding; its layer and head dims follow the model). ``dtype`` None
+    means the model's compute dtype; the reference defaults to bf16, but
+    the CUDA kernels need the cache in the query's dtype."""
+
+    num_blocks: int = 256
+    block_size: int = 16  # tokens per block
+    dtype: Any = None
+
+    @property
+    def num_slots(self) -> int:
+        return self.num_blocks * self.block_size
 
 
 class NoFreeBlocksError(Exception):

@@ -1,12 +1,15 @@
 """Sampling: per-request params and one batched sampler on the device
 (counterpart of ``ray_tpu/llm/sampling.py``).
 
-Randomness: every sampled row draws its noise from its own
-``torch.Generator`` seeded by ``row_seed(request seed base, absolute
-output index)``, so a seeded request emits the same tokens however its
-decode is chunked and whatever its batch-mates are. The streams differ
-from the reference's threefry keys, so seeded outputs match the
-reference in distribution, not bit for bit.
+Randomness is counter-based: the noise of output token ``index`` of a
+request is a pure function of (request seed base, index, vocab id),
+computed by int64 tensor ops on the logits' device (``noise_bits``, a
+SplitMix64 stream per row). Nothing is seeded on the host per step, so a
+decode chunk captured into a CUDA graph draws fresh noise at every
+replay, and a seeded request emits the same tokens however its decode is
+chunked and whatever its batch-mates are. The reference derives its keys
+the same way (``fold_in(request key, index)``) but draws threefry bits,
+so seeded outputs match it in distribution, not bit for bit.
 
 All modes sample by Gumbel-max over the same per-row noise: ``categorical``
 takes argmax(logits / T + g) over the vocab; ``full`` and ``full_sort``
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Optional, Sequence
+from typing import Optional
 
 import torch
 
@@ -69,13 +72,22 @@ class SamplingParams:
 TOP_CAP = 256
 
 _MASK64 = (1 << 64) - 1
+_GAMMA = 0x9E3779B97F4A7C15
+_MIX1 = 0xBF58476D1CE4E5B9
+_MIX2 = 0x94D049BB133111EB
 
 
 def _splitmix64(x: int) -> int:
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    x = (x + _GAMMA) & _MASK64
+    x = ((x ^ (x >> 30)) * _MIX1) & _MASK64
+    x = ((x ^ (x >> 27)) * _MIX2) & _MASK64
     return x ^ (x >> 31)
+
+
+def as_int64(u: int) -> int:
+    """A 64-bit unsigned value as the int64 with the same bits."""
+    u &= _MASK64
+    return u - (1 << 64) if u >> 63 else u
 
 
 def request_seed_base(seed: int, request_id: str) -> int:
@@ -87,23 +99,53 @@ def request_seed_base(seed: int, request_id: str) -> int:
 
 
 def row_seed(base: int, index: int) -> int:
-    """Generator seed for the token at absolute output ``index``."""
-    return _splitmix64(base ^ index) >> 1  # 63 bits: any torch seed
+    """Seed of the token at absolute output ``index`` (63 bits, so it is
+    a non-negative int64); ``row_seeds`` computes it on the device."""
+    return _splitmix64(base ^ index) >> 1
 
 
-def _gumbel(seeds: Sequence[Optional[int]], V: int, device) -> torch.Tensor:
-    """[B, V] Gumbel noise, row i from a generator seeded with seeds[i];
-    rows whose seed is None (greedy or pad rows) get zeros."""
-    g = torch.zeros((len(seeds), V), dtype=torch.float32, device=device)
-    tiny = torch.finfo(torch.float32).tiny
-    for i, s in enumerate(seeds):
-        if s is None:
-            continue
-        gen = torch.Generator(device=device)
-        gen.manual_seed(s)
-        u = torch.rand(V, generator=gen, device=device).clamp_min_(tiny)
-        g[i] = -torch.log(-torch.log(u))
-    return g
+# int64 tensor versions: torch's >> on int64 is arithmetic, so every
+# shift is masked to a logical one; + and * wrap modulo 2**64
+def _srl(x: torch.Tensor, k: int) -> torch.Tensor:
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def _splitmix64_t(x: torch.Tensor) -> torch.Tensor:
+    x = x + as_int64(_GAMMA)
+    x = (x ^ _srl(x, 30)) * as_int64(_MIX1)
+    x = (x ^ _srl(x, 27)) * as_int64(_MIX2)
+    return x ^ _srl(x, 31)
+
+
+def row_seeds(bases: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """``row_seed`` on the device: bases [B] int64 (``as_int64`` of the
+    seed bases), indices [B] -> [B] int64 seeds."""
+    return _srl(_splitmix64_t(bases ^ indices.long()), 1)
+
+
+def stream_seeds(seeds: torch.Tensor, tag: int) -> torch.Tensor:
+    """An independent stream per (row seed, tag): the speculative accept
+    draws its uniforms (tag 0) and its resample (tag 1) from these, as the
+    reference folds 0 and 1 into the row key."""
+    return _srl(_splitmix64_t(seeds ^ (tag + 1)), 1)
+
+
+def noise_bits(seeds: torch.Tensor, n: int) -> torch.Tensor:
+    """[B, n] int64: draw j of row b is the j-th output of SplitMix64
+    seeded with seeds[b], i.e. splitmix64(seed + j * gamma)."""
+    j = torch.arange(n, dtype=torch.int64, device=seeds.device)
+    return _splitmix64_t(seeds.long()[:, None] + j[None, :] * as_int64(_GAMMA))
+
+
+def uniforms(seeds: torch.Tensor, n: int) -> torch.Tensor:
+    """[B, n] fp32 in (0, 1): the top 23 bits of each draw, centred (every
+    value exact in fp32)."""
+    return (_srl(noise_bits(seeds, n), 41).float() + 0.5) * (1.0 / (1 << 23))
+
+
+def gumbel(seeds: torch.Tensor, n: int) -> torch.Tensor:
+    """[B, n] fp32 standard Gumbel noise."""
+    return -torch.log(-torch.log(uniforms(seeds, n)))
 
 
 def sample_tokens(
@@ -111,8 +153,9 @@ def sample_tokens(
     temperatures: torch.Tensor,  # [B] (0 = greedy)
     top_ks: torch.Tensor,        # [B] int (0 = off)
     top_ps: torch.Tensor,        # [B] (1.0 = off)
-    seeds: Sequence[Optional[int]],  # [B] per-row generator seeds (None: no noise)
+    seeds: Optional[torch.Tensor],  # [B] int64 row seeds (row_seed); unused when greedy
     mode: str = "full",          # "greedy" | "categorical" | "full" | "full_sort"
+    done: Optional[torch.Tensor] = None,  # [B] bool: finished-row mask
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (tokens [B] int64, logprobs [B] fp32), on the logits' device.
 
@@ -120,7 +163,16 @@ def sample_tokens(
       * greedy: every row has temperature 0 — argmax only;
       * categorical: temperature sampling, no top-k/top-p — no sort;
       * full: top-k/top-p filtering on the TOP_CAP largest logits;
-      * full_sort: exact filtering over the whole vocabulary."""
+      * full_sort: exact filtering over the whole vocabulary.
+
+    ``done`` (the pipelined chunk's stop mask): a finished row's logits
+    are replaced by a one-hot before anything reads them and the row
+    emits token 0 with logprob 0. The masking is a select, so live rows'
+    draws are untouched whatever their batch-mates."""
+    if done is not None:
+        onehot = torch.zeros_like(logits)
+        onehot[:, 0] = 1.0
+        logits = torch.where(done[:, None], onehot, logits)
     greedy_tok = torch.argmax(logits, dim=-1)
     logp_all = torch.log_softmax(logits, dim=-1)
     if mode == "greedy":
@@ -129,7 +181,7 @@ def sample_tokens(
         V = logits.shape[-1]
         t = torch.where(temperatures <= 0.0, torch.ones_like(temperatures), temperatures)
         scaled = logits / t[:, None]
-        g = _gumbel(seeds, V, logits.device)
+        g = gumbel(seeds, V)
         sampled = torch.argmax(scaled + g, dim=-1)
         if mode in ("full", "full_sort"):
             cap = V if mode == "full_sort" else min(TOP_CAP, V)
@@ -153,4 +205,30 @@ def sample_tokens(
             sampled = torch.where(needs, filtered, sampled)
         tok = torch.where(temperatures <= 0.0, greedy_tok, sampled)
     logprob = torch.gather(logp_all, 1, tok[:, None])[:, 0]
+    if done is not None:
+        tok = torch.where(done, torch.zeros_like(tok), tok)
+        logprob = torch.where(done, torch.zeros_like(logprob), logprob)
     return tok, logprob
+
+
+def target_probs(
+    logits: torch.Tensor,        # [B, V] fp32
+    temperatures: torch.Tensor,  # [B] (<= 0 treated as 1.0)
+    top_ks: torch.Tensor,        # [B] int (0 = off)
+    top_ps: torch.Tensor,        # [B] (1.0 = off)
+) -> torch.Tensor:
+    """The normalized full-vocab distribution ``sample_tokens`` draws from,
+    with temperature, top-k and top-p applied exactly (a descending sort
+    over the whole vocab, no TOP_CAP): the speculative accept's view of
+    the target."""
+    V = logits.shape[-1]
+    t = torch.where(temperatures <= 0.0, torch.ones_like(temperatures), temperatures)
+    vals, idx = torch.sort(logits / t[:, None], dim=-1, descending=True)
+    pos = torch.arange(V, device=logits.device)[None, :]
+    k = torch.where((top_ks <= 0) | (top_ks > V), torch.full_like(top_ks, V), top_ks)
+    vals = vals.masked_fill(pos >= k[:, None], float("-inf"))
+    probs = torch.softmax(vals, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = ((cum - probs) < top_ps[:, None]) | (pos == 0)
+    p_sorted = torch.softmax(vals.masked_fill(~keep, float("-inf")), dim=-1)
+    return torch.zeros_like(p_sorted).scatter_(1, idx, p_sorted)

@@ -9,6 +9,9 @@
    decode rows (``ops/ragged.py``).
  * ``decode_step`` — one token per running sequence, paged attention over
    its pages (``ops/paged_attention.py``).
+ * ``verify_tokens`` / ``verify_tokens_ragged`` — speculative-decoding
+   verification: logits at every position of a short drafted suffix,
+   through the paged prefill path or the packed ragged one.
 
 Cache layout: k/v [n_layers, n_kv_heads, num_slots + trash, head_dim],
 head-major, so one page of one kv head is a contiguous block_size x
@@ -159,6 +162,29 @@ def prefill(
     return _lm_head(params, h_last, config), cache
 
 
+def verify_tokens(
+    params: Params,
+    tokens: torch.Tensor,        # [B, K+1] current token + K drafted (right-padded)
+    positions: torch.Tensor,     # [B, K+1] absolute positions (pad = 0)
+    slot_mapping: torch.Tensor,  # [B, K+1] cache slots (pad -> trash slot)
+    block_tables: torch.Tensor,  # [B, MB]
+    context_lens: torch.Tensor,  # [B] prefix + valid suffix length
+    cache: Cache,
+    config: LlamaConfig,
+    *,
+    block_size: int,
+) -> tuple[torch.Tensor, Cache]:
+    """Speculative verification: score a drafted suffix in one pass
+    through the paged prefill path -> (logits [B, K+1, V] fp32, cache);
+    position j conditions on the fed tokens 0..j. A row with no draft is
+    a plain decode step (pad columns write the trash slot)."""
+    h, cache = _paged_forward(
+        params, tokens, positions, slot_mapping, block_tables, context_lens,
+        cache, config, block_size=block_size,
+    )
+    return _lm_head(params, h, config), cache
+
+
 def _page_attend_prefill(
     q: torch.Tensor,             # [B, S, H, D] (rope'd)
     k_cache_l: torch.Tensor,     # [KVH, num_slots+trash, D]
@@ -270,6 +296,35 @@ def mixed_step(
     T = tokens.shape[0]
     last = (cu_q_lens[1:].long() - 1).clamp(0, T - 1)  # [B]
     return _lm_head(params, h[last], config), cache
+
+
+def verify_tokens_ragged(
+    params: Params,
+    tokens: torch.Tensor,        # [T] packed (current token + draft) rows
+    positions: torch.Tensor,     # [T]
+    slot_mapping: torch.Tensor,  # [T]
+    block_tables: torch.Tensor,  # [B, MB]
+    cu_q_lens: torch.Tensor,     # [B+1]
+    context_lens: torch.Tensor,  # [B]
+    gather_idx: torch.Tensor,    # [B, K+1] packed row of each draft position
+    cache: Cache,
+    config: LlamaConfig,
+    *,
+    block_size: int,
+    max_q_len: int,
+    attn_impl: str = "auto",
+) -> tuple[torch.Tensor, Cache]:
+    """Ragged speculative verification -> (logits [B, K+1, V], cache):
+    each row packs exactly 1 + draft_len tokens (the ragged kernel on the
+    card). ``gather_idx`` maps draft position j back to its packed row;
+    positions past a row's draft repeat its last token and are masked by
+    draft_lens downstream."""
+    h, cache = ragged_forward(
+        params, tokens, positions, slot_mapping, block_tables, cu_q_lens,
+        context_lens, cache, config, block_size=block_size,
+        max_q_len=max_q_len, attn_impl=attn_impl,
+    )
+    return _lm_head(params, h[gather_idx.long()], config), cache
 
 
 def decode_step(

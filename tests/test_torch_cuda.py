@@ -1,5 +1,7 @@
 """ray_tpu_torch's CUDA kernels on the card, against their plain PyTorch
-twins (the twins are held against the JAX package by the CPU tests).
+twins (the twins are held against the JAX package by the CPU tests), and
+the pipelined decode chunk's CUDA graphs against the same chunk run
+eagerly.
 
 Every test carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is false. This file imports neither JAX nor
@@ -175,11 +177,13 @@ def test_engine_on_card_matches_cpu():
     sp = SamplingParams(max_tokens=12, temperature=0.0, ignore_eos=True)
     for mixed in (False, True):
         outs = []
-        for dev, p in (("cuda", on_card), ("cpu", params)):
+        for dev, p, pipelined in (("cuda", on_card, True), ("cuda", on_card, False),
+                                  ("cpu", params, True)):
             cfg = EngineConfig(model=model, num_blocks=64, block_size=16, max_num_seqs=4,
-                               max_prefill_len=128, mixed_batch=mixed, mixed_prefill_chunk=16)
+                               max_prefill_len=128, mixed_batch=mixed, mixed_prefill_chunk=16,
+                               pipeline_decode=pipelined)
             outs.append(LLMEngine(cfg, params=p, device=dev).generate(prompts, sp))
-        assert outs[0] == outs[1], mixed
+        assert outs[0] == outs[1] == outs[2], mixed
 
 
 # flash: the reference's allclose bands (tests/test_flash.py:39,46,88)
@@ -334,3 +338,162 @@ def test_train_step_on_card_matches_cpu():
         batch = {"tokens": toks[:, :-1].to(dev), "targets": toks[:, 1:].to(dev)}
         hist[dev] = [tuple(float(x) for x in step(state, batch)[1].values()) for _ in range(3)]
     np.testing.assert_allclose(hist["cuda"], hist["cpu"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# pipelined decode on captured CUDA graphs (llm/graphs.py)
+# ---------------------------------------------------------------------------
+
+
+def _graph_engine(dtype, **kw):
+    """A small engine (head_dim 64) on the card with three requests
+    prefilled, its decode batch built into a bucket's static buffers."""
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.llm.pipeline import DeviceBatchState
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = LlamaConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                        d_ff=512, max_seq=256, dtype=dtype)
+    cfg = EngineConfig(model=model, num_blocks=64, block_size=4, max_num_seqs=4,
+                       max_prefill_len=64, **kw)
+    eng = LLMEngine(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(5)
+    sps = [SamplingParams(max_tokens=40, temperature=0.0, ignore_eos=True),
+           SamplingParams(max_tokens=5, temperature=1.0, top_k=20, seed=3, ignore_eos=True),
+           SamplingParams(max_tokens=40, temperature=0.7, seed=4, ignore_eos=True)]
+    for n, sp in zip((7, 23, 12), sps):
+        eng.add_request(rng.integers(3, 500, size=n).tolist(), sp)
+    eng.step()  # admits and prefills all three
+    for r in eng.running:
+        r.seq.ensure_capacity(r.num_tokens + 16)
+    state = DeviceBatchState.build(eng, eng.running)
+    return eng, state
+
+
+def _snapshot(eng, bufs):
+    return ({n: t.clone() for n, t in eng.cache.items()}, [t.clone() for t in bufs.carry()])
+
+
+def _restore(eng, bufs, snap):
+    cache, carry = snap
+    for n, t in cache.items():
+        eng.cache[n].copy_(t)
+    for dst, src in zip(bufs.carry(), carry):
+        dst.copy_(src)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graph_replay_bit_identical_to_eager_chunk(dtype):
+    """A captured chunk's replay gives the eager chunk's bits (tokens,
+    logprobs, n_emitted, steps_run, carry and cache), and two replays from
+    the same state give the same bits."""
+    _need_cuda()
+    eng, state = _graph_engine(dtype)
+    bufs, mode, n = state.bufs, state.sample_mode, 8
+    assert mode == "full"
+    snap = _snapshot(eng, bufs)
+    eager = [t.clone() for t in eng._masked_chunk(bufs, n, mode, False)]
+    after_eager = _snapshot(eng, bufs)
+    replays = []
+    for _ in range(2):
+        _restore(eng, bufs, snap)
+        got = eng._graphs.run(eng._masked_chunk, bufs, n, mode)
+        toks, lps, ne, steps = got.wait()
+        replays.append(((toks, lps, ne, steps), _snapshot(eng, bufs)))
+    assert eng._graphs.captures == 1 and eng._graphs.replays == 2
+    trash = eng.config.num_blocks * eng.config.block_size
+    for (toks, lps, ne, steps), (cache, carry) in replays:
+        assert np.array_equal(toks, eager[0].cpu().numpy())
+        assert np.array_equal(lps, eager[1].cpu().numpy())
+        assert np.array_equal(ne, eager[2].cpu().numpy()) and steps == int(eager[3])
+        assert ne.tolist()[:3] == [8, 4, 8]  # row 1 stopped at its max_tokens
+        for a, b in zip(carry, after_eager[1]):
+            assert torch.equal(a, b)
+        for name in ("k", "v"):
+            assert torch.equal(cache[name][:, :, :trash], after_eager[0][name][:, :, :trash])
+
+
+def test_graph_replays_follow_block_table_growth():
+    """Chunks replayed back to back while rows grow into new blocks (the
+    table re-uploaded between replays, nothing synced in between) match the
+    same chunks run eagerly with the same tables."""
+    _need_cuda()
+    from ray_tpu_torch.llm.graphs import upload
+
+    eng, state = _graph_engine(torch.float32)
+    bufs, mode = state.bufs, state.sample_mode
+    snap = _snapshot(eng, bufs)
+    tables, eager = [], []
+    for i in range(4):
+        for r in eng.running:  # the chunk's 8 positions: new blocks from chunk 2 on
+            r.seq.ensure_capacity(r.num_tokens + 8 * (i + 1))
+        assert state.refresh_block_tables(eng.running)
+        tables.append(state._bt_np.copy())
+        eager.append(eng._masked_chunk(bufs, 8, mode, False)[0].cpu().numpy())
+    assert not np.array_equal(tables[0], tables[-1])
+    _restore(eng, bufs, snap)
+    upload(bufs.block_tables, tables[0])
+    inflight = []
+    for table in tables:
+        upload(bufs.block_tables, table)
+        inflight.append(eng._graphs.run(eng._masked_chunk, bufs, 8, mode))
+    for want, got in zip(eager, inflight):
+        assert np.array_equal(got.wait()[0], want)
+    assert eng._graphs.replays == 4
+
+
+def test_paged_kernel_launches_inside_replay():
+    """torch.profiler sees the paged kernels run inside a replay, as many
+    as the graph recorded at its capture; the wrapper's counter does not
+    move on replay."""
+    _need_cuda()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng, state = _graph_engine(torch.bfloat16)
+    bufs, mode = state.bufs, state.sample_mode
+    eng._graphs.run(eng._masked_chunk, bufs, 4, mode).wait()  # capture + first replay
+    per_replay = eng._graphs.launches["paged_attention"]
+    assert per_replay == 4 * eng.config.model.n_layers
+    before = tpa.paged_attention_cuda.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng._graphs.run(eng._masked_chunk, bufs, 4, mode).wait()
+        torch.cuda.synchronize()
+    assert tpa.paged_attention_cuda.launches == before
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    main = [n for n in names if "paged_attention_" in n and "combine" not in n]
+    assert len(main) == per_replay, sorted(set(names))[:20]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_kernel_at_spec_verify_shape(dtype):
+    """K4 at the speculative verify shape: 16 sequences of q_len 1..5
+    (1 + draft length, k = 4) over contexts up to 2048, the 8B heads."""
+    _need_cuda()
+    rng = np.random.default_rng(12)
+    q_lens = [int(x) for x in rng.integers(1, 6, size=16)]
+    ctx_lens = [int(x) for x in rng.integers(64, 2049, size=16)]
+    _, k, v, bt, ctx, bs = _paged_case(3, ctx_lens, H=32, KVH=8, D=128, bs=16, MB=128,
+                                       dtype=dtype)
+    T = sum(q_lens)
+    q = torch.from_numpy(rng.normal(size=(T, 32, 128)).astype(np.float32)).to(dtype)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(q_lens)]), dtype=torch.int32)
+    ref = trg.ragged_attention_torch(q, k, v, bt, cu, ctx, block_size=bs)
+    got = trg.ragged_attention(*(t.cuda() for t in (q, k, v, bt, cu, ctx)), block_size=bs,
+                               max_q_len=5).cpu()
+    assert float((got.float() - ref.float()).abs().max()) <= BANDS[dtype]
+
+
+def test_graph_cap_evicts_least_recently_replayed(monkeypatch):
+    """Past MAX_GRAPHS the least recently replayed graph goes; its bucket
+    is captured again on its next use."""
+    _need_cuda()
+    from ray_tpu_torch.llm import graphs
+
+    monkeypatch.setattr(graphs, "MAX_GRAPHS", 1)
+    eng, state = _graph_engine(torch.float32)
+    for n in (2, 4, 2):
+        eng._graphs.run(eng._masked_chunk, state.bufs, n, state.sample_mode).wait()
+    st = eng._graphs.stats()
+    assert (st["graphs"], st["captured"], st["evicted"], st["replays"]) == (1, 3, 2, 3)

@@ -3,8 +3,8 @@
 The contract is greedy TOKEN IDENTITY with the reference engine in fp32
 (FP32_TINY, the reference engine's own params carried over), with mixed
 batching on and off and chunked decode at 1 and 8 steps, plus preemption
-by recompute and prefix-cache hits. Seeded sampling draws from torch
-generators, not threefry, so it is held by distribution (chi-square
+by recompute and prefix-cache hits. Seeded sampling draws counter-based
+SplitMix64 noise, not threefry, so it is held by distribution (chi-square
 against the reference's exact target distribution) and by invariance to
 the decode chunking. The block allocator copy replays the same random
 trace as the reference's.
@@ -212,7 +212,7 @@ def test_seeded_sampling_chunk_invariant(reference):
     sp = SamplingParams(max_tokens=20, temperature=1.0, seed=7, ignore_eos=True)
     outs = {}
     for chunk in (1, 4, 8):
-        outs[chunk] = _engine(tree, decode_chunk=chunk).generate([p], sp)[0]
+        outs[chunk] = _engine(tree, decode_chunk=chunk, pipeline_decode=False).generate([p], sp)[0]
     assert outs[1] == outs[4] == outs[8]
     eng = _engine(tree, decode_chunk=8)
     sp_short = SamplingParams(max_tokens=3, temperature=0.0, ignore_eos=True)
@@ -256,7 +256,7 @@ def test_sampler_distribution_matches_reference_target():
     want = np.asarray(target_probs(jnp.asarray(logits), jnp.asarray([temp]),
                                    jnp.asarray([top_k]), jnp.asarray([top_p])))[0]
     lg = torch.from_numpy(np.repeat(logits, N, axis=0))
-    seeds = [row_seed(request_seed_base(1, f"r{i}"), 0) for i in range(N)]
+    seeds = torch.tensor([row_seed(request_seed_base(1, f"r{i}"), 0) for i in range(N)])
     tok, _ = sample_tokens(lg, torch.full((N,), temp), torch.full((N,), top_k),
                            torch.full((N,), top_p), seeds, mode="full")
     counts = np.bincount(tok.numpy(), minlength=V)
@@ -273,20 +273,20 @@ def test_sampler_modes_agree_for_unfiltered_rows():
     rng = np.random.default_rng(1)
     lg = torch.from_numpy(rng.normal(size=(4, 300)).astype(np.float32))
     temps = torch.tensor([1.0, 0.7, 0.0, 1.2])
-    seeds = [11, 12, None, 14]
+    seeds = torch.tensor([11, 12, 0, 14])
     no_filter = (torch.zeros(4, dtype=torch.long), torch.ones(4))
     toks = {mode: sample_tokens(lg, temps, *no_filter, seeds, mode=mode)[0]
             for mode in ("categorical", "full", "full_sort")}
     assert torch.equal(toks["categorical"], toks["full"])
     assert torch.equal(toks["full"], toks["full_sort"])
     assert int(toks["full"][2]) == int(torch.argmax(lg[2]))
-    greedy, lp = sample_tokens(lg, torch.zeros(4), *no_filter, [None] * 4, mode="greedy")
+    greedy, lp = sample_tokens(lg, torch.zeros(4), *no_filter, None, mode="greedy")
     assert torch.equal(greedy, torch.argmax(lg, dim=-1))
     np.testing.assert_allclose(lp.numpy(), torch.log_softmax(lg, -1).max(-1).values.numpy(),
                                rtol=1e-6)
     # top_k = 1 is greedy whatever the temperature
     k1, _ = sample_tokens(lg, torch.ones(4), torch.ones(4, dtype=torch.long), torch.ones(4),
-                          [1, 2, 3, 4], mode="full")
+                          torch.tensor([1, 2, 3, 4]), mode="full")
     assert torch.equal(k1, torch.argmax(lg, dim=-1))
 
 
@@ -302,12 +302,21 @@ def test_sampling_params_validation(kw, msg):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("spec", object()), ("kvtier", True), ("mesh_spec", object()), ("max_loras", 2),
-    ("pipeline_decode", True), ("profile", True),
+    ("kvtier", True), ("mesh_spec", object()), ("max_loras", 2), ("profile", True),
 ])
 def test_unported_engine_options_refuse(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EngineConfig(model=FP32_TINY, **{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("spec", {"num_draft_tokens": 2}), ("pipeline_decode", True),
+])
+def test_ported_engine_options_accepted(field, value):
+    cfg = EngineConfig(model=FP32_TINY, **{field: value})
+    assert getattr(cfg, field) is not None
+    with pytest.raises(ValueError, match="SpecConfig"):
+        EngineConfig(model=FP32_TINY, spec=object())
 
 
 def test_engine_config_defaults_follow_reference():
@@ -315,7 +324,7 @@ def test_engine_config_defaults_follow_reference():
     for f in ("num_blocks", "block_size", "max_num_seqs", "max_prefill_len", "decode_chunk",
               "enable_prefix_caching", "eos_token_id", "mixed_batch", "mixed_prefill_chunk"):
         assert getattr(port, f) == getattr(ref, f), f
-    assert port.pipeline_decode is False  # the pipelined path is not ported yet
+    assert port.pipeline_decode is ref.pipeline_decode is True
     assert port.decode_buckets() == ref.decode_buckets()
     assert port.prefill_buckets() == ref.prefill_buckets()
 

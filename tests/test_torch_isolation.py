@@ -44,14 +44,15 @@ def test_no_port_file_imports_jax_or_the_jax_package():
 
 def test_port_imports_without_jax_triton_or_gpu():
     """Every module of the port imports with jax, optax, ray_tpu and triton
-    blocked, and the plain path runs a decode step and a train step on the
-    CPU."""
+    blocked, and the plain path runs pipelined and speculative decoding and
+    a train step on the CPU."""
     code = """
 import sys
 for name in ("jax", "jaxlib", "optax", "ray_tpu", "triton"):
     sys.modules[name] = None
 import ray_tpu_torch
 import ray_tpu_torch.llm, ray_tpu_torch.llm.decode_loop
+import ray_tpu_torch.llm.graphs, ray_tpu_torch.llm.pipeline, ray_tpu_torch.llm.spec
 import ray_tpu_torch.ops._build, ray_tpu_torch.ops.ragged
 import ray_tpu_torch.ops.attention, ray_tpu_torch.ops.flash
 import ray_tpu_torch.nn.layers, ray_tpu_torch.models.llama
@@ -64,7 +65,12 @@ from ray_tpu_torch.train import TrainState, adamw, make_train_step
 eng = LLMEngine(EngineConfig(model=LLAMA_TINY, num_blocks=32, block_size=4,
                              max_num_seqs=2, max_prefill_len=32), device="cpu")
 out = eng.generate([[5, 6, 7]], SamplingParams(max_tokens=3, temperature=0.0))
-assert len(out[0]) == 3
+assert len(out[0]) == 3 and eng.stats()["pipeline"]["dispatches"] > 0
+from ray_tpu_torch.llm.spec import SpecConfig
+spec = LLMEngine(EngineConfig(model=LLAMA_TINY, num_blocks=32, block_size=4, max_num_seqs=2,
+                              max_prefill_len=32, spec=SpecConfig(num_draft_tokens=2)),
+                 device="cpu")
+assert len(spec.generate([[5, 6, 5, 6, 5]], SamplingParams(max_tokens=4))[0]) == 4
 cfg = dataclasses.replace(LLAMA_TINY, attention_impl="flash", remat=True)
 state = TrainState.create(llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
                           adamw())
