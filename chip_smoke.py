@@ -41,16 +41,37 @@ Phases, each printing one JSON line:
            the same weights; the kernels' launches (eager launches plus
            those of graph replays) are counted from just before the first
            pass to just after it
+  lora     LoRA multiplexing at LLAMA3_8B (the engine phase's weights,
+           configuration and 12 requests): max_loras 4, rank 8, targets wq
+           and wv, 3 adapters of random weights (numpy seeds 1-3, A ~
+           N(0, 1/d_model), B ~ N(0, 0.25^2): a delta about as large as q
+           and v themselves, so every adapter changes the greedy stream),
+           assigned round robin so a quarter of the rows are base; a first
+           and a warm pass, 4 steady passes in turns with 4 of the requests
+           all on the base model (medians of the passes that captured no
+           graph), then one of each under
+           torch.profiler: the all-base pass runs the engine phase's
+           batches with the delta ops, so its busy time less the engine
+           phase's is the delta's device time; then one decode step and one
+           mixed step at the engine's shapes with and without the delta
+           (device ms and kernels per step); the kernels' launches counted
+           over the first pass as in the engine phase.
+           Fails unless every adapter's stream differs from the engine
+           phase's stream of its prompt, a graph replay ran with an adapter
+           row, both serving kernels launched, and remove_lora of an adapter
+           a request holds raises
   parity   a reduced fp32 model served by the same engine on the card
            (kernels; pipelined on graphs, and sync) and on the CPU (plain
-           versions): identical greedy tokens, mixed batching on and off
+           versions): identical greedy tokens, mixed batching on and off;
+           then the same with a batch mixing two adapters (wq, wk, wv) and
+           base rows
   spec     speculative decoding at LLAMA3_8B (bf16, mixed batching, so the
            verify pass runs the ragged kernel at q_len 1..5): prompt lookup
            with k = 4, then a LLAMA3_1B draft model at full width, random
            weights; acceptance, tok/s and ragged launches (> 0); then fp32
            greedy spec == non-spec tokens on the parity model (vocabulary
            cut to 256, prompts holding every id, so prompt lookup always
-           drafts), both drafters
+           drafts), both drafters, and prompt lookup under adapters
   train    LLAMA_400M at full width and depth (bf16 compute, fp32 params,
            remat "dots", flash attention, AdamW lr 3e-4 wd 1e-4), B 8,
            S 1024, one fixed batch (numpy seed 0), with bench.py's gates:
@@ -447,6 +468,22 @@ def _split_ms(fn, names, reps: int = 10) -> dict:
     return {n: sum(ms for k, ms, _ in by_name if n in k) / reps for n in names}
 
 
+def _busy_per_call(fn, reps: int = 5) -> tuple[float, float]:
+    """(device busy ms, kernels launched) per call of ``fn``, from
+    torch.profiler over ``reps`` calls after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_ms, by_name = _device_time(prof)
+    return busy_ms / reps, sum(n for _, _, n in by_name) / reps
+
+
 def flash_kernels_phase(dev) -> dict:
     """Hold the flash forward and backward kernels against their plain
     versions (gradients with a nonzero lse cotangent) and time both, with
@@ -654,16 +691,7 @@ def engine_phase(dev, params, params_s: float) -> dict:
     torch.cuda.synchronize()
     init_s = params_s + time.perf_counter() - t0
 
-    rng = np.random.default_rng(0)
-    lens = rng.integers(64, 1537, size=12)
-    prompts = [rng.integers(3, model.vocab_size, size=int(n)).tolist() for n in lens]
-    shared = rng.integers(3, model.vocab_size, size=512).tolist()
-    prompts[0] = shared + prompts[0][: max(1, int(lens[0]) - 512)]
-    prompts[11] = shared + prompts[11][: max(1, int(lens[11]) - 512)]
-    greedy = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
-    seeded = [SamplingParams(max_tokens=32, temperature=0.8, top_k=50, top_p=0.9,
-                             seed=100 + i, ignore_eos=True) for i in range(2)]
-    sps = [greedy] * 10 + seeded
+    prompts, sps = _engine_traffic(model)
 
     # the kernels' counters, zeroed just before the main path runs
     from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
@@ -689,6 +717,7 @@ def engine_phase(dev, params, params_s: float) -> dict:
     ttft = [r.t_first_token - r.arrival for r in reqs.values()]
     res = {
         "phase": "engine", "model": "LLAMA3_8B", "layers": model.n_layers,
+        "first_pass_tokens": {f"r{i}": finals[f"r{i}"] for i in range(12)},
         "d_model": model.d_model, "dtype": "bfloat16", "requests": 12,
         "prompt_tokens": int(sum(len(p) for p in prompts)), "output_tokens": 12 * 32,
         "engine_steps": steps, "init_s": init_s, "wall_s": wall,
@@ -730,9 +759,260 @@ def engine_phase(dev, params, params_s: float) -> dict:
     prof_sync = _profile_serving(eng, prompts, sps)
     del eng
     torch.cuda.empty_cache()
-    emit(res)
+    emit({k: v for k, v in res.items() if k != "first_pass_tokens"})
     emit({**prof, "phase": "engine_profile", "decode": "pipelined"})
     emit({**prof_sync, "phase": "engine_profile", "decode": "sync"})
+    return {**res, "profile": prof}
+
+
+def _engine_traffic(model):
+    """The engine phase's 12 requests (numpy seed 0): 64-1536 prompt
+    tokens, requests 0 and 11 on one 512-token prefix, 32 outputs each, 10
+    greedy and 2 seeded top-k/top-p."""
+    import numpy as np
+
+    from ray_tpu_torch.llm import SamplingParams
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 1537, size=12)
+    prompts = [rng.integers(3, model.vocab_size, size=int(n)).tolist() for n in lens]
+    shared = rng.integers(3, model.vocab_size, size=512).tolist()
+    prompts[0] = shared + prompts[0][: max(1, int(lens[0]) - 512)]
+    prompts[11] = shared + prompts[11][: max(1, int(lens[11]) - 512)]
+    greedy = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
+    seeded = [SamplingParams(max_tokens=32, temperature=0.8, top_k=50, top_p=0.9,
+                             seed=100 + i, ignore_eos=True) for i in range(2)]
+    return prompts, [greedy] * 10 + seeded
+
+
+# ---------------------------------------------------------------------------
+# lora
+# ---------------------------------------------------------------------------
+
+
+LORA_KW = dict(max_loras=4, lora_rank=8, lora_targets=("wq", "wv"))
+LORA_B_STD = 0.25
+
+
+def lora_adapter(model, seed: int, targets, rank: int) -> dict:
+    """Random adapter weights from a numpy seed: A ~ N(0, 1/d_model), so a
+    row's down-projection has unit scale, and B ~ N(0, LORA_B_STD^2): each
+    delta element is about sqrt(rank) * 0.25 ~ 0.7, as large as the
+    projections themselves (fan-in init), so an adapter changes the stream."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    outs = {"wq": model.n_heads * model.head_dim, "wk": model.n_kv_heads * model.head_dim,
+            "wv": model.n_kv_heads * model.head_dim}
+    L, d = model.n_layers, model.d_model
+    return {t: ((rng.standard_normal((L, d, rank), np.float32) / d ** 0.5),
+                (rng.standard_normal((L, rank, outs[t]), np.float32) * LORA_B_STD))
+            for t in targets}
+
+
+def _lora_step_costs(eng) -> dict:
+    """The delta ops' device ms and kernels in one decode step (B_pad 16:
+    12 rows, contexts 64-2048, adapters round robin) and one mixed step (a
+    256-token chunk at positions 512-767 and the 12 decode rows, T_pad
+    512), at the engine's shapes, with and without the ``lora=`` argument
+    (torch.profiler; new K/V to the trash page)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models.llama_decode import decode_step, mixed_step
+
+    c = eng.config
+    dev = eng.device
+    rng = np.random.default_rng(6)
+    trash = c.num_blocks * c.block_size
+    B, MB = 16, 128
+    ctx = np.zeros(B, np.int32)
+    ctx[:12] = rng.integers(64, 2049, size=12)
+    bt = rng.integers(0, c.num_blocks, size=(B, MB)).astype(np.int32)
+    ids = np.array([0, 1, 2, 3] * 3 + [0] * 4, np.int32)
+    t = lambda x: torch.as_tensor(np.asarray(x), device=dev)  # noqa: E731
+    tok = t(rng.integers(3, c.model.vocab_size, size=B).astype(np.int32))
+    dec = (tok, t(np.maximum(ctx - 1, 0)), t(np.full(B, trash, np.int32)), t(bt), t(ctx))
+    # mixed: sequence 0 a 256-token chunk, sequences 1-12 the decode rows
+    q_lens = [256] + [1] * 12
+    T_pad = 512
+    cu = np.zeros(B + 1, np.int32)
+    cu[1 : len(q_lens) + 1] = np.cumsum(q_lens)
+    cu[len(q_lens) + 1 :] = cu[len(q_lens)]
+    mctx = np.zeros(B, np.int32)
+    mctx[0], mctx[1:13] = 768, ctx[:12]
+    pos = np.zeros(T_pad, np.int32)
+    pos[:256] = np.arange(512, 768)
+    pos[256:268] = ctx[:12] - 1
+    tok_ids = np.zeros(T_pad, np.int32)
+    tok_ids[:256], tok_ids[256:268] = 1, ids[:12]
+    mix = (t(rng.integers(3, c.model.vocab_size, size=T_pad).astype(np.int32)), t(pos),
+           t(np.full(T_pad, trash, np.int32)), t(bt), t(cu), t(mctx))
+    out = {}
+    for name, call, ids_ in (
+        ("decode_step", lambda lora: decode_step(eng.params, *dec, eng.cache, c.model,
+                                                 block_size=c.block_size, lora=lora), ids),
+        ("mixed_step", lambda lora: mixed_step(eng.params, *mix, eng.cache, c.model,
+                                               block_size=c.block_size, max_q_len=256,
+                                               lora=lora), tok_ids),
+    ):
+        lora = eng._lora_arg(ids_)
+        with torch.no_grad():
+            base_ms, base_k = _busy_per_call(lambda: call(None))
+            lora_ms, lora_k = _busy_per_call(lambda: call(lora))
+        out[name] = {"ms_without": base_ms, "ms_with": lora_ms, "delta_ms": lora_ms - base_ms,
+                     "kernels_without": base_k, "kernels_with": lora_k}
+    return out
+
+
+def lora_phase(dev, params, engine_res: dict) -> dict:
+    """The engine phase's requests through an 8B engine with 3 adapters
+    loaded, a quarter of the rows base: a first and a warm pass, then 4
+    steady passes in turns with 4 of the same requests all on the base
+    model, then one of each under torch.profiler (the all-base one against
+    the engine phase's gives the delta ops' device time), beside the engine
+    phase's numbers from this run."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.models.llama import LLAMA3_8B
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from ray_tpu_torch.ops.ragged import ragged_attention_cuda
+
+    model = LLAMA3_8B
+    eng = LLMEngine(EngineConfig(model=model, **ENGINE_KW, **LORA_KW), params=params, device=dev)
+    names = ["a1", "a2", "a3"]
+    for i, name in enumerate(names):
+        eng.add_lora(name, lora_adapter(model, i + 1, LORA_KW["lora_targets"],
+                                        LORA_KW["lora_rank"]))
+    prompts, sps = _engine_traffic(model)
+    lora_ids = [([None] + names)[i % 4] for i in range(12)]
+    # an adapter a request holds cannot be removed
+    held = eng.add_request(prompts[1], sps[1], lora_id="a1")
+    try:
+        eng.remove_lora("a1")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("remove_lora of an adapter a waiting request holds did not raise")
+    eng.abort_request(held)
+
+    # rows under an adapter in each dispatched chunk (host view of the batch)
+    adapter_chunks = []
+    run = eng._graphs.run
+
+    def counting_run(fn, bufs, n_steps, mode):
+        adapter_chunks.append(any(r.lora_slot for r in eng.running))
+        return run(fn, bufs, n_steps, mode)
+
+    eng._graphs.run = counting_run
+    paged_attention_cuda.launches = 0
+    ragged_attention_cuda.launches = 0
+    marks = _launch_marks(eng)
+    finals, reqs, wall, steps = _serve(eng, prompts, sps, "r", lora_ids=lora_ids)
+    launches = _launch_counts(eng, marks)
+    st = eng.stats()
+    _check_served(eng, finals, model, 12, 32)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"lora: a kernel of the path never launched: {launches}")
+    graphs = st["pipeline"]["graphs"]
+    if graphs["replays"] <= 0 or not any(adapter_chunks):
+        raise AssertionError(f"lora: no graph replay ran with an adapter row: {graphs}")
+    base = engine_res["first_pass_tokens"]
+    same_as_base = [finals[f"r{i}"] == base[f"r{i}"] for i in range(12)]
+    differ = [i for i, lid in enumerate(lora_ids) if lid is not None and same_as_base[i]]
+    if differ:
+        raise AssertionError(f"lora: adapter requests {differ} gave the base stream")
+    # the two requests on the shared prefix run under different salts
+    # (base and a3): their blocks are not shared
+    if st["prefix_cache"]["hit_tokens"] != 0:
+        raise AssertionError(f"lora: a prefix hit across adapters: {st['prefix_cache']}")
+    base_rows = [i for i, lid in enumerate(lora_ids) if lid is None]
+    eng_pass = lambda r: {k: r[k] for k in ("output_tok_per_s", "mean_ttft_s")}  # noqa: E731
+    res = {
+        "phase": "lora", "model": "LLAMA3_8B", "dtype": "bfloat16", **LORA_KW,
+        "adapters": "3, numpy seeds 1-3, A ~ N(0, 1/d_model), B ~ N(0, 0.25^2)",
+        "rows_per_adapter": {str(k): lora_ids.count(k) for k in [None] + names},
+        "engine_steps": steps, "wall_s": wall, "output_tok_per_s": 12 * 32 / wall,
+        "mean_ttft_s": float(np.mean([r.t_first_token - r.arrival for r in reqs.values()])),
+        "kernel_launches": launches, "chunks_dispatched": len(adapter_chunks),
+        "chunks_with_adapter_rows": sum(adapter_chunks), "pipeline": st["pipeline"],
+        "mixed": st["mixed"], "prefix_cache": st["prefix_cache"],
+        # reported, not asserted: the batches around them differ from the
+        # engine phase's (no prefix hit here: another packing, other plans)
+        "base_rows_equal_engine_phase": f"{sum(same_as_base[i] for i in base_rows)}/"
+                                        f"{len(base_rows)}",
+        "engine_phase": {"first": eng_pass(engine_res), "warm": eng_pass(engine_res["warm"]),
+                         "steady": eng_pass(engine_res["steady"])},
+    }
+    # as the engine phase: a warm pass (a longer chunk picked by the
+    # controller captures its graph on first use); then steady passes in
+    # turns, with the adapters and with every row on the base model (the
+    # engine phase's batches and prefix hit through the same programs, the
+    # delta ops included). The controller may still step to a longer chunk
+    # and capture its graph in one of them, and host times swing from pass
+    # to pass: the median of the passes that captured nothing is read
+    eng.allocator.drop_prefix_cache()
+    finals_w, reqs_w, wall_w, _ = _serve(eng, prompts, sps, "w", lora_ids=lora_ids)
+    res["warm"] = {**_pass_summary(finals_w, reqs_w, wall_w, finals),
+                   "graphs_captured_so_far": eng._graphs.captures}
+    passes = {"adapters": [], "all_base": []}
+    for rnd in range(4):
+        for key, ids, ref in (("adapters", lora_ids, finals), ("all_base", None, base)):
+            eng.allocator.drop_prefix_cache()
+            c0, s0 = eng._graphs.captures, eng._graphs.capture_s
+            tag = ("ijkl" if key == "adapters" else "uvyz")[rnd]  # one letter: _pass_summary
+            f, rq, w, _ = _serve(eng, prompts, sps, tag, lora_ids=ids)
+            passes[key].append({**_pass_summary(f, rq, w, ref),
+                                "graphs_captured": eng._graphs.captures - c0,
+                                "capture_s": eng._graphs.capture_s - s0})
+    for key, runs in passes.items():
+        read = [r for r in runs if not r["graphs_captured"]] or runs
+        res[f"steady_{key}"] = {
+            "median_output_tok_per_s": float(np.median([r["output_tok_per_s"] for r in read])),
+            "median_mean_ttft_s": float(np.median([r["mean_ttft_s"] for r in read])),
+            "passes_read": len(read), "passes": runs,
+        }
+    # reported, not asserted (bf16): slot 0 adds exactly zero, so the engine
+    # phase's batches give its bits (greedy rows)
+    res["steady_all_base"]["compared_with"] = "the engine phase's first pass"
+    eng.allocator.drop_prefix_cache()
+    prof = _profile_serving(eng, prompts, sps, lora_ids=lora_ids)
+    eng.allocator.drop_prefix_cache()
+    prof_base = _profile_serving(eng, prompts, sps)
+    eng_prof = engine_res["profile"]
+    res["graphs_after_all_passes"] = eng.stats()["pipeline"]["graphs"]
+    # the delta ops' device time: the all-base profiled pass runs the engine
+    # phase's batches with the LoRA ops in every layer
+    res["lora_delta_device_ms"] = {
+        "read_as": "device busy ms (torch.profiler) of a pass of this engine with every "
+                   "row on the base model minus the engine phase's profiled pass: the same "
+                   "requests, batches and prefix hit, with and without the delta ops",
+        "busy_ms_all_base": prof_base["device_busy_ms"],
+        "engine_busy_ms": eng_prof["device_busy_ms"],
+        "delta_ms": prof_base["device_busy_ms"] - eng_prof["device_busy_ms"],
+        "busy_ms_with_adapters": prof["device_busy_ms"],
+        "mixed_steps_busy_ms": [prof_base["mixed_steps"]["device_busy_ms"],
+                                eng_prof["mixed_steps"]["device_busy_ms"]],
+        "decode_rounds_busy_ms": [prof_base["decode_rounds"]["device_busy_ms"],
+                                  eng_prof["decode_rounds"]["device_busy_ms"]],
+    }
+    res["lora_delta_per_step"] = _lora_step_costs(eng)
+    res["idle_share"] = {
+        "mixed_steps": prof["mixed_steps"]["device_idle_share"],
+        "decode_rounds": prof["decode_rounds"]["device_idle_share"],
+        "all_base_mixed_steps": prof_base["mixed_steps"]["device_idle_share"],
+        "all_base_decode_rounds": prof_base["decode_rounds"]["device_idle_share"],
+        "engine_phase_mixed_steps": eng_prof["mixed_steps"]["device_idle_share"],
+        "engine_phase_decode_rounds": eng_prof["decode_rounds"]["device_idle_share"],
+    }
+    eng._graphs.run = run
+    del eng
+    torch.cuda.empty_cache()
+    emit(res)
+    emit({**prof, "phase": "lora_profile", "decode": "pipelined", "rows": "adapters"})
+    emit({**prof_base, "phase": "lora_profile", "decode": "pipelined", "rows": "all base"})
     return res
 
 
@@ -763,8 +1043,9 @@ def _pass_summary(finals, reqs, wall, first) -> dict:
             "greedy_tokens_equal_first_pass": f"{tokens_same}/{10 * len(first['r0'])}"}
 
 
-def _serve(eng, prompts, sps, tag, mark_steps: bool = False):
-    """Run the requests to completion; the last request (the second on the
+def _serve(eng, prompts, sps, tag, mark_steps: bool = False, lora_ids=None):
+    """Run the requests to completion (request i under adapter
+    ``lora_ids[i]``, default none); the last request (the second on the
     shared prefix) arrives once the first one has its first token, so its
     admission can hit the prefix cache. With ``mark_steps`` each step runs
     inside a profiler range and its kind is recorded: "mixed" when it made
@@ -775,9 +1056,10 @@ def _serve(eng, prompts, sps, tag, mark_steps: bool = False):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     n = len(prompts)
+    lora_ids = lora_ids or [None] * n
     reqs = {}
     for i in range(n - 1):
-        rid = eng.add_request(prompts[i], sps[i], request_id=f"{tag}{i}")
+        rid = eng.add_request(prompts[i], sps[i], request_id=f"{tag}{i}", lora_id=lora_ids[i])
         reqs[rid] = eng.requests[rid]
     finals: dict = {}
     kinds: list = []
@@ -785,7 +1067,8 @@ def _serve(eng, prompts, sps, tag, mark_steps: bool = False):
     steps = 0
     while eng.has_unfinished() or late is None:
         if late is None and reqs[f"{tag}0"].output_token_ids:
-            late = eng.add_request(prompts[n - 1], sps[n - 1], request_id=f"{tag}{n - 1}")
+            late = eng.add_request(prompts[n - 1], sps[n - 1], request_id=f"{tag}{n - 1}",
+                                   lora_id=lora_ids[n - 1])
             reqs[late] = eng.requests[late]
         mixed0 = eng._mixed_stats.dispatches if eng._mixed_stats else 0
         if mark_steps:
@@ -812,7 +1095,7 @@ def _serve(eng, prompts, sps, tag, mark_steps: bool = False):
 SERVING_FAMILIES = {"paged_attention": "paged_attention_", "ragged_attention": "ragged_attention_"}
 
 
-def _profile_serving(eng, prompts, sps) -> dict:
+def _profile_serving(eng, prompts, sps, lora_ids=None) -> dict:
     """Serve under torch.profiler: device busy time (union of kernel
     intervals) against the host wall time, split between the mixed steps'
     windows and the rest of the pass (the decode-only rounds, whose chunks
@@ -824,7 +1107,8 @@ def _profile_serving(eng, prompts, sps) -> dict:
 
     marks = _launch_marks(eng)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, wall, _, kinds = _serve(eng, prompts, sps, "p", mark_steps=True)
+        _, _, wall, _, kinds = _serve(eng, prompts, sps, "p", mark_steps=True,
+                                      lora_ids=lora_ids)
     calls = _launch_counts(eng, marks)
     busy_ms, by_name = _device_time(prof)
     device_ms = sum(ms for _, ms, _ in by_name)
@@ -970,35 +1254,61 @@ def _to(params, dev):
             for k, v in params.items()}
 
 
+# the parity phase's adapters: every target, two adapters and base rows
+PARITY_LORA_KW = dict(max_loras=2, lora_rank=8, lora_targets=("wq", "wk", "wv"))
+PARITY_LORA_IDS = ["a", None, "b", "a", None, "b"]
+
+
+def _generate(eng, prompts, sp, lora_ids):
+    """Greedy outputs of ``prompts`` (request i under ``lora_ids[i]``), in order."""
+    rids = [eng.add_request(p, sp, lora_id=lid) for p, lid in zip(prompts, lora_ids)]
+    finals = {}
+    while eng.has_unfinished():
+        for out in eng.step():
+            if out.finished:
+                finals[out.request_id] = out.output_token_ids
+    return [finals[r] for r in rids]
+
+
 def parity_phase(dev) -> None:
     """The same fp32 weights and greedy prompts through the engine on the
     card (CUDA kernels; pipelined decode on graphs, and the sync path) and
-    on the CPU (plain versions): the same tokens, mixed batching on and off."""
+    on the CPU (plain versions): the same tokens, mixed batching on and off,
+    without LoRA and with a batch mixing two adapters and base rows."""
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
 
     model, params_cpu, params_gpu, prompts = _parity_setup(dev)
     sp = SamplingParams(max_tokens=16, temperature=0.0, ignore_eos=True)
     result = {"phase": "parity", "model": "fp32 d512 L2 H4 KVH2 D128 V2048"}
-    for mixed in (True, False):
-        outs, replays = {}, 0
-        for where, params, pipelined in (("cuda pipelined", params_gpu, True),
-                                         ("cuda sync", params_gpu, False),
-                                         ("cpu", params_cpu, True)):
-            cfg = EngineConfig(model=model, num_blocks=256, block_size=16, max_num_seqs=8,
-                               max_prefill_len=256, mixed_batch=mixed,
-                               mixed_prefill_chunk=64, decode_chunk=8,
-                               pipeline_decode=pipelined)
-            eng = LLMEngine(cfg, params=params, device=dev if where != "cpu" else "cpu")
-            outs[where] = eng.generate(prompts, sp)
-            if where == "cuda pipelined":
-                replays = eng.stats()["pipeline"]["graphs"]["replays"]
-        same = outs["cuda pipelined"] == outs["cuda sync"] == outs["cpu"]
-        result[f"mixed_{mixed}"] = {"identical": same, "graph_replays": replays,
-                                    "tokens": sum(map(len, outs["cpu"]))}
-        if not same or replays <= 0:
-            emit(result)
-            raise AssertionError(f"mixed_batch={mixed}: pipelined-card, sync-card and CPU "
-                                 f"tokens differ, or no graph replay ran ({replays})")
+    adapters = {name: lora_adapter(model, seed, PARITY_LORA_KW["lora_targets"],
+                                   PARITY_LORA_KW["lora_rank"])
+                for name, seed in (("a", 21), ("b", 22))}
+    for lora in (False, True):
+        for mixed in (True, False):
+            outs, replays = {}, 0
+            for where, params, pipelined in (("cuda pipelined", params_gpu, True),
+                                             ("cuda sync", params_gpu, False),
+                                             ("cpu", params_cpu, True)):
+                cfg = EngineConfig(model=model, num_blocks=256, block_size=16, max_num_seqs=8,
+                                   max_prefill_len=256, mixed_batch=mixed,
+                                   mixed_prefill_chunk=64, decode_chunk=8,
+                                   pipeline_decode=pipelined,
+                                   **(PARITY_LORA_KW if lora else {}))
+                eng = LLMEngine(cfg, params=params, device=dev if where != "cpu" else "cpu")
+                for name, ad in (adapters.items() if lora else ()):
+                    eng.add_lora(name, ad)
+                outs[where] = _generate(eng, prompts, sp,
+                                        PARITY_LORA_IDS if lora else [None] * len(prompts))
+                if where == "cuda pipelined":
+                    replays = eng.stats()["pipeline"]["graphs"]["replays"]
+            same = outs["cuda pipelined"] == outs["cuda sync"] == outs["cpu"]
+            key = f"{'lora_' if lora else ''}mixed_{mixed}"
+            result[key] = {"identical": same, "graph_replays": replays,
+                           "tokens": sum(map(len, outs["cpu"]))}
+            if not same or replays <= 0:
+                emit(result)
+                raise AssertionError(f"{key}: pipelined-card, sync-card and CPU tokens "
+                                     f"differ, or no graph replay ran ({replays})")
     emit(result)
 
 
@@ -1087,6 +1397,27 @@ def spec_phase(dev, params) -> dict:
             emit(result)
             raise AssertionError(f"fp32 greedy spec ({method}): tokens != non-spec tokens, "
                                  f"or no verify pass ran ({st['steps']})")
+    # prompt lookup under adapters (ragged verify, per-token adapter ids):
+    # greedy spec == non-spec with the same adapters; the drafter takes none
+    ids = ["a", None, "b", "a"]
+    outs = {}
+    for name, spec in (("non_spec", None), ("spec", SpecConfig(num_draft_tokens=4))):
+        eng = LLMEngine(EngineConfig(spec=spec, **base, **PARITY_LORA_KW), params=sparams,
+                        device=dev)
+        for a, seed in (("a", 21), ("b", 22)):
+            eng.add_lora(a, lora_adapter(smodel, seed, PARITY_LORA_KW["lora_targets"],
+                                         PARITY_LORA_KW["lora_rank"]))
+        outs[name] = _generate(eng, pprompts, psp, ids)
+        if spec is not None:
+            st = eng.stats()["spec"]
+    same = outs["spec"] == outs["non_spec"]
+    changed = all(o != r for o, r, lid in zip(outs["non_spec"], ref, ids) if lid is not None)
+    result["fp32_prompt_lookup_lora"] = {"identical_to_non_spec": same, "spec": st,
+                                         "adapters_change_tokens": changed}
+    if not (same and changed and st["steps"] > 0):
+        emit(result)
+        raise AssertionError("fp32 greedy spec under adapters: tokens != non-spec tokens, "
+                             "an adapter left its stream unchanged, or no verify pass ran")
     emit(result)
     return result
 
@@ -1292,7 +1623,7 @@ def train_parity_phase(dev) -> None:
 
 # ---------------------------------------------------------------------------
 
-PHASES = ("build", "kernels", "flash_kernels", "engine", "parity", "spec", "train",
+PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "parity", "spec", "train",
           "train_parity")
 
 SOURCES = {
@@ -1336,6 +1667,8 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    if "lora" in phases and "engine" not in phases:
+        ap.error("the lora phase reads the engine phase's streams: add engine")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU only",
               file=sys.stderr)
@@ -1362,8 +1695,13 @@ def main(argv=None) -> int:
     if "flash_kernels" in phases:
         timings.update(flash_kernels_phase(dev))
     params, params_s = params_8b(dev) if {"engine", "spec"} & set(phases) else (None, 0.0)
+    lora_launches = {}
     if "engine" in phases:
-        launches.update(engine_phase(dev, params, params_s)["kernel_launches"])
+        engine_res = engine_phase(dev, params, params_s)
+        launches.update(engine_res["kernel_launches"])
+    if "lora" in phases:
+        lora_launches = lora_phase(dev, params, engine_res)["kernel_launches"]
+        del engine_res
     if "parity" in phases:
         parity_phase(dev)
     if "spec" in phases:
@@ -1384,6 +1722,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name],
+            **({"launches_lora_phase": lora_launches[name]} if name in lora_launches else {}),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
             "library_ms": bf["library_ms"], "dtype": "bfloat16", "shape": bf["shape"],

@@ -41,6 +41,7 @@ def decode_chunk(
     trash_slot: int,
     attn_impl: str = "auto",
     sample_mode: str = "full",
+    lora: "dict | None" = None,  # adapter ids [B] per row + stacks (llama_decode)
 ):
     """Returns (tokens [n_steps, B], logprobs [n_steps, B], cache), on the
     device. The seed of step s for row i is row_seed(seed_bases[i],
@@ -68,7 +69,7 @@ def decode_chunk(
         slot = torch.where(valid & (s < remaining), slot, torch.full_like(slot, trash_slot))
         logits, cache = decode_step(
             params, tok, pos, slot, block_tables, ctx, cache, config,
-            block_size=block_size, attn_impl=attn_impl,
+            block_size=block_size, attn_impl=attn_impl, lora=lora,
         )
         seeds = None if sample_mode == "greedy" else row_seeds(seed_bases, starts + s)
         tok, logprob = sample_tokens(

@@ -11,14 +11,18 @@
    chunk, chunk N+1 dispatched before chunk N is synced, every chunk a
    CUDA graph replay on the card, ``llm/graphs.py``), speculative
    (``spec=SpecConfig(...)``, ``llm/spec``), or the sync chunked path
-   (``pipeline_decode=False``, ``llm/decode_loop.py``).
+   (``pipeline_decode=False``, ``llm/decode_loop.py``);
+ * LoRA multiplexing (``max_loras > 0``): up to ``max_loras`` adapters in
+   slots of one set of stacks, every row of every program selecting its
+   own (slot 0, the zero adapter, is the base model), prefix chains
+   salted per slot.
 
-The API mirrors the reference (add_request / step / generate / stats).
-Not ported yet, and refused by ``EngineConfig`` with NotImplementedError
-so no caller silently gets a different engine: the tiered KV cache,
-tensor-parallel meshes, LoRA adapters and the profiling hooks (ROADMAP.md,
-Queue 1). Chaos hooks, trace spans, telemetry gauges and recover/handoff
-are left out likewise.
+The API mirrors the reference (add_request / step / generate / stats /
+add_lora / remove_lora / evict_lru_lora). Not ported yet, and refused by
+``EngineConfig`` with NotImplementedError so no caller silently gets a
+different engine: the tiered KV cache, tensor-parallel meshes and the
+profiling hooks (ROADMAP.md, Queue 1). Chaos hooks, trace spans,
+telemetry gauges and recover/handoff are left out likewise.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from ray_tpu_torch.llm.sampling import (
 from ray_tpu_torch.llm.spec import SpecConfig, SpecStats, accept_draft
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.llama_decode import (
+    LORA_TARGETS,
     decode_step,
     init_cache,
     mixed_step,
@@ -55,6 +60,12 @@ from ray_tpu_torch.models.llama_decode import (
     verify_tokens_ragged,
 )
 from ray_tpu_torch.ops.paged_attention import pick_impl
+
+
+class AdapterSlotsExhausted(ValueError):
+    """Every LoRA adapter slot is loaded and none can be evicted (all are
+    held by waiting or running requests, or eviction was not asked for).
+    A ValueError, as the reference's."""
 
 
 @dataclasses.dataclass
@@ -69,6 +80,9 @@ class EngineConfig:
     enable_prefix_caching: bool = True
     eos_token_id: int = 2
     mesh_spec: Any = None
+    # LoRA multiplexing: up to max_loras adapters of rank lora_rank on the
+    # lora_targets projections (a subset of wq / wk / wv), served from one
+    # engine with mixed-adapter batches
     max_loras: int = 0
     lora_rank: int = 8
     lora_targets: tuple = ("wq", "wv")
@@ -101,7 +115,6 @@ class EngineConfig:
         unported = (
             ("kvtier", self.kvtier is not None, "the tiered KV cache (Queue 1, C3)"),
             ("mesh_spec", self.mesh_spec is not None, "tensor-parallel serving (Queue 1, B4)"),
-            ("max_loras", self.max_loras > 0, "LoRA adapters (Queue 1, B3/B4)"),
             ("profile", self.profile, "the decode profiling hooks (Queue 1, slice E)"),
         )
         for name, requested, item in unported:
@@ -112,6 +125,13 @@ class EngineConfig:
                 )
         if self.attn_impl not in ("auto", "torch", "cuda"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
+        self.lora_targets = tuple(self.lora_targets)
+        if self.max_loras > 0 and (
+            not self.lora_targets or not set(self.lora_targets) <= set(LORA_TARGETS)
+        ):
+            raise ValueError(
+                f"lora_targets {self.lora_targets} must be a non-empty subset of {LORA_TARGETS}"
+            )
         # a prefill bucket longer than the context window can never be used
         self.max_prefill_len = min(self.max_prefill_len, self.model.max_seq)
         self.decode_chunk = min(self.decode_chunk, CHUNK_BUCKETS[-1])
@@ -173,6 +193,8 @@ class Request:
     seed_base: int = 0
     # wall time the first output token was booked (survives preemption)
     t_first_token: Optional[float] = None
+    # LoRA adapter slot (0 = base model); also the prefix-chain salt
+    lora_slot: int = 0
 
     @property
     def num_tokens(self) -> int:
@@ -242,6 +264,27 @@ class LLMEngine:
         self._pipe_last_sync_t = None
         self._pending_outputs: list[RequestOutput] = []
         self._graphs = ChunkGraphs(self.device)
+        # LoRA stacks: slot 0 is the zero adapter; per target A [L, n_slots,
+        # d_model, r] and B [L, n_slots, r, d_out], in the model dtype.
+        # Allocated once and written in place, never rebound: captured
+        # graphs read them by address
+        self._lora: Optional[dict] = None
+        self._lora_slots: dict[str, int] = {}
+        # lora_id -> tick of its last use (add_lora / add_request): the LRU
+        # order of evict_lru_lora
+        self._lora_last_used: dict[str, int] = {}
+        self._lora_clock = itertools.count()
+        if c.max_loras > 0:
+            m = c.model
+            out_dims = {"wq": m.n_heads * m.head_dim, "wk": m.n_kv_heads * m.head_dim,
+                        "wv": m.n_kv_heads * m.head_dim}
+            n = c.max_loras + 1
+            self._lora = {}
+            for t in c.lora_targets:
+                self._lora[f"{t}_A"] = torch.zeros(
+                    (m.n_layers, n, m.d_model, c.lora_rank), dtype=m.dtype, device=self.device)
+                self._lora[f"{t}_B"] = torch.zeros(
+                    (m.n_layers, n, c.lora_rank, out_dims[t]), dtype=m.dtype, device=self.device)
         # speculative decoding: drafter + stats
         self.drafter = None
         self.spec_stats = None
@@ -270,6 +313,105 @@ class LLMEngine:
             return "full_sort"
         return "full"
 
+    # -- LoRA multiplexing ----------------------------------------------------
+
+    def add_lora(self, lora_id: str, adapters: dict, evict: bool = False) -> None:
+        """Load an adapter, ``{target: (A [L, d_model, r], B [L, r, d_out])}``
+        for targets among the configured lora_targets (numpy arrays or
+        tensors), into the first free slot; requests select it by lora_id.
+        With ``evict`` a full slot budget first evicts the least recently
+        used adapter that no request holds; without it, or when every
+        adapter is held, raises AdapterSlotsExhausted."""
+        c = self.config
+        if self._lora is None:
+            raise ValueError("EngineConfig.max_loras is 0: LoRA disabled")
+        if lora_id in self._lora_slots:
+            raise ValueError(f"lora {lora_id!r} already loaded")
+        # validate everything before evicting or writing
+        for t, (A, B) in adapters.items():
+            if t not in c.lora_targets:
+                raise ValueError(f"adapter target {t!r} not in lora_targets={c.lora_targets}")
+            sa, sb = self._lora[f"{t}_A"].shape, self._lora[f"{t}_B"].shape
+            want_a, want_b = (sa[0], *sa[2:]), (sb[0], *sb[2:])
+            if tuple(A.shape) != want_a or tuple(B.shape) != want_b:
+                raise ValueError(
+                    f"adapter {t!r} shapes {tuple(A.shape)}/{tuple(B.shape)} != "
+                    f"expected {want_a}/{want_b}"
+                )
+        if len(self._lora_slots) >= c.max_loras:
+            if not evict or self.evict_lru_lora() is None:
+                raise AdapterSlotsExhausted(f"all {c.max_loras} adapter slots in use")
+        used = set(self._lora_slots.values())
+        slot = next(i for i in range(1, c.max_loras + 1) if i not in used)
+        for t, (A, B) in adapters.items():
+            for key, w in ((f"{t}_A", A), (f"{t}_B", B)):
+                self._write_slot(self._lora[key][:, slot], w)
+        self._lora_slots[lora_id] = slot
+        self._lora_last_used[lora_id] = next(self._lora_clock)
+
+    def _write_slot(self, dst: torch.Tensor, w) -> None:
+        """Write an adapter's weights into its slot of a stack in place, on
+        the stream the decode chunks run on: ordered after any chunk in
+        flight, and seen by every captured graph, which reads the stack by
+        address."""
+        src = (w if torch.is_tensor(w) else torch.from_numpy(np.asarray(w))).to(dst.dtype)
+        if src.device.type == "cpu" and dst.device.type == "cuda":
+            src = src.pin_memory()  # kept by the caching host allocator until copied
+        dst.copy_(src, non_blocking=True)
+
+    def remove_lora(self, lora_id: str) -> None:
+        """Unload an adapter: refused while a waiting or running request
+        holds its slot; the slot is zeroed (in place, on the chunks' stream)
+        and only its own prefix chains are dropped."""
+        slot = self._lora_slots.get(lora_id)
+        if slot is None:
+            raise ValueError(f"unknown lora {lora_id!r}")
+        in_flight = [r.request_id for r in list(self.waiting) + self.running
+                     if r.lora_slot == slot]
+        if in_flight:
+            # zeroing the slot mid-generation would switch those sequences
+            # to the base model
+            raise ValueError(
+                f"lora {lora_id!r} is in use by requests {in_flight[:4]}; "
+                "abort or drain them first"
+            )
+        del self._lora_slots[lora_id]
+        self._lora_last_used.pop(lora_id, None)
+        for stack in self._lora.values():
+            stack[:, slot].zero_()
+        # cached K/V under this slot would serve the next adapter loaded
+        # into it; other adapters' chains stay valid
+        self.allocator.drop_prefix_cache(salt=slot)
+
+    def evict_lru_lora(self) -> Optional[str]:
+        """Remove the least recently used adapter that no waiting or
+        running request holds; returns its lora_id, or None when every
+        loaded adapter is held."""
+        busy = {r.lora_slot for r in list(self.waiting) + self.running}
+        candidates = sorted(
+            (lid for lid, slot in self._lora_slots.items() if slot not in busy),
+            key=lambda lid: self._lora_last_used.get(lid, -1),
+        )
+        if not candidates:
+            return None
+        self.remove_lora(candidates[0])
+        return candidates[0]
+
+    def _lora_slot(self, lora_id) -> int:
+        if lora_id is None:
+            return 0
+        try:
+            return self._lora_slots[lora_id]
+        except KeyError:
+            raise ValueError(f"unknown lora {lora_id!r}; add_lora first") from None
+
+    def _lora_arg(self, ids) -> Optional[dict]:
+        """The ``lora=`` argument of a decode program: adapter slots (per
+        row or per packed token) and the stacks; None without LoRA."""
+        if self._lora is None:
+            return None
+        return {"ids": self._tensor(np.asarray(ids, np.int32)), **self._lora}
+
     # -- public API -----------------------------------------------------------
 
     def add_request(
@@ -277,10 +419,14 @@ class LLMEngine:
         prompt_token_ids: list,
         sampling_params: Optional[SamplingParams] = None,
         request_id: Optional[str] = None,
+        lora_id: Optional[str] = None,
         priority: int = 0,
     ) -> str:
         sp = sampling_params or SamplingParams()
         rid = request_id or f"req-{next(self._counter)}"
+        lora_slot = self._lora_slot(lora_id)
+        if lora_id is not None:
+            self._lora_last_used[lora_id] = next(self._lora_clock)
         if len(prompt_token_ids) > self.config.max_prefill_len:
             raise ValueError(
                 f"prompt length {len(prompt_token_ids)} exceeds "
@@ -301,6 +447,7 @@ class LLMEngine:
                 f"{self.config.num_blocks}; raise num_blocks or shorten it"
             )
         req = Request(rid, list(map(int, prompt_token_ids)), sp)
+        req.lora_slot = lora_slot
         req.priority = int(priority)
         req.seed_base = request_seed_base(
             self._seed if sp.seed is None else sp.seed, rid
@@ -441,11 +588,12 @@ class LLMEngine:
     # -- admission -------------------------------------------------------------
 
     def _admission_need(self, req) -> int:
-        """Free-pool blocks admitting ``req`` would consume."""
+        """Free-pool blocks admitting ``req`` would consume (its prefix
+        chains salted by its adapter slot)."""
         if not self.config.enable_prefix_caching:
             return self.allocator.blocks_needed(req.num_tokens)
         return self.allocator.probe_admission_need(
-            req.prompt_token_ids + req.output_token_ids
+            req.prompt_token_ids + req.output_token_ids, req.lora_slot
         )
 
     def _pad_to_bucket(self, n: int, buckets: list) -> int:
@@ -466,13 +614,18 @@ class LLMEngine:
         prompt = req.prompt_token_ids + req.output_token_ids
         matched_blocks: list = []
         matched = 0
+        # adapters change K/V: the prefix chain is salted by the adapter
+        # slot, so sequences under different adapters never share blocks
+        # (a preemption recompute keeps its request's salt)
+        salt = req.lora_slot
+        seq.chain = salt
         if c.enable_prefix_caching:
-            blocks, matched, chain = self.allocator.match_prefix(prompt)
+            blocks, matched, chain = self.allocator.match_prefix(prompt, salt)
             if matched >= len(prompt):
                 # whole prompt cached: leave >= 1 token to prefill so there
                 # are next-token logits
                 self.allocator.free(blocks)
-                blocks, matched, chain = self.allocator.match_prefix(prompt[:-1])
+                blocks, matched, chain = self.allocator.match_prefix(prompt[:-1], salt)
             if blocks:
                 seq.adopt_prefix(blocks, chain, matched)
                 matched_blocks = blocks
@@ -520,6 +673,7 @@ class LLMEngine:
                 self._tensor([len(chunk)]), self._tensor(slots), bt,
                 self._tensor(np.asarray([start + len(chunk)], np.int32)),
                 self.cache, c.model, block_size=c.block_size,
+                lora=self._lora_arg([req.lora_slot]),
             )
         seq.num_tokens = len(prompt)
         if c.enable_prefix_caching:
@@ -589,6 +743,7 @@ class LLMEngine:
             self._tensor(plan.cu_q_lens), self._tensor(plan.context_lens),
             self.cache, c.model, block_size=c.block_size,
             max_q_len=c.mixed_prefill_chunk, attn_impl=c.attn_impl,
+            lora=self._lora_arg(plan.lora_ids),
         )
         plan.note(self._mixed_stats)
 
@@ -707,6 +862,7 @@ class LLMEngine:
             bufs.stop_on_eos, c.model, n_steps=n_steps, block_size=c.block_size,
             trash_slot=c.num_blocks * c.block_size, eos_id=c.eos_token_id,
             attn_impl=c.attn_impl, sample_mode=mode, early_exit=early_exit,
+            lora=None if self._lora is None else {"ids": bufs.lora_ids, **self._lora},
         )
         for dst, src in zip(bufs.carry(), carry):
             dst.copy_(src)
@@ -934,6 +1090,7 @@ class LLMEngine:
             p_tokens = np.zeros(T_pad, np.int32)
             p_positions = np.zeros(T_pad, np.int32)
             p_slots = np.full(T_pad, num_slots, np.int32)
+            p_lora = np.zeros(T_pad, np.int32)  # adapter slot per token
             cu = np.zeros(B_pad + 1, np.int32)
             gather = np.zeros((B_pad, K1), np.int32)
             t = 0
@@ -942,6 +1099,7 @@ class LLMEngine:
                 p_tokens[t : t + n] = row
                 p_positions[t : t + n] = np.arange(pos0, pos0 + n)
                 p_slots[t : t + n] = r.seq.slots_for_range(pos0, pos0 + n)
+                p_lora[t : t + n] = r.lora_slot
                 gather[i] = t + np.minimum(np.arange(K1), n - 1)
                 t += n
                 cu[i + 1] = t
@@ -951,6 +1109,7 @@ class LLMEngine:
                 self._tensor(p_slots), self._tensor(bt), self._tensor(cu),
                 self._tensor(context_lens), self._tensor(gather), self.cache, c.model,
                 block_size=c.block_size, max_q_len=K1, attn_impl=c.attn_impl,
+                lora=self._lora_arg(p_lora),
             )
         else:
             tokens = np.zeros((B_pad, K1), np.int32)
@@ -961,10 +1120,13 @@ class LLMEngine:
                 tokens[i, :n] = row
                 positions[i, :n] = np.arange(pos0, pos0 + n)
                 slots[i, :n] = r.seq.slots_for_range(pos0, pos0 + n)
+            lora_ids = np.zeros(B_pad, np.int32)
+            lora_ids[:B] = [r.lora_slot for r in batch]
             logits, self.cache = verify_tokens(
                 self.params, self._tensor(tokens), self._tensor(positions),
                 self._tensor(slots), self._tensor(bt), self._tensor(context_lens),
                 self.cache, c.model, block_size=c.block_size,
+                lora=self._lora_arg(lora_ids),
             )
 
         # acceptance follows the batch's sampler mode: greedy -> argmax
@@ -1036,6 +1198,7 @@ class LLMEngine:
                 self._tensor(slot_mapping), self._tensor(a["bt"]),
                 self._tensor(a["context_lens"]), self.cache, c.model,
                 block_size=c.block_size, attn_impl=c.attn_impl,
+                lora=self._lora_arg(a["lora_ids"]),
             )
             tok, logprob = self._sample_batch(logits[:B], batch)
             return self._append_tokens(batch, tok, logprob)
@@ -1056,6 +1219,7 @@ class LLMEngine:
             self._tensor(remaining), c.model, n_steps=n_steps,
             block_size=c.block_size, trash_slot=num_slots,
             attn_impl=c.attn_impl, sample_mode=self._sample_mode(batch),
+            lora=self._lora_arg(a["lora_ids"]),
         )
         # the chunk's one host sync
         return self._append_chunk(batch, toks.cpu().numpy(), logprobs.cpu().numpy())

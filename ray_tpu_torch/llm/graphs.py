@@ -79,6 +79,7 @@ class ChunkBuffers:
     max_toks: torch.Tensor
     stop_ids: torch.Tensor
     stop_on_eos: torch.Tensor
+    lora_ids: torch.Tensor
     block_tables: torch.Tensor
 
     @classmethod
@@ -92,7 +93,8 @@ class ChunkBuffers:
             context_lens=z(B, i32), done=z(B, torch.bool), starts=z(B, i32),
             temps=z(B, torch.float32), top_ks=z(B, i32), top_ps=z(B, torch.float32),
             seed_bases=z(B, torch.int64), max_toks=z(B, i32), stop_ids=z((B, stop_w), i32),
-            stop_on_eos=z(B, torch.bool), block_tables=z((B, bt_width), i32),
+            stop_on_eos=z(B, torch.bool), lora_ids=z(B, i32),
+            block_tables=z((B, bt_width), i32),
         )
 
     def carry(self) -> tuple:

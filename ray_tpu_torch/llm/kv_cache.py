@@ -10,16 +10,18 @@ kept here so the port imports nothing from the JAX package).
    across requests via content hashing (prefix caching: hash chains over
    block token contents).
 
+Chains are salted per LoRA adapter slot (slot 0, the base model, roots
+at 0), and ``drop_prefix_cache(salt=...)`` drops one slot's chains.
+
 Not copied, because nothing ported uses them yet: the seal/evict/drop
-listeners of the tiered cache (``llm/kvtier``), the per-adapter chain
-salts and salt-scoped drops (LoRA), and the read-only ``probe_prefix`` /
-``contains_hash`` probes (disaggregated serving, kvtier).
+listeners of the tiered cache (``llm/kvtier``) and the read-only
+``probe_prefix`` / ``contains_hash`` probes (disaggregated serving, kvtier).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 
 @dataclasses.dataclass
@@ -61,6 +63,11 @@ class BlockAllocator:
         # only the cache holds it)
         self._hash_to_block: dict[int, int] = {}
         self._block_hash: dict[int, int] = {}
+        # content hash -> root salt of its chain (a chain's first block has
+        # the salt as its parent hash, so the root propagates hash to
+        # hash). Chain metadata, not residency: it survives eviction, so a
+        # resurrected chain still resolves; cleared only by a full drop
+        self._hash_salt: dict[int, int] = {}
         # LRU order of zero-ref cached blocks (eviction candidates)
         self._zero_ref_lru: list[int] = []
 
@@ -119,23 +126,40 @@ class BlockAllocator:
         # hashes of ints and tuples of ints are not salted per process
         return hash((parent_hash, block_tokens))
 
-    def drop_prefix_cache(self) -> None:
+    def drop_prefix_cache(self, salt: Optional[int] = None) -> None:
         """Invalidate cached prefixes: zero-ref cached blocks return to
         the free list, live blocks lose their hashes (they stay private to
-        their sequences)."""
-        for b in self._zero_ref_lru:
-            self._free.append(b)
-        self._zero_ref_lru.clear()
-        self._hash_to_block.clear()
-        self._block_hash.clear()
+        their sequences). With ``salt`` only the chains rooted at that salt
+        go (one adapter slot's prefixes, when the slot is reused)."""
+        if salt is None:
+            for b in self._zero_ref_lru:
+                self._free.append(b)
+            self._zero_ref_lru.clear()
+            self._hash_to_block.clear()
+            self._block_hash.clear()
+            self._hash_salt.clear()
+            return
+        for h in [h for h, s in self._hash_salt.items() if s == salt]:
+            del self._hash_salt[h]
+            b = self._hash_to_block.pop(h, None)
+            if b is None:
+                continue
+            self._block_hash.pop(b, None)
+            if b in self._zero_ref_lru:
+                self._zero_ref_lru.remove(b)
+                self._free.append(b)
 
-    def register_full_block(self, block_id: int, content_hash: int) -> None:
-        """Mark a just-written full block reusable under its content hash."""
+    def register_full_block(self, block_id: int, content_hash: int,
+                            parent_hash: int = 0) -> None:
+        """Mark a just-written full block reusable under its content hash;
+        ``parent_hash`` is the hash it chains from (the salt for a first
+        block)."""
         existing = self._hash_to_block.get(content_hash)
         if existing is not None and existing != block_id:
             return  # another copy already canonical; keep ours private
         self._hash_to_block[content_hash] = block_id
         self._block_hash[block_id] = content_hash
+        self._hash_salt[content_hash] = self._hash_salt.get(parent_hash, parent_hash)
 
     def lookup(self, content_hash: int) -> Optional[int]:
         """Take a reference on a cached block if present."""
@@ -147,14 +171,14 @@ class BlockAllocator:
         self._refcount[b] = self._refcount.get(b, 0) + 1
         return b
 
-    def probe_admission_need(self, tokens: list[int]) -> int:
+    def probe_admission_need(self, tokens: list[int], salt: int = 0) -> int:
         """Blocks a full prefill of ``tokens`` must take FROM THE FREE
         POOL, accounting for the prefix cache: a matched block that is
         LIVE-shared (refcount > 0) is adopted by refcount alone and costs
         nothing, while a matched zero-ref cached block still consumes a
         ``num_free`` slot when resurrected. Read-only."""
         need = self.blocks_needed(len(tokens))
-        h = 0
+        h = salt
         n_full = len(tokens) // self.block_size
         for i in range(n_full):
             blk = tuple(tokens[i * self.block_size : (i + 1) * self.block_size])
@@ -166,13 +190,15 @@ class BlockAllocator:
                 need -= 1  # live shared: adoption is a refcount bump
         return need
 
-    def match_prefix(self, tokens: list[int]) -> tuple[list[int], int, int]:
+    def match_prefix(self, tokens: list[int],
+                     salt: int = 0) -> tuple[list[int], int, int]:
         """Longest cached chain of FULL blocks prefixing ``tokens``.
         Returns (block_ids_with_refs_taken, num_tokens_matched, chain_hash).
-        Chains are rooted at 0 (the reference salts them per LoRA adapter;
-        that comes with the LoRA slice)."""
+        ``salt`` roots the chain (the LoRA adapter slot): sequences under
+        different adapters hold different K/V for the same tokens, so their
+        prefixes never cross-match."""
         matched: list[int] = []
-        h = chain = 0
+        h = chain = salt
         n_full = len(tokens) // self.block_size
         for i in range(n_full):
             blk = tuple(tokens[i * self.block_size : (i + 1) * self.block_size])
@@ -217,8 +243,9 @@ class SequenceBlocks:
         h = self.chain
         for i in range(self.num_sealed_tokens // bs, n_full):
             blk = tuple(tokens[i * bs : (i + 1) * bs])
+            parent = h
             h = self.allocator.chain_hash(h, blk)
-            self.allocator.register_full_block(self.blocks[i], h)
+            self.allocator.register_full_block(self.blocks[i], h, parent)
         self.chain = h
         self.num_sealed_tokens = n_full * bs
 

@@ -18,9 +18,9 @@ Discipline (LLMEngine._mixed_step):
  * every step that has prefill work packs ALL decode rows into the same
    dispatch, so decode never starves behind a long prompt;
  * a step with no prefill work is the all-q_len=1 case and routes to the
-   regular decode path.
-
-LoRA adapter ids per token wait for the LoRA slice.
+   regular decode path;
+ * every packed token carries its request's LoRA adapter slot
+   (``lora_ids``; pad tokens take slot 0, the zero adapter).
 """
 
 from __future__ import annotations
@@ -86,6 +86,7 @@ class MixedBatchPlan:
     tokens: np.ndarray       # [T_pad]
     positions: np.ndarray    # [T_pad]
     slots: np.ndarray        # [T_pad] (pad -> trash slot)
+    lora_ids: np.ndarray     # [T_pad] adapter slot per token (pad -> 0)
     cu_q_lens: np.ndarray    # [B_pad + 1]
     context_lens: np.ndarray # [B_pad]
     bt: np.ndarray           # [B_pad, W]
@@ -116,6 +117,7 @@ class MixedBatchPlan:
         tokens = np.zeros(T_pad, np.int32)
         positions = np.zeros(T_pad, np.int32)
         slots = np.full(T_pad, num_slots, np.int32)  # trash by default
+        lora_ids = np.zeros(T_pad, np.int32)
         cu = np.zeros(B_pad + 1, np.int32)
         ctx = np.zeros(B_pad, np.int32)
         bt = np.zeros(
@@ -147,6 +149,7 @@ class MixedBatchPlan:
             positions[t : t + clen] = np.arange(start, start + clen)
             for j in range(clen):
                 slots[t + j] = r.seq.slot(start + j)
+            lora_ids[t : t + clen] = r.lora_slot
             bt[i, : len(r.seq.blocks)] = r.seq.blocks
             t += clen
             cu[i + 1] = t
@@ -159,7 +162,7 @@ class MixedBatchPlan:
         return cls(
             reqs=reqs, kinds=kinds, starts=starts, chunk_lens=chunk_lens,
             emit_rows=emit_rows, completes=completes,
-            tokens=tokens, positions=positions, slots=slots,
+            tokens=tokens, positions=positions, slots=slots, lora_ids=lora_ids,
             cu_q_lens=cu, context_lens=ctx, bt=bt, T=T, B=B,
         )
 

@@ -3,7 +3,8 @@ double-buffered chunks and an adaptive chunk length (counterpart of
 ``ray_tpu/llm/pipeline.py``).
 
  * ``DeviceBatchState`` — the decode batch's tokens / positions / context
-   lengths / block tables / sampling knobs / seed bases / stop sets live
+   lengths / block tables / sampling knobs / seed bases / stop sets /
+   LoRA adapter slots live
    on the device in the static buffers of ``llm/graphs.py`` across
    chunks, rewritten only at membership changes; between chunks the
    carry stays where the chunk wrote it;
@@ -195,11 +196,11 @@ def assemble_batch_arrays(batch: list, B_pad: int, bt_width: int):
     """Per-row decode-batch assembly, shared by the sync path and
     ``DeviceBatchState.build`` (the two paths' token identity depends on
     it): fed token, position, context length, sampling knobs, absolute
-    output index, max_tokens, block table.
+    output index, max_tokens, LoRA adapter slot, block table.
 
     Returns (arrays dict of np arrays, [B_pad] int64 seed bases). Pad
     rows: context_lens 0 (the kernels' pad signal), temperature 1, top_p
-    1, max_tokens INT32_MAX, seed base 0."""
+    1, max_tokens INT32_MAX, adapter slot 0, seed base 0."""
     a = {
         "tokens": np.zeros(B_pad, np.int32),
         "positions": np.zeros(B_pad, np.int32),
@@ -209,6 +210,7 @@ def assemble_batch_arrays(batch: list, B_pad: int, bt_width: int):
         "top_ps": np.ones(B_pad, np.float32),
         "starts": np.zeros(B_pad, np.int32),
         "max_toks": np.full(B_pad, np.iinfo(np.int32).max, np.int32),
+        "lora_ids": np.zeros(B_pad, np.int32),
         "bt": np.zeros((B_pad, bt_width), np.int32),
     }
     seed_bases = np.zeros(B_pad, np.int64)
@@ -225,6 +227,7 @@ def assemble_batch_arrays(batch: list, B_pad: int, bt_width: int):
         a["top_ps"][i] = sp.top_p
         a["starts"][i] = len(r.output_token_ids)
         a["max_toks"][i] = sp.max_tokens
+        a["lora_ids"][i] = r.lora_slot
         a["bt"][i, : len(r.seq.blocks)] = r.seq.blocks
         seed_bases[i] = as_int64(r.seed_base)
     return a, seed_bases
@@ -284,7 +287,7 @@ class DeviceBatchState:
             ("top_ks", a["top_ks"]), ("top_ps", a["top_ps"]),
             ("seed_bases", seed_bases), ("max_toks", a["max_toks"]),
             ("stop_ids", stop_ids), ("stop_on_eos", stop_on_eos),
-            ("block_tables", a["bt"]),
+            ("lora_ids", a["lora_ids"]), ("block_tables", a["bt"]),
         ):
             upload(getattr(bufs, name), arr)
         rids = [r.request_id for r in batch]
@@ -344,6 +347,7 @@ def decode_chunk_masked(
     attn_impl: str = "auto",
     sample_mode: str = "full",
     early_exit: bool = False,
+    lora: "dict | None" = None,  # adapter ids [B] per row + stacks (llama_decode)
 ):
     """Decode up to ``n_steps`` tokens with the stop ladder on the device.
 
@@ -357,8 +361,9 @@ def decode_chunk_masked(
     freeze: trash-slot KV writes, no position or context advance, 0 /
     0.0 outputs. ``steps_run`` counts the steps in which any row was live.
     Nothing here reads a value back to the host, so the chunk can be
-    captured into a CUDA graph; ``early_exit`` (eager runs only) leaves
-    once every row is done, which changes no output."""
+    captured into a CUDA graph (the adapter ids and stacks are read by
+    address, like every other input); ``early_exit`` (eager runs only)
+    leaves once every row is done, which changes no output."""
     B = tokens.shape[0]
     MB = block_tables.shape[1]
     rows = torch.arange(B, device=tokens.device)
@@ -382,7 +387,7 @@ def decode_chunk_masked(
         slot = torch.where(active, slot, torch.full_like(slot, trash_slot))
         logits, cache = decode_step(
             params, tok, pos, slot, block_tables, ctx, cache, config,
-            block_size=block_size, attn_impl=attn_impl,
+            block_size=block_size, attn_impl=attn_impl, lora=lora,
         )
         # seed = f(request seed base, absolute output index): the sync
         # path's stream for every live row, whatever the chunking

@@ -13,6 +13,13 @@
    verification: logits at every position of a short drafted suffix,
    through the paged prefill path or the packed ragged one.
 
+Every entry point takes ``lora=`` (LoRA multiplexing): ``{"ids": ...,
+"<t>_A": [L, n_slots, d_model, r], "<t>_B": [L, n_slots, r, d_out]}`` for
+targets t among wq / wk / wv, slot 0 the zero adapter. ``ids`` holds one
+slot per row ([B]) on the paged paths and one per packed token ([T]) on
+the ragged ones. Each row's delta is added to q / k / v after the
+projections and before RoPE, as in the reference.
+
 Cache layout: k/v [n_layers, n_kv_heads, num_slots + trash, head_dim],
 head-major, so one page of one kv head is a contiguous block_size x
 head_dim tile — the unit the CUDA kernels read. The extra trailing page
@@ -76,6 +83,59 @@ def _qkv(x, lp, c: LlamaConfig):
     return q, k, v
 
 
+LORA_TARGETS = ("wq", "wk", "wv")
+
+
+def _lora_layers(lora: dict) -> tuple[torch.Tensor, list[dict]]:
+    """The adapter stacks in the form each layer's delta takes, built once
+    per forward: every target's A of every slot side by side, so that one
+    GEMM per layer makes all of a row's down-projections, and a column mask
+    that keeps each row's own slot. Returns (mask [N, 1, K] bool, one
+    {"A": [d, K], t: B [n_slots * r, d_out]} per layer), K = targets x
+    slots x rank.
+
+    The mask keeps the base GEMMs as they are and gathers no [N, d, r]
+    copy of A per row (the reference's ``A[ids]``): a base row (slot 0,
+    zeros) gets an all-zero down-projection and so exactly q + 0."""
+    targets = [t for t in LORA_TARGETS if f"{t}_A" in lora]
+    L, n, d, r = lora[f"{targets[0]}_A"].shape
+    a = torch.stack([lora[f"{t}_A"] for t in targets], dim=1)  # [L, nt, n, d, r]
+    a = a.permute(0, 3, 1, 2, 4).reshape(L, d, len(targets) * n * r)
+    ids = lora["ids"].long()
+    col_slot = torch.arange(n, device=ids.device).repeat_interleave(r).repeat(len(targets))
+    mask = (col_slot[None, :] == ids[:, None])[:, None, :]
+    a_l = a.unbind(0)
+    b_l = {t: lora[f"{t}_B"].reshape(L, n * r, -1).unbind(0) for t in targets}
+    return mask, [{"A": a_l[i], **{t: b[i] for t, b in b_l.items()}} for i in range(L)]
+
+
+def _apply_lora(q, k, v, x, lora_l: dict, mask: torch.Tensor):
+    """Add each row's adapter delta to the attention projections, in place
+    (q / k / v are the projections' fresh outputs): x [B, S, d], q / k / v
+    [B, S, heads, hd], ``lora_l`` one layer's entry of ``_lora_layers``,
+    ``mask`` [B, 1, K] (one slot per row). One GEMM for every target's
+    down-projection, then one accumulating GEMM (beta = 1) per target."""
+    B, S, _ = x.shape
+    u = torch.where(mask, x @ lora_l["A"], 0).reshape(B * S, -1)
+    targets = [t for t in LORA_TARGETS if t in lora_l]
+    w = u.shape[1] // len(targets)
+    out = {"wq": q, "wk": k, "wv": v}
+    for j, t in enumerate(targets):
+        out[t].view(B * S, -1).addmm_(u[:, j * w : (j + 1) * w], lora_l[t])
+    return q, k, v
+
+
+def _apply_lora_packed(q, k, v, x, lora_l: dict, mask: torch.Tensor):
+    """Per-TOKEN adapter deltas for packed ragged rows: x [1, T, d], q / k /
+    v [1, T, heads, hd], ``mask`` [T, 1, K]. The packed token axis is viewed
+    as the batch axis, so every packed token selects its own adapter."""
+    T = x.shape[1]
+    q, k, v = _apply_lora(
+        *(y.reshape(T, 1, *y.shape[2:]) for y in (q, k, v)), x.reshape(T, 1, -1), lora_l, mask,
+    )
+    return tuple(y.reshape(1, T, *y.shape[2:]) for y in (q, k, v))
+
+
 def _out_proj(o, lp, B, S, c: LlamaConfig):
     return o.reshape(B, S, c.n_heads * c.head_dim) @ lp["wo"]
 
@@ -104,6 +164,7 @@ def _paged_forward(
     config: LlamaConfig,
     *,
     block_size: int,
+    lora: "dict | None" = None,  # ids [B] per row
 ) -> tuple[torch.Tensor, Cache]:
     """Multi-token transformer body over the paged cache: scatter the
     suffix K/V into pages, attend over (cached prefix + suffix) per layer,
@@ -119,10 +180,13 @@ def _paged_forward(
     positions = positions.long()
     h = params["embed"][tokens.long()]
     flat_slots = slot_mapping.reshape(-1).long()  # [B*S]
+    lora_mask, lora_ls = _lora_layers(lora) if lora is not None else (None, None)
     for i in range(c.n_layers):
         lp = _layer(params["layers"], i)
         x = rms_norm(h, lp["ln1"], c.rms_eps)
         q, k, v = _qkv(x, lp, c)
+        if lora_ls is not None:
+            q, k, v = _apply_lora(q, k, v, x, lora_ls[i], lora_mask)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
         _write_kv(cache["k"][i], flat_slots, k.reshape(B * S, c.n_kv_heads, c.head_dim))
@@ -150,11 +214,12 @@ def prefill(
     config: LlamaConfig,
     *,
     block_size: int,
+    lora: "dict | None" = None,  # ids [B] per row
 ) -> tuple[torch.Tensor, Cache]:
     """Returns (last-valid-token logits [B, V] fp32, updated cache)."""
     h, cache = _paged_forward(
         params, tokens, positions, slot_mapping, block_tables, context_lens,
-        cache, config, block_size=block_size,
+        cache, config, block_size=block_size, lora=lora,
     )
     S = tokens.shape[1]
     last = (suffix_lens.long() - 1).clamp(0, S - 1)  # [B]
@@ -173,6 +238,7 @@ def verify_tokens(
     config: LlamaConfig,
     *,
     block_size: int,
+    lora: "dict | None" = None,  # ids [B] per row
 ) -> tuple[torch.Tensor, Cache]:
     """Speculative verification: score a drafted suffix in one pass
     through the paged prefill path -> (logits [B, K+1, V] fp32, cache);
@@ -180,7 +246,7 @@ def verify_tokens(
     a plain decode step (pad columns write the trash slot)."""
     h, cache = _paged_forward(
         params, tokens, positions, slot_mapping, block_tables, context_lens,
-        cache, config, block_size=block_size,
+        cache, config, block_size=block_size, lora=lora,
     )
     return _lm_head(params, h, config), cache
 
@@ -235,6 +301,7 @@ def ragged_forward(
     block_size: int,
     max_q_len: int,
     attn_impl: str = "auto",
+    lora: "dict | None" = None,  # ids [T] per packed token
 ) -> tuple[torch.Tensor, Cache]:
     """Packed ragged transformer body over the paged cache: prefill
     chunks and decode rows concatenated along one token axis, each
@@ -251,10 +318,13 @@ def ragged_forward(
     h = params["embed"][tokens.long()][None]  # [1, T, D]
     pos2 = positions.long()[None]  # [1, T]
     slots = slot_mapping.long()
+    lora_mask, lora_ls = _lora_layers(lora) if lora is not None else (None, None)
     for i in range(c.n_layers):
         lp = _layer(params["layers"], i)
         x = rms_norm(h, lp["ln1"], c.rms_eps)
         q, k, v = _qkv(x, lp, c)
+        if lora_ls is not None:
+            q, k, v = _apply_lora_packed(q, k, v, x, lora_ls[i], lora_mask)
         q = apply_rope(q, cos, sin, pos2)
         k = apply_rope(k, cos, sin, pos2)
         _write_kv(cache["k"][i], slots, k[0])
@@ -284,6 +354,7 @@ def mixed_step(
     block_size: int,
     max_q_len: int,
     attn_impl: str = "auto",
+    lora: "dict | None" = None,  # ids [T] per packed token
 ) -> tuple[torch.Tensor, Cache]:
     """One mixed prefill+decode step -> (last-row logits [B, V], cache).
     Pad sequences (q_len 0) alias a neighbour's last row; their logits
@@ -291,7 +362,7 @@ def mixed_step(
     h, cache = ragged_forward(
         params, tokens, positions, slot_mapping, block_tables, cu_q_lens,
         context_lens, cache, config, block_size=block_size,
-        max_q_len=max_q_len, attn_impl=attn_impl,
+        max_q_len=max_q_len, attn_impl=attn_impl, lora=lora,
     )
     T = tokens.shape[0]
     last = (cu_q_lens[1:].long() - 1).clamp(0, T - 1)  # [B]
@@ -313,6 +384,7 @@ def verify_tokens_ragged(
     block_size: int,
     max_q_len: int,
     attn_impl: str = "auto",
+    lora: "dict | None" = None,  # ids [T] per packed token
 ) -> tuple[torch.Tensor, Cache]:
     """Ragged speculative verification -> (logits [B, K+1, V], cache):
     each row packs exactly 1 + draft_len tokens (the ragged kernel on the
@@ -322,7 +394,7 @@ def verify_tokens_ragged(
     h, cache = ragged_forward(
         params, tokens, positions, slot_mapping, block_tables, cu_q_lens,
         context_lens, cache, config, block_size=block_size,
-        max_q_len=max_q_len, attn_impl=attn_impl,
+        max_q_len=max_q_len, attn_impl=attn_impl, lora=lora,
     )
     return _lm_head(params, h[gather_idx.long()], config), cache
 
@@ -339,6 +411,7 @@ def decode_step(
     *,
     block_size: int,
     attn_impl: str = "auto",
+    lora: "dict | None" = None,  # ids [B] per row
 ) -> tuple[torch.Tensor, Cache]:
     """One decode step for the running batch -> (logits [B, V], cache)."""
     c = config
@@ -347,10 +420,13 @@ def decode_step(
     h = params["embed"][tokens.long()][:, None]  # [B, 1, D]
     pos2 = positions.long()[:, None]  # [B, 1]
     slots = slot_mapping.long()
+    lora_mask, lora_ls = _lora_layers(lora) if lora is not None else (None, None)
     for i in range(c.n_layers):
         lp = _layer(params["layers"], i)
         x = rms_norm(h, lp["ln1"], c.rms_eps)
         q, k, v = _qkv(x, lp, c)
+        if lora_ls is not None:
+            q, k, v = _apply_lora(q, k, v, x, lora_ls[i], lora_mask)
         q = apply_rope(q, cos, sin, pos2)
         k = apply_rope(k, cos, sin, pos2)
         _write_kv(cache["k"][i], slots, k[:, 0])

@@ -345,25 +345,43 @@ def test_train_step_on_card_matches_cpu():
 # ---------------------------------------------------------------------------
 
 
-def _graph_engine(dtype, **kw):
+GRAPH_MODEL = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                   d_ff=512, max_seq=256)
+LORA_KW = dict(max_loras=2, lora_rank=8, lora_targets=("wq", "wk", "wv"))
+
+
+def _adapter(seed, scale=0.3, rank=8):
+    """Random LoRA weights for every target of GRAPH_MODEL, from a numpy seed."""
+    m = GRAPH_MODEL
+    hd = m["d_model"] // m["n_heads"]
+    rng = np.random.default_rng(seed)
+    outs = {"wq": m["n_heads"] * hd, "wk": m["n_kv_heads"] * hd, "wv": m["n_kv_heads"] * hd}
+    return {t: ((rng.normal(size=(m["n_layers"], m["d_model"], rank)) * scale).astype(np.float32),
+                (rng.normal(size=(m["n_layers"], rank, o)) * scale).astype(np.float32))
+            for t, o in outs.items()}
+
+
+def _graph_engine(dtype, loras=None, lora_ids=(None, None, None), **kw):
     """A small engine (head_dim 64) on the card with three requests
-    prefilled, its decode batch built into a bucket's static buffers."""
+    prefilled (under ``lora_ids``, of the adapters ``loras`` loaded first),
+    its decode batch built into a bucket's static buffers."""
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
     from ray_tpu_torch.llm.pipeline import DeviceBatchState
     from ray_tpu_torch.models.llama import LlamaConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = LlamaConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
-                        d_ff=512, max_seq=256, dtype=dtype)
+    model = LlamaConfig(**GRAPH_MODEL, dtype=dtype)
     cfg = EngineConfig(model=model, num_blocks=64, block_size=4, max_num_seqs=4,
                        max_prefill_len=64, **kw)
     eng = LLMEngine(cfg, seed=0, device="cuda")
+    for name, ad in (loras or {}).items():
+        eng.add_lora(name, ad)
     rng = np.random.default_rng(5)
     sps = [SamplingParams(max_tokens=40, temperature=0.0, ignore_eos=True),
            SamplingParams(max_tokens=5, temperature=1.0, top_k=20, seed=3, ignore_eos=True),
            SamplingParams(max_tokens=40, temperature=0.7, seed=4, ignore_eos=True)]
-    for n, sp in zip((7, 23, 12), sps):
-        eng.add_request(rng.integers(3, 500, size=n).tolist(), sp)
+    for n, sp, lid in zip((7, 23, 12), sps, lora_ids):
+        eng.add_request(rng.integers(3, 500, size=n).tolist(), sp, lora_id=lid)
     eng.step()  # admits and prefills all three
     for r in eng.running:
         r.seq.ensure_capacity(r.num_tokens + 16)
@@ -383,13 +401,20 @@ def _restore(eng, bufs, snap):
         dst.copy_(src)
 
 
+@pytest.mark.parametrize("lora", [False, True], ids=["base", "adapters"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_graph_replay_bit_identical_to_eager_chunk(dtype):
+def test_graph_replay_bit_identical_to_eager_chunk(dtype, lora):
     """A captured chunk's replay gives the eager chunk's bits (tokens,
     logprobs, n_emitted, steps_run, carry and cache), and two replays from
-    the same state give the same bits."""
+    the same state give the same bits; also with rows under two adapters
+    and a base row."""
     _need_cuda()
-    eng, state = _graph_engine(dtype)
+    if lora:
+        eng, state = _graph_engine(dtype, loras={"a": _adapter(1), "b": _adapter(2)},
+                                   lora_ids=("a", None, "b"), **LORA_KW)
+        assert state.bufs.lora_ids.tolist() == [1, 0, 2, 0]
+    else:
+        eng, state = _graph_engine(dtype)
     bufs, mode, n = state.bufs, state.sample_mode, 8
     assert mode == "full"
     snap = _snapshot(eng, bufs)
@@ -497,3 +522,145 @@ def test_graph_cap_evicts_least_recently_replayed(monkeypatch):
         eng._graphs.run(eng._masked_chunk, state.bufs, n, state.sample_mode).wait()
     st = eng._graphs.stats()
     assert (st["graphs"], st["captured"], st["evicted"], st["replays"]) == (1, 3, 2, 3)
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters in the captured chunks
+# ---------------------------------------------------------------------------
+
+
+def test_adapter_added_after_capture_is_seen_by_replay():
+    """The graph reads the adapter stacks and the rows' slots by address:
+    an adapter loaded after the bucket's capture, selected by a row through
+    the slot buffer, changes the next replay's tokens to the eager chunk's
+    with no new capture; the base row does not move."""
+    _need_cuda()
+    from ray_tpu_torch.llm.graphs import upload
+
+    eng, state = _graph_engine(torch.float32, loras={"a": _adapter(1)},
+                               lora_ids=("a", None, "a"), **LORA_KW)
+    bufs, mode = state.bufs, state.sample_mode
+    snap = _snapshot(eng, bufs)
+    first = eng._graphs.run(eng._masked_chunk, bufs, 8, mode).wait()[0]
+    eng.add_lora("b", _adapter(2))  # slot 2, written after the capture
+    upload(bufs.lora_ids, np.array([2, 0, 2, 0], np.int32))  # rows 0 and 2 under "b"
+    _restore(eng, bufs, snap)
+    eager = eng._masked_chunk(bufs, 8, mode, False)[0].cpu().numpy()
+    _restore(eng, bufs, snap)
+    replay = eng._graphs.run(eng._masked_chunk, bufs, 8, mode).wait()[0]
+    assert eng._graphs.captures == 1 and eng._graphs.replays == 2
+    assert np.array_equal(replay, eager)
+    assert not np.array_equal(replay[:, [0, 2]], first[:, [0, 2]])
+    assert np.array_equal(replay[:, 1], first[:, 1])
+
+
+def _serve_tokens(eng, prompts, lora_ids, logprobs=False):
+    from ray_tpu_torch.llm import SamplingParams
+
+    sp = SamplingParams(max_tokens=12, temperature=0.0, ignore_eos=True, logprobs=logprobs)
+    reqs = []
+    for p, lid in zip(prompts, lora_ids):
+        reqs.append(eng.requests[eng.add_request(p, sp, lora_id=lid)])
+    while eng.has_unfinished():
+        eng.step()
+    return [(r.output_token_ids, r.token_logprobs) for r in reqs]
+
+
+def _small_engine(dtype, params=None, **kw):
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = EngineConfig(model=LlamaConfig(**GRAPH_MODEL, dtype=dtype), num_blocks=64,
+                       block_size=4, max_num_seqs=4, max_prefill_len=64, **kw)
+    return LLMEngine(cfg, params=params, seed=0, device="cuda")
+
+
+def _prompts4():
+    rng = np.random.default_rng(8)
+    return [rng.integers(3, 500, size=int(n)).tolist() for n in (9, 21, 14, 33)]
+
+
+def test_removed_then_readded_slot_serves_the_new_adapter_on_graphs():
+    """remove_lora then add_lora of another adapter into the same (only)
+    slot: the pipelined engine's replays give the new adapter's tokens, as
+    a sync engine loaded with it from the start does (fp32)."""
+    _need_cuda()
+    prompts = _prompts4()
+    eng = _small_engine(torch.float32, max_loras=1, lora_targets=("wq", "wk", "wv"))
+    eng.add_lora("a", _adapter(1))
+    out_a = _serve_tokens(eng, prompts, ["a", None, "a", "a"])
+    replays = eng._graphs.replays
+    eng.remove_lora("a")
+    eng.add_lora("b", _adapter(2))
+    assert eng._lora_slots == {"b": 1}
+    out_b = _serve_tokens(eng, prompts, ["b", None, "b", "b"])
+    assert eng._graphs.replays > replays
+    sync = _small_engine(torch.float32, params=eng.params, max_loras=1,
+                         lora_targets=("wq", "wk", "wv"), pipeline_decode=False)
+    sync.add_lora("b", _adapter(2))
+    want = _serve_tokens(sync, prompts, ["b", None, "b", "b"])
+    assert [t for t, _ in out_b] == [t for t, _ in want]
+    assert all(a != b for (a, _), (b, _), i in zip(out_a, out_b, range(4)) if i != 1)
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["split", "mixed"])
+def test_base_rows_under_lora_engine_bit_identical_to_base_engine(mixed):
+    """bf16, pipelined on graphs: base rows of an engine with adapters
+    loaded (and adapter rows beside them) give the tokens and the logprob
+    bits of an engine without LoRA serving the same batch (same B_pad)."""
+    _need_cuda()
+    prompts = _prompts4()
+    kw = dict(mixed_batch=mixed, mixed_prefill_chunk=16)
+    base = _small_engine(torch.bfloat16, **kw)
+    want = _serve_tokens(base, prompts, [None] * 4, logprobs=True)
+    eng = _small_engine(torch.bfloat16, params=base.params, **kw, **LORA_KW)
+    eng.add_lora("a", _adapter(1))
+    eng.add_lora("b", _adapter(2))
+    ids = ["a", None, "b", None]
+    got = _serve_tokens(eng, prompts, ids, logprobs=True)
+    assert eng.stats()["pipeline"]["graphs"]["replays"] > 0
+    for (t, lp), (wt, wlp), lid in zip(got, want, ids):
+        if lid is None:
+            assert t == wt and lp == wlp
+        else:
+            assert t != wt
+
+
+def test_bf16_pipelined_and_sync_chunks_agree_at_the_same_b_pad():
+    """The cause of the bf16 pipelined-vs-sync token gap of the 8B engine:
+    from one batch state, the pipelined chunk (a graph replay) and the sync
+    path's chunk (llm/decode_loop.py) give the same bf16 bits when the batch
+    is padded to the same B_pad; padded to another B_pad the GEMMs may take
+    another cuBLAS plan, so the bits may differ (the first step's logprobs
+    stay within the bf16 band)."""
+    _need_cuda()
+    from ray_tpu_torch.llm.decode_loop import decode_chunk
+    from ray_tpu_torch.llm.pipeline import assemble_batch_arrays
+
+    eng, state = _graph_engine(torch.bfloat16)
+    bufs, mode = state.bufs, state.sample_mode
+    snap = _snapshot(eng, bufs)
+    toks, lps, n_emit, _ = eng._graphs.run(eng._masked_chunk, bufs, 8, mode).wait()
+    c = eng.config
+
+    def sync_chunk(B_pad):
+        _restore(eng, bufs, snap)
+        a, seeds = assemble_batch_arrays(eng.running, B_pad, state.bt_width)
+        remaining = np.zeros(B_pad, np.int32)
+        remaining[: len(eng.running)] = [eng._remaining(r) for r in eng.running]
+        t = lambda x: torch.from_numpy(np.asarray(x)).cuda()  # noqa: E731
+        out_t, out_lp, _ = decode_chunk(
+            eng.params, t(a["tokens"]), t(a["positions"]), t(a["bt"]), t(a["context_lens"]),
+            eng.cache, t(a["temps"]), t(a["top_ks"]), t(a["top_ps"]), t(seeds), t(a["starts"]),
+            t(remaining), c.model, n_steps=8, block_size=c.block_size,
+            trash_slot=c.num_blocks * c.block_size, sample_mode=mode)
+        return out_t.cpu().numpy(), out_lp.cpu().numpy()
+
+    same_t, same_lp = sync_chunk(state.B_pad)
+    for j in range(3):
+        n = int(n_emit[j])
+        assert np.array_equal(toks[:n, j], same_t[:n, j])
+        assert np.array_equal(lps[:n, j], same_lp[:n, j])  # the same bits
+    wide_t, wide_lp = sync_chunk(16)
+    assert np.abs(wide_lp[0, :3] - same_lp[0, :3]).max() <= BANDS[torch.bfloat16]

@@ -302,7 +302,7 @@ def test_sampling_params_validation(kw, msg):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("kvtier", True), ("mesh_spec", object()), ("max_loras", 2), ("profile", True),
+    ("kvtier", True), ("mesh_spec", object()), ("profile", True),
 ])
 def test_unported_engine_options_refuse(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -310,7 +310,7 @@ def test_unported_engine_options_refuse(field, value):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("spec", {"num_draft_tokens": 2}), ("pipeline_decode", True),
+    ("spec", {"num_draft_tokens": 2}), ("pipeline_decode", True), ("max_loras", 2),
 ])
 def test_ported_engine_options_accepted(field, value):
     cfg = EngineConfig(model=FP32_TINY, **{field: value})
