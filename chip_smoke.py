@@ -36,11 +36,16 @@ Phases, each printing one JSON line:
   engine   LLMEngine at LLAMA3_8B width (bf16, 32 layers, random weights
            from a seeded generator on the card), mixed batching, 12
            requests, served with the default pipelined decode (every
-           decode chunk a replay of a CUDA graph captured per bucket), then
-           the same requests on the sync path (pipeline_decode=False) with
-           the same weights; the kernels' launches (eager launches plus
+           decode chunk a replay of a CUDA graph captured per bucket, every
+           mixed step a replay of a graph captured per packed-token bucket),
+           then the same requests on the sync path (pipeline_decode=False)
+           with the same weights; the kernels' launches (eager launches plus
            those of graph replays) are counted from just before the first
-           pass to just after it
+           pass to just after it. Fails unless every mixed step ran as a
+           replay with the ragged kernel inside, and unless a replay of the
+           largest mixed bucket gives the eager step's logits and K/V bits.
+           Each pass reports the mixed graphs captured and their capture
+           seconds per T_pad bucket, and its peak device memory
   lora     LoRA multiplexing at LLAMA3_8B (the engine phase's weights,
            configuration and 12 requests): max_loras 4, rank 8, targets wq
            and wv, 3 adapters of random weights (numpy seeds 1-3, A ~
@@ -58,15 +63,20 @@ Phases, each printing one JSON line:
            over the first pass as in the engine phase.
            Fails unless every adapter's stream differs from the engine
            phase's stream of its prompt, a graph replay ran with an adapter
-           row, both serving kernels launched, and remove_lora of an adapter
-           a request holds raises
+           row, every mixed step ran as a replay with adapter tokens, both
+           serving kernels launched, a mixed replay with adapters gives the
+           eager step's bits, and remove_lora of an adapter a request holds
+           raises
   parity   a reduced fp32 model served by the same engine on the card
            (kernels; pipelined on graphs, and sync) and on the CPU (plain
-           versions): identical greedy tokens, mixed batching on and off;
-           then the same with a batch mixing two adapters (wq, wk, wv) and
-           base rows
+           versions): identical greedy tokens, mixed batching on and off
+           (on: every mixed step on the card a graph replay, and a replay
+           bit for bit the eager step); then the same with a batch mixing
+           two adapters (wq, wk, wv) and base rows
   spec     speculative decoding at LLAMA3_8B (bf16, mixed batching, so the
-           verify pass runs the ragged kernel at q_len 1..5): prompt lookup
+           verify pass runs the ragged kernel at q_len 1..5, every pass a
+           replay of a graph per packed-token bucket, bit for bit the
+           eager pass): prompt lookup
            with k = 4, then a LLAMA3_1B draft model at full width, random
            weights; acceptance, tok/s and ragged launches (> 0); then fp32
            greedy spec == non-spec tokens on the parity model (vocabulary
@@ -662,14 +672,104 @@ def _launch_counts(eng, before: dict) -> dict:
     return {n: now[n] - before[n] for n in now}
 
 
+def _families(eng) -> tuple:
+    """The engine's graph families: decode chunks, mixed steps, ragged
+    verify passes."""
+    return eng._graphs, eng._mixed_graphs, eng._verify_graphs
+
+
 def _launch_marks(eng) -> dict:
     from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
     from ray_tpu_torch.ops.ragged import ragged_attention_cuda
 
-    g = eng._graphs
-    return {n: f.launches - g.captured_launches.get(n, 0) + g.launches.get(n, 0)
+    return {n: f.launches + sum(g.launches.get(n, 0) - g.captured_launches.get(n, 0)
+                                for g in _families(eng))
             for n, f in (("paged_attention", paged_attention_cuda),
                          ("ragged_attention", ragged_attention_cuda))}
+
+
+def _replayed_marks(eng) -> dict:
+    """Launches made by graph replays so far, per kernel."""
+    return {n: sum(g.launches.get(n, 0) for g in _families(eng))
+            for n in ("paged_attention", "ragged_attention")}
+
+
+def _pass_marks(eng) -> tuple:
+    """Taken just before a pass (the peak-memory counter reset): what
+    ``_pass_graphs`` diffs against."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    return ({id(f): {k: len(v) for k, v in f.capture_s_by_key.items()}
+             for f in _families(eng)}, {id(f): f.replays for f in _families(eng)})
+
+
+def _pass_graphs(eng, marks) -> dict:
+    """Over one pass: the packed programs' graph captures and capture
+    seconds per T_pad bucket, their replays, and peak device memory."""
+    import torch
+
+    seen, replays = marks
+    out = {}
+    for name, fam in (("mixed", eng._mixed_graphs), ("verify", eng._verify_graphs)):
+        by_t = {}
+        for key, secs in fam.capture_s_by_key.items():
+            new = secs[seen[id(fam)].get(key, 0):]
+            if new:
+                d = by_t.setdefault(f"T_pad {key[1]}", {"captures": 0, "capture_s": 0.0})
+                d["captures"] += len(new)
+                d["capture_s"] += sum(new)
+        out[name] = {"captures_by_T_pad": by_t, "replays": fam.replays - replays[id(fam)],
+                     "graphs_live": len(fam._graphs)}
+    out["decode_chunk_replays"] = eng._graphs.replays - replays[id(eng._graphs)]
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _replay_equals_eager(eng, fam, fn) -> dict:
+    """The largest captured bucket of a packed-program family, on the
+    inputs its last step left in the buffers: the program run eagerly on
+    them, then the graph replayed, from the same cache (the slots the step
+    writes are put back after each). Raises unless the logits and the K/V
+    written have the same bits."""
+    import torch
+
+    key = max(fam._graphs, key=lambda k: k[1])
+    bufs = fam._bufs[key]
+    slots = torch.unique(bufs.slots.long())
+    slots = slots[slots < fam.trash_slot]
+    snap = {n: t[:, :, slots].clone() for n, t in eng.cache.items()}
+
+    def written_then_restore():
+        kv = {n: t[:, :, slots].clone() for n, t in eng.cache.items()}
+        for n, t in snap.items():
+            eng.cache[n][:, :, slots] = t
+        return kv
+
+    with torch.no_grad():
+        eager = fn(bufs).clone()
+        kv_eager = written_then_restore()
+        replay = fam.run(fn, bufs).clone()
+        kv_replay = written_then_restore()
+    torch.cuda.synchronize()
+    same = torch.equal(eager, replay) and all(torch.equal(kv_eager[n], kv_replay[n])
+                                             for n in kv_eager)
+    res = {"bucket": list(key), "tokens": int(bufs.cu_q_lens[-1]),
+           "dtype": str(eng.config.model.dtype).replace("torch.", ""),
+           "logits_and_kv_bits_equal": same}
+    if not same:
+        raise AssertionError(f"a {key[0]} replay differs from the eager program: {res}")
+    return res
+
+
+def _check_packed_replays(st_family: dict, dispatches: int, what: str) -> None:
+    """Every dispatch of a packed program ran as a graph replay, with K4
+    launched inside the replays."""
+    if dispatches <= 0 or st_family["replays"] != dispatches:
+        raise AssertionError(f"{what}: {st_family['replays']} graph replays for {dispatches} "
+                             f"dispatches")
+    if st_family["replay_kernel_launches"].get("ragged_attention", 0) <= 0:
+        raise AssertionError(f"{what}: the ragged kernel did not run inside the replays")
 
 
 def engine_phase(dev, params, params_s: float) -> dict:
@@ -700,8 +800,12 @@ def engine_phase(dev, params, params_s: float) -> dict:
     paged_attention_cuda.launches = 0
     ragged_attention_cuda.launches = 0
     marks = _launch_marks(eng)
+    replayed0 = _replayed_marks(eng)
+    pmarks = _pass_marks(eng)
     finals, reqs, wall, steps = _serve(eng, prompts, sps, "r")
     launches = _launch_counts(eng, marks)
+    replayed = {n: v - replayed0[n] for n, v in _replayed_marks(eng).items()}
+    first_graphs = _pass_graphs(eng, pmarks)
 
     st = eng.stats()
     _check_served(eng, finals, model, 12, 32)
@@ -709,6 +813,7 @@ def engine_phase(dev, params, params_s: float) -> dict:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if st.get("mixed", {}).get("dispatches", 0) <= 0:
         raise AssertionError("no mixed dispatch ran")
+    _check_packed_replays(st["mixed"]["graphs"], st["mixed"]["dispatches"], "engine: mixed steps")
     if st["prefix_cache"]["hit_tokens"] <= 0:
         raise AssertionError("the prefix cache recorded no hit")
     graphs = st["pipeline"]["graphs"]
@@ -722,7 +827,10 @@ def engine_phase(dev, params, params_s: float) -> dict:
         "prompt_tokens": int(sum(len(p) for p in prompts)), "output_tokens": 12 * 32,
         "engine_steps": steps, "init_s": init_s, "wall_s": wall,
         "output_tok_per_s": 12 * 32 / wall, "mean_ttft_s": float(np.mean(ttft)),
-        "kernel_launches": launches, "pipeline": st["pipeline"], "mixed": st["mixed"],
+        "kernel_launches": launches,
+        "kernel_launches_in_replays": replayed,
+        "kernel_launches_eager": {n: launches[n] - replayed[n] for n in launches},
+        "first_pass_graphs": first_graphs, "pipeline": st["pipeline"], "mixed": st["mixed"],
         "prefix_cache": st["prefix_cache"], "free_blocks": eng.allocator.num_free,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
@@ -736,22 +844,33 @@ def engine_phase(dev, params, params_s: float) -> dict:
     # reads the steady state, and each says how many graphs exist after it.
     for key, tag in (("warm", "w"), ("steady", "x")):
         eng.allocator.drop_prefix_cache()
+        pmarks = _pass_marks(eng)
         finals_w, reqs_w, wall_w, _ = _serve(eng, prompts, sps, tag)
         res[key] = {**_pass_summary(finals_w, reqs_w, wall_w, finals),
+                    "graphs": _pass_graphs(eng, pmarks),
                     "graphs_captured_so_far": eng._graphs.captures,
                     "chunks_by_steps_so_far": eng.stats()["pipeline"]["chunks_by_steps"]}
     eng.allocator.drop_prefix_cache()
     prof = _profile_serving(eng, prompts, sps)
-    res["graphs_after_all_passes"] = eng.stats()["pipeline"]["graphs"]
+    st = eng.stats()
+    _check_packed_replays(st["mixed"]["graphs"], st["mixed"]["dispatches"], "engine: mixed steps")
+    res["graphs_after_all_passes"] = st["pipeline"]["graphs"]
+    res["mixed_graphs_after_all_passes"] = st["mixed"]["graphs"]
+    res["mixed_replay_equals_eager"] = _replay_equals_eager(eng, eng._mixed_graphs,
+                                                            eng._mixed_program)
     del eng
     torch.cuda.empty_cache()
 
     # the sync decode path (pipeline_decode=False), same weights and requests
     eng = LLMEngine(EngineConfig(model=model, pipeline_decode=False, **ENGINE_KW),
                     params=params, device=dev)
+    pmarks = _pass_marks(eng)
     finals_s, reqs_s, wall_s, steps_s = _serve(eng, prompts, sps, "s")
     _check_served(eng, finals_s, model, 12, 32)
-    res["sync"] = {"engine_steps": steps_s, **_pass_summary(finals_s, reqs_s, wall_s, finals)}
+    st = eng.stats()
+    _check_packed_replays(st["mixed"]["graphs"], st["mixed"]["dispatches"], "sync: mixed steps")
+    res["sync"] = {"engine_steps": steps_s, **_pass_summary(finals_s, reqs_s, wall_s, finals),
+                   "graphs": _pass_graphs(eng, pmarks)}
     eng.allocator.drop_prefix_cache()
     finals_sw, reqs_sw, wall_sw, _ = _serve(eng, prompts, sps, "t")
     res["sync"]["warm"] = _pass_summary(finals_sw, reqs_sw, wall_sw, finals)
@@ -906,12 +1025,25 @@ def lora_phase(dev, params, engine_res: dict) -> dict:
         adapter_chunks.append(any(r.lora_slot for r in eng.running))
         return run(fn, bufs, n_steps, mode)
 
+    # mixed steps with adapter tokens (host view of the packed rows)
+    adapter_steps = []
+    mixed_run = eng._mixed_graphs.run
+
+    def counting_mixed_run(fn, bufs):
+        adapter_steps.append(any(r.lora_slot for r in eng.running))
+        return mixed_run(fn, bufs)
+
     eng._graphs.run = counting_run
+    eng._mixed_graphs.run = counting_mixed_run
     paged_attention_cuda.launches = 0
     ragged_attention_cuda.launches = 0
     marks = _launch_marks(eng)
+    replayed0 = _replayed_marks(eng)
+    pmarks = _pass_marks(eng)
     finals, reqs, wall, steps = _serve(eng, prompts, sps, "r", lora_ids=lora_ids)
     launches = _launch_counts(eng, marks)
+    replayed = {n: v - replayed0[n] for n, v in _replayed_marks(eng).items()}
+    first_graphs = _pass_graphs(eng, pmarks)
     st = eng.stats()
     _check_served(eng, finals, model, 12, 32)
     if min(launches.values()) <= 0:
@@ -919,6 +1051,9 @@ def lora_phase(dev, params, engine_res: dict) -> dict:
     graphs = st["pipeline"]["graphs"]
     if graphs["replays"] <= 0 or not any(adapter_chunks):
         raise AssertionError(f"lora: no graph replay ran with an adapter row: {graphs}")
+    _check_packed_replays(st["mixed"]["graphs"], st["mixed"]["dispatches"], "lora: mixed steps")
+    if not all(adapter_steps):
+        raise AssertionError(f"lora: a mixed step ran without adapter tokens: {adapter_steps}")
     base = engine_res["first_pass_tokens"]
     same_as_base = [finals[f"r{i}"] == base[f"r{i}"] for i in range(12)]
     differ = [i for i, lid in enumerate(lora_ids) if lid is not None and same_as_base[i]]
@@ -936,7 +1071,10 @@ def lora_phase(dev, params, engine_res: dict) -> dict:
         "rows_per_adapter": {str(k): lora_ids.count(k) for k in [None] + names},
         "engine_steps": steps, "wall_s": wall, "output_tok_per_s": 12 * 32 / wall,
         "mean_ttft_s": float(np.mean([r.t_first_token - r.arrival for r in reqs.values()])),
-        "kernel_launches": launches, "chunks_dispatched": len(adapter_chunks),
+        "kernel_launches": launches, "kernel_launches_in_replays": replayed,
+        "first_pass_graphs": first_graphs,
+        "mixed_steps_with_adapter_tokens": f"{sum(adapter_steps)}/{len(adapter_steps)}",
+        "chunks_dispatched": len(adapter_chunks),
         "chunks_with_adapter_rows": sum(adapter_chunks), "pipeline": st["pipeline"],
         "mixed": st["mixed"], "prefix_cache": st["prefix_cache"],
         # reported, not asserted: the batches around them differ from the
@@ -954,19 +1092,22 @@ def lora_phase(dev, params, engine_res: dict) -> dict:
     # and capture its graph in one of them, and host times swing from pass
     # to pass: the median of the passes that captured nothing is read
     eng.allocator.drop_prefix_cache()
+    pmarks = _pass_marks(eng)
     finals_w, reqs_w, wall_w, _ = _serve(eng, prompts, sps, "w", lora_ids=lora_ids)
     res["warm"] = {**_pass_summary(finals_w, reqs_w, wall_w, finals),
+                   "graphs": _pass_graphs(eng, pmarks),
                    "graphs_captured_so_far": eng._graphs.captures}
     passes = {"adapters": [], "all_base": []}
     for rnd in range(4):
         for key, ids, ref in (("adapters", lora_ids, finals), ("all_base", None, base)):
             eng.allocator.drop_prefix_cache()
-            c0, s0 = eng._graphs.captures, eng._graphs.capture_s
+            c0 = sum(g.captures for g in _families(eng))
+            s0 = sum(g.capture_s for g in _families(eng))
             tag = ("ijkl" if key == "adapters" else "uvyz")[rnd]  # one letter: _pass_summary
             f, rq, w, _ = _serve(eng, prompts, sps, tag, lora_ids=ids)
             passes[key].append({**_pass_summary(f, rq, w, ref),
-                                "graphs_captured": eng._graphs.captures - c0,
-                                "capture_s": eng._graphs.capture_s - s0})
+                                "graphs_captured": sum(g.captures for g in _families(eng)) - c0,
+                                "capture_s": sum(g.capture_s for g in _families(eng)) - s0})
     for key, runs in passes.items():
         read = [r for r in runs if not r["graphs_captured"]] or runs
         res[f"steady_{key}"] = {
@@ -1008,6 +1149,10 @@ def lora_phase(dev, params, engine_res: dict) -> dict:
         "engine_phase_decode_rounds": eng_prof["decode_rounds"]["device_idle_share"],
     }
     eng._graphs.run = run
+    eng._mixed_graphs.run = mixed_run
+    res["mixed_graphs_after_all_passes"] = eng.stats()["mixed"]["graphs"]
+    res["mixed_replay_equals_eager"] = _replay_equals_eager(eng, eng._mixed_graphs,
+                                                            eng._mixed_program)
     del eng
     torch.cuda.empty_cache()
     emit(res)
@@ -1285,7 +1430,7 @@ def parity_phase(dev) -> None:
                 for name, seed in (("a", 21), ("b", 22))}
     for lora in (False, True):
         for mixed in (True, False):
-            outs, replays = {}, 0
+            outs, replays, mixed_replays, replay_check = {}, 0, {}, None
             for where, params, pipelined in (("cuda pipelined", params_gpu, True),
                                              ("cuda sync", params_gpu, False),
                                              ("cpu", params_cpu, True)):
@@ -1301,10 +1446,21 @@ def parity_phase(dev) -> None:
                                         PARITY_LORA_IDS if lora else [None] * len(prompts))
                 if where == "cuda pipelined":
                     replays = eng.stats()["pipeline"]["graphs"]["replays"]
+                if mixed and where != "cpu":
+                    # fp32: every mixed step on the card a graph replay
+                    st = eng.stats()["mixed"]
+                    _check_packed_replays(st["graphs"], st["dispatches"],
+                                          f"parity {where}: mixed steps")
+                    mixed_replays[where] = st["graphs"]["replays"]
+                if mixed and where == "cuda pipelined":
+                    replay_check = _replay_equals_eager(eng, eng._mixed_graphs,
+                                                        eng._mixed_program)
             same = outs["cuda pipelined"] == outs["cuda sync"] == outs["cpu"]
             key = f"{'lora_' if lora else ''}mixed_{mixed}"
             result[key] = {"identical": same, "graph_replays": replays,
-                           "tokens": sum(map(len, outs["cpu"]))}
+                           "tokens": sum(map(len, outs["cpu"])),
+                           "mixed_step_replays": mixed_replays,
+                           "mixed_replay_equals_eager": replay_check}
             if not same or replays <= 0:
                 emit(result)
                 raise AssertionError(f"{key}: pipelined-card, sync-card and CPU tokens "
@@ -1351,20 +1507,41 @@ def spec_phase(dev, params) -> dict:
         eng = LLMEngine(EngineConfig(model=model, spec=spec, **ENGINE_KW), params=params,
                         device=dev)
         marks = _launch_marks(eng)
+        pmarks = _pass_marks(eng)
         finals, reqs, wall, steps = _serve(eng, prompts, [sp] * 8, method[0])
         launches = _launch_counts(eng, marks)
         _check_served(eng, finals, model, 8, 32)
-        st = eng.stats()["spec"]
+        stats = eng.stats()
+        st = stats["spec"]
         if st["steps"] <= 0:
             raise AssertionError(f"{method}: no verify pass ran: {st}")
+        _check_packed_replays(st["verify_graphs"], st["steps"], f"{method}: verify passes")
+        _check_packed_replays(stats["mixed"]["graphs"], stats["mixed"]["dispatches"],
+                              f"{method}: mixed steps")
         if launches["ragged_attention"] < st["steps"] * model.n_layers:
             raise AssertionError(f"{method}: {launches['ragged_attention']} ragged launches for "
                                  f"{st['steps']} verify passes of {model.n_layers} layers")
         result[method] = {
             "engine_steps": steps, "wall_s": wall, "output_tok_per_s": 8 * 32 / wall,
             "mean_ttft_s": float(np.mean([r.t_first_token - r.arrival for r in reqs.values()])),
-            "spec": st, "kernel_launches": launches,
+            "spec": st, "kernel_launches": launches, "graphs": _pass_graphs(eng, pmarks),
         }
+        # the same requests again, warm and steady (the first pass pays the
+        # mixed and verify graphs' captures), each from an empty prefix cache
+        first = [finals[f"{method[0]}{i}"] for i in range(8)]
+        for key, tag in (("warm", "w"), ("steady", "x")):
+            eng.allocator.drop_prefix_cache()
+            pmarks = _pass_marks(eng)
+            f, rq, w, _ = _serve(eng, prompts, [sp] * 8, method[0] + tag)
+            result[method][key] = {
+                "wall_s": w, "output_tok_per_s": 8 * 32 / w,
+                "mean_ttft_s": float(np.mean([r.t_first_token - r.arrival for r in rq.values()])),
+                "streams_equal_first_pass": [f[f"{method[0]}{tag}{i}"] for i in range(8)] == first,
+                "graphs": _pass_graphs(eng, pmarks),
+            }
+        if method == "prompt_lookup":
+            result[method]["verify_replay_equals_eager"] = _replay_equals_eager(
+                eng, eng._verify_graphs, eng._verify_program)
         if method == "draft_model":
             result[method]["draft_model"] = "LLAMA3_1B bf16, random weights (seed 0)"
         del eng
@@ -1397,6 +1574,10 @@ def spec_phase(dev, params) -> dict:
             emit(result)
             raise AssertionError(f"fp32 greedy spec ({method}): tokens != non-spec tokens, "
                                  f"or no verify pass ran ({st['steps']})")
+        _check_packed_replays(st["verify_graphs"], st["steps"], f"fp32 {method}: verify passes")
+        if method == "prompt_lookup":
+            result[f"fp32_{method}"]["verify_replay_equals_eager"] = _replay_equals_eager(
+                eng, eng._verify_graphs, eng._verify_program)
     # prompt lookup under adapters (ragged verify, per-token adapter ids):
     # greedy spec == non-spec with the same adapters; the drafter takes none
     ids = ["a", None, "b", "a"]
@@ -1410,6 +1591,8 @@ def spec_phase(dev, params) -> dict:
         outs[name] = _generate(eng, pprompts, psp, ids)
         if spec is not None:
             st = eng.stats()["spec"]
+            _check_packed_replays(st["verify_graphs"], st["steps"],
+                                  "fp32 prompt lookup under adapters: verify passes")
     same = outs["spec"] == outs["non_spec"]
     changed = all(o != r for o, r, lid in zip(outs["non_spec"], ref, ids) if lid is not None)
     result["fp32_prompt_lookup_lora"] = {"identical_to_non_spec": same, "spec": st,
@@ -1695,10 +1878,11 @@ def main(argv=None) -> int:
     if "flash_kernels" in phases:
         timings.update(flash_kernels_phase(dev))
     params, params_s = params_8b(dev) if {"engine", "spec"} & set(phases) else (None, 0.0)
-    lora_launches = {}
+    lora_launches, replayed = {}, {}
     if "engine" in phases:
         engine_res = engine_phase(dev, params, params_s)
         launches.update(engine_res["kernel_launches"])
+        replayed = engine_res["kernel_launches_in_replays"]
     if "lora" in phases:
         lora_launches = lora_phase(dev, params, engine_res)["kernel_launches"]
         del engine_res
@@ -1722,6 +1906,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name],
+            **({"launches_in_graph_replays": replayed[name]} if name in replayed else {}),
             **({"launches_lora_phase": lora_launches[name]} if name in lora_launches else {}),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],

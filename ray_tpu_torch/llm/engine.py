@@ -6,6 +6,9 @@
  * mixed batching (``mixed_batch=True``): in-flight prefill chunks and
    every decode row in ONE ragged dispatch per step (``llm/mixed.py``,
    ``ops/ragged.py``); steps without prefill work take a decode round;
+   on the card each mixed step, and each ragged spec verify pass, is a
+   CUDA graph replay per packed-token bucket (``llm/graphs.py``
+   ``PackedGraphs``), its logits sampled outside the graph;
  * decode rounds, as in the reference: pipelined (the default,
    ``llm/pipeline.py``: batch state on the device, stop ladder in the
    chunk, chunk N+1 dispatched before chunk N is synced, every chunk a
@@ -38,7 +41,7 @@ import torch
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.llm import pipeline
-from ray_tpu_torch.llm.graphs import ChunkGraphs
+from ray_tpu_torch.llm.graphs import ChunkGraphs, PackedGraphs
 from ray_tpu_torch.llm.kv_cache import BlockAllocator, NoFreeBlocksError, SequenceBlocks
 from ray_tpu_torch.llm.mixed import MixedBatchPlan, MixedStats, token_bucket
 from ray_tpu_torch.llm.pipeline import CHUNK_BUCKETS, assemble_batch_arrays
@@ -264,6 +267,11 @@ class LLMEngine:
         self._pipe_last_sync_t = None
         self._pending_outputs: list[RequestOutput] = []
         self._graphs = ChunkGraphs(self.device)
+        # the packed programs' graphs per packed-token bucket (the mixed
+        # step; the ragged spec verifier), in the decode graphs' pool
+        trash = c.num_blocks * c.block_size
+        self._mixed_graphs = PackedGraphs(self.device, trash, shared_with=self._graphs)
+        self._verify_graphs = PackedGraphs(self.device, trash, shared_with=self._graphs)
         # LoRA stacks: slot 0 is the zero adapter; per target A [L, n_slots,
         # d_model, r] and B [L, n_slots, r, d_out], in the model dtype.
         # Allocated once and written in place, never rebound: captured
@@ -407,10 +415,13 @@ class LLMEngine:
 
     def _lora_arg(self, ids) -> Optional[dict]:
         """The ``lora=`` argument of a decode program: adapter slots (per
-        row or per packed token) and the stacks; None without LoRA."""
+        row or per packed token; host values, or a graph bucket's device
+        buffer, taken as it is) and the stacks; None without LoRA."""
         if self._lora is None:
             return None
-        return {"ids": self._tensor(np.asarray(ids, np.int32)), **self._lora}
+        if not torch.is_tensor(ids):
+            ids = self._tensor(np.asarray(ids, np.int32))
+        return {"ids": ids, **self._lora}
 
     # -- public API -----------------------------------------------------------
 
@@ -576,13 +587,16 @@ class LLMEngine:
             },
         }
         if self.spec_stats is not None:
-            out["spec"] = self.spec_stats.to_dict()
+            # verify_graphs: the ragged verify passes (mixed batching), as
+            # graph replays on the card ("replays") or eager on the CPU
+            out["spec"] = {**self.spec_stats.to_dict(),
+                           "verify_graphs": self._verify_graphs.stats()}
         if self._pipe_stats is not None and self._pipe_stats.dispatches:
             # chunk sizes, host/device split, overlap ratio, steps run
             # after every row was done, and the captured graphs
             out["pipeline"] = {**self._pipe_stats.to_dict(), "graphs": self._graphs.stats()}
         if self._mixed_stats is not None and self._mixed_stats.dispatches:
-            out["mixed"] = self._mixed_stats.to_dict()
+            out["mixed"] = {**self._mixed_stats.to_dict(), "graphs": self._mixed_graphs.stats()}
         return out
 
     # -- admission -------------------------------------------------------------
@@ -737,14 +751,11 @@ class LLMEngine:
                 if not self._preempt_one():
                     raise  # single running request can't fit: cache too small
         plan = MixedBatchPlan.build(self)
-        logits, self.cache = mixed_step(
-            self.params, self._tensor(plan.tokens), self._tensor(plan.positions),
-            self._tensor(plan.slots), self._tensor(plan.bt),
-            self._tensor(plan.cu_q_lens), self._tensor(plan.context_lens),
-            self.cache, c.model, block_size=c.block_size,
-            max_q_len=c.mixed_prefill_chunk, attn_impl=c.attn_impl,
-            lora=self._lora_arg(plan.lora_ids),
-        )
+        bufs = self._mixed_graphs.buffers("mixed", *plan.bucket, lora=self._lora is not None)
+        plan.fill(bufs)
+        # logits [B_pad, V] in the graph's pool: sampled below, before the
+        # bucket replays again
+        logits = self._mixed_graphs.run(self._mixed_program, bufs)
         plan.note(self._mixed_stats)
 
         # advance prefill cursors; a finishing prompt seals its full blocks
@@ -770,6 +781,30 @@ class LLMEngine:
             logits[self._tensor(np.asarray(plan.emit_rows, np.int64))], emit_reqs
         )
         return self._append_tokens(emit_reqs, tok, logprob)
+
+    def _mixed_program(self, bufs) -> torch.Tensor:
+        """One mixed step on a bucket's static buffers -> logits [B_pad, V]
+        (what ``PackedGraphs`` captures and replays)."""
+        c = self.config
+        logits, self.cache = mixed_step(
+            self.params, bufs.tokens, bufs.positions, bufs.slots, bufs.block_tables,
+            bufs.cu_q_lens, bufs.context_lens, self.cache, c.model, block_size=c.block_size,
+            max_q_len=c.mixed_prefill_chunk, attn_impl=c.attn_impl,
+            lora=self._lora_arg(bufs.lora_ids),
+        )
+        return logits
+
+    def _verify_program(self, bufs) -> torch.Tensor:
+        """One ragged verify pass on a bucket's static buffers -> logits
+        [B_pad, K+1, V] (what ``PackedGraphs`` captures and replays)."""
+        c = self.config
+        logits, self.cache = verify_tokens_ragged(
+            self.params, bufs.tokens, bufs.positions, bufs.slots, bufs.block_tables,
+            bufs.cu_q_lens, bufs.context_lens, bufs.gather_idx, self.cache, c.model,
+            block_size=c.block_size, max_q_len=c.spec.num_draft_tokens + 1,
+            attn_impl=c.attn_impl, lora=self._lora_arg(bufs.lora_ids),
+        )
+        return logits
 
     # -- scheduling ------------------------------------------------------------
 
@@ -862,7 +897,7 @@ class LLMEngine:
             bufs.stop_on_eos, c.model, n_steps=n_steps, block_size=c.block_size,
             trash_slot=c.num_blocks * c.block_size, eos_id=c.eos_token_id,
             attn_impl=c.attn_impl, sample_mode=mode, early_exit=early_exit,
-            lora=None if self._lora is None else {"ids": bufs.lora_ids, **self._lora},
+            lora=self._lora_arg(bufs.lora_ids),
         )
         for dst, src in zip(bufs.carry(), carry):
             dst.copy_(src)
@@ -1027,8 +1062,11 @@ class LLMEngine:
         distribution-preserving accept -> KV rollback. A row whose drafter
         proposed nothing feeds only its current token (its column-0 logits
         are a decode step's) and emits one token; only when no row has a
-        draft does the round take the sync decode path. Eager: the packed
-        token count changes every round."""
+        draft does the round take the sync decode path. With mixed
+        batching the verify pass is packed (1 + draft length tokens a row)
+        and, on the card, a graph replay of its packed-token bucket; the
+        split verify pass (``verify_tokens``) and the acceptance run
+        eagerly."""
         c = self.config
         k = c.spec.num_draft_tokens
         batch = list(self.running)
@@ -1104,13 +1142,14 @@ class LLMEngine:
                 t += n
                 cu[i + 1] = t
             cu[B + 1 :] = t  # pad sequences: q_len 0
-            logits, self.cache = verify_tokens_ragged(
-                self.params, self._tensor(p_tokens), self._tensor(p_positions),
-                self._tensor(p_slots), self._tensor(bt), self._tensor(cu),
-                self._tensor(context_lens), self._tensor(gather), self.cache, c.model,
-                block_size=c.block_size, max_q_len=K1, attn_impl=c.attn_impl,
-                lora=self._lora_arg(p_lora),
-            )
+            bufs = self._verify_graphs.buffers("verify", T_pad, B_pad, bt.shape[1], k1=K1,
+                                               lora=self._lora is not None)
+            bufs.fill(tokens=p_tokens, positions=p_positions, slots=p_slots, lora_ids=p_lora,
+                      cu_q_lens=cu, context_lens=context_lens, block_tables=bt,
+                      gather_idx=gather)
+            # logits [B_pad, K+1, V] in the graph's pool: accepted below,
+            # before the bucket replays again
+            logits = self._verify_graphs.run(self._verify_program, bufs)
         else:
             tokens = np.zeros((B_pad, K1), np.int32)
             positions = np.zeros((B_pad, K1), np.int32)

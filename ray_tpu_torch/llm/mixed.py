@@ -20,7 +20,9 @@ Discipline (LLMEngine._mixed_step):
  * a step with no prefill work is the all-q_len=1 case and routes to the
    regular decode path;
  * every packed token carries its request's LoRA adapter slot
-   (``lora_ids``; pad tokens take slot 0, the zero adapter).
+   (``lora_ids``; pad tokens take slot 0, the zero adapter);
+ * the plan's arrays fill a packed-token bucket's static buffers in full
+   (``fill``), which the engine's mixed-step graph of that bucket reads.
 """
 
 from __future__ import annotations
@@ -165,6 +167,22 @@ class MixedBatchPlan:
             tokens=tokens, positions=positions, slots=slots, lora_ids=lora_ids,
             cu_q_lens=cu, context_lens=ctx, bt=bt, T=T, B=B,
         )
+
+    @property
+    def bucket(self) -> tuple:
+        """(T_pad, B_pad, block-table width): the shapes of this step's
+        arrays, which pick its captured graph on the card."""
+        return len(self.tokens), len(self.context_lens), self.bt.shape[1]
+
+    def fill(self, bufs) -> None:
+        """Write this step into its bucket's static buffers
+        (``llm/graphs.PackedBuffers``): every field of every row, the
+        padded tail included (pad tokens 0 on the trash slot and adapter
+        slot 0, ``cu_q_lens`` past the batch = T, pad contexts 0, table
+        rows past the batch 0), so no step reads an earlier one's rows."""
+        bufs.fill(tokens=self.tokens, positions=self.positions, slots=self.slots,
+                  lora_ids=self.lora_ids, cu_q_lens=self.cu_q_lens,
+                  context_lens=self.context_lens, block_tables=self.bt)
 
     def note(self, stats: MixedStats) -> None:
         stats.dispatches += 1

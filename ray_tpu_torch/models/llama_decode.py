@@ -25,6 +25,13 @@ head-major, so one page of one kv head is a contiguous block_size x
 head_dim tile — the unit the CUDA kernels read. The extra trailing page
 is the trash page that padding writes land in.
 
+``mixed_step`` and ``verify_tokens_ragged`` on the card are what the
+engine captures into a CUDA graph per packed-token bucket
+(``llm/graphs.PackedGraphs``), so their card path must stay
+capture-safe: no host sync (nothing read back, ``max_q_len`` a constant
+of the engine), every allocation sized by shapes alone (the split-KV
+workspace by the table width), the adapter stacks read by address.
+
 The reference's jitted entry points DONATE the cache buffers so XLA
 updates pages in place; here every path writes the new K/V into the
 caller's cache tensors in place (``index_copy_``) and returns the same

@@ -664,3 +664,229 @@ def test_bf16_pipelined_and_sync_chunks_agree_at_the_same_b_pad():
         assert np.array_equal(lps[:n, j], same_lp[:n, j])  # the same bits
     wide_t, wide_lp = sync_chunk(16)
     assert np.abs(wide_lp[0, :3] - same_lp[0, :3]).max() <= BANDS[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------------
+# the mixed step and the ragged verifier on captured CUDA graphs per
+# packed-token bucket (llm/graphs.PackedGraphs)
+# ---------------------------------------------------------------------------
+
+
+class _TailDrafter:
+    """Drafts the last 1..k tokens of the history again (the count from its
+    length): a verify pass every round, rows of 2 to k + 1 packed tokens,
+    whatever the weights."""
+
+    def propose(self, request_id, tokens, k):
+        return list(tokens[-(1 + len(tokens) % k):])[:k]
+
+    def release(self, request_id):
+        pass
+
+
+def _packed_engine(dtype, params=None, loras=None, spec=False, **kw):
+    """A small mixed-batching engine on the card (GRAPH_MODEL, block_size 4,
+    16-token chunks), with ``loras`` loaded and, with ``spec``, k = 4 and
+    the tail drafter."""
+    from ray_tpu_torch.llm.spec import SpecConfig
+
+    eng = _small_engine(dtype, params=params, mixed_batch=True, mixed_prefill_chunk=16,
+                        **({"spec": SpecConfig(num_draft_tokens=4)} if spec else {}), **kw)
+    if spec:
+        eng.drafter = _TailDrafter()
+    for name, ad in (loras or {}).items():
+        eng.add_lora(name, ad)
+    return eng
+
+
+def _replays_checked(eng, family):
+    """Wrap ``family.run``: every dispatch first runs the program eagerly on
+    the bucket's buffers, then the cache is put back and the graph replays
+    (captured on the bucket's first use); each entry says whether the
+    replay gave the eager logits and K/V bits."""
+    trash = eng.config.num_blocks * eng.config.block_size
+    real = family.run
+    results = []
+
+    def run(fn, bufs):
+        snap = {n: t.clone() for n, t in eng.cache.items()}
+        eager = fn(bufs).clone()
+        eager_kv = {n: t[:, :, :trash].clone() for n, t in eng.cache.items()}
+        for n, t in snap.items():
+            eng.cache[n].copy_(t)
+        out = real(fn, bufs)
+        same = torch.equal(out, eager) and all(
+            torch.equal(eng.cache[n][:, :, :trash], eager_kv[n]) for n in eager_kv)
+        results.append((bufs.key, same))
+        return out
+
+    family.run = run
+    return results
+
+
+def _prompts_long():
+    rng = np.random.default_rng(8)
+    return [rng.integers(3, 500, size=int(n)).tolist() for n in (9, 41, 14, 60)]
+
+
+@pytest.mark.parametrize("lora", [False, True], ids=["base", "adapters"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("program", ["mixed", "verify"])
+def test_packed_graph_replay_bit_identical_to_eager(program, dtype, lora):
+    """Every mixed step (or ragged verify pass) of a served batch: the
+    bucket's replay gives the eager program's logits and K/V bits on the
+    same buffers, first use (capture) or later; also with rows under two
+    adapters and base rows. K4 runs inside the replays."""
+    _need_cuda()
+    kw = dict(loras={"a": _adapter(1), "b": _adapter(2)}, **LORA_KW) if lora else {}
+    eng = _packed_engine(dtype, spec=program == "verify", **kw)
+    family = eng._mixed_graphs if program == "mixed" else eng._verify_graphs
+    results = _replays_checked(eng, family)
+    _serve_tokens(eng, _prompts_long(), ["a", None, "b", "a"] if lora else [None] * 4)
+    st = family.stats()
+    assert len(results) >= 2 and all(same for _, same in results), results
+    assert st["replays"] == len(results) and 1 <= st["captured"] <= len({k for k, _ in results})
+    assert st["replay_kernel_launches"]["ragged_attention"] > 0
+    assert all(k[5] == lora for k, _ in results)
+
+
+def test_packed_graph_stale_tail_on_card():
+    """fp32 on the card: a T = 56 step replays the T_pad 64 graph a T = 64
+    step captured; its tail is trash, no live slot outside its rows moves,
+    and logits and K/V equal the eager mixed_step on fresh tensors."""
+    _need_cuda()
+    from ray_tpu_torch.models import llama_decode as tld
+
+    eng = _packed_engine(torch.float32)
+    trash = eng.config.num_blocks * eng.config.block_size
+    real, calls = eng._mixed_graphs.run, []
+
+    def run(fn, bufs):
+        before = {n: t.clone() for n, t in eng.cache.items()}
+        inputs = {n: getattr(bufs, n).clone() for n in bufs._inputs()}
+        out = real(fn, bufs)
+        calls.append((bufs, inputs, before, out.clone(),
+                      {n: t.clone() for n, t in eng.cache.items()}))
+        return out
+
+    eng._mixed_graphs.run = run
+    rng = np.random.default_rng(4)
+    _serve_tokens(eng, [rng.integers(3, 500, size=30).tolist() for _ in range(4)], [None] * 4)
+    (b1, in1, _, _, _), (b2, inp, before, logits, after) = calls[:2]
+    assert b2 is b1 and int(in1["cu_q_lens"][-1]) == 64 and int(inp["cu_q_lens"][-1]) == 56
+    assert eng._mixed_graphs.stats()["buckets"][0]["replays"] >= 2
+    assert torch.all(inp["slots"][56:] == trash) and not inp["tokens"][56:].any()
+    own = set(inp["slots"][:56].tolist())
+    others = torch.tensor([s for s in range(trash) if s not in own], device="cuda")
+    for n in ("k", "v"):
+        assert torch.equal(after[n][:, :, others], before[n][:, :, others])
+    c = eng.config
+    cache = {n: t.clone() for n, t in before.items()}
+    lg, cache = tld.mixed_step(
+        eng.params, *(inp[n].clone() for n in ("tokens", "positions", "slots", "block_tables",
+                                                "cu_q_lens", "context_lens")),
+        cache, c.model, block_size=c.block_size, max_q_len=c.mixed_prefill_chunk)
+    assert torch.equal(lg, logits)
+    for n in ("k", "v"):
+        assert torch.equal(cache[n][:, :, :trash], after[n][:, :, :trash])
+
+
+@pytest.mark.parametrize("lora", [False, True], ids=["base", "adapters"])
+def test_mixed_graphs_on_card_match_cpu_tokens(lora):
+    """fp32: mixed batching on the card, every mixed step a graph replay
+    (pipelined and sync decode rounds), gives the CPU's greedy tokens; also
+    with two adapters and base rows."""
+    _need_cuda()
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = LlamaConfig(**GRAPH_MODEL, dtype=torch.float32)
+    params = init_params(model, torch.Generator().manual_seed(0), device="cpu")
+    on_card = {k: (v.cuda() if torch.is_tensor(v) else {n: t.cuda() for n, t in v.items()})
+               for k, v in params.items()}
+    ids = ["a", None, "b", "a"] if lora else [None] * 4
+    outs = []
+    for dev, p, pipelined in (("cuda", on_card, True), ("cuda", on_card, False),
+                              ("cpu", params, True)):
+        cfg = EngineConfig(model=model, num_blocks=64, block_size=4, max_num_seqs=4,
+                           max_prefill_len=64, mixed_batch=True, mixed_prefill_chunk=16,
+                           pipeline_decode=pipelined, **(LORA_KW if lora else {}))
+        eng = LLMEngine(cfg, params=p, device=dev)
+        if lora:
+            eng.add_lora("a", _adapter(1))
+            eng.add_lora("b", _adapter(2))
+        outs.append([t for t, _ in _serve_tokens(eng, _prompts_long(), ids)])
+        st = eng.stats()["mixed"]
+        if dev == "cuda":
+            assert st["graphs"]["replays"] == st["dispatches"] > 0
+    assert outs[0] == outs[1] == outs[2]
+
+
+def test_greedy_spec_with_replayed_verify_matches_non_spec_on_card():
+    """fp32 greedy spec (k = 4, the tail drafter: a verify pass every round)
+    with mixed batching on the card, every ragged verify pass a graph
+    replay, gives the non-spec engine's tokens."""
+    _need_cuda()
+    prompts = _prompts_long()
+    want = [t for t, _ in _serve_tokens(_packed_engine(torch.float32), prompts, [None] * 4)]
+    eng = _packed_engine(torch.float32, spec=True)
+    got = [t for t, _ in _serve_tokens(eng, prompts, [None] * 4)]
+    st = eng.stats()["spec"]
+    assert got == want
+    assert st["verify_graphs"]["replays"] == st["steps"] > 0 and st["drafted_tokens"] > 0
+
+
+def test_adapter_added_after_mixed_capture_is_seen_by_replay():
+    """A mixed-step graph reads the adapter stacks and the tokens' slots by
+    address: an adapter loaded after the bucket's capture, selected through
+    the slot buffer, gives the next replay the eager program's logits with
+    no new capture."""
+    _need_cuda()
+    from ray_tpu_torch.llm.graphs import upload
+
+    eng = _packed_engine(torch.float32, loras={"a": _adapter(1)}, **LORA_KW)
+    _serve_tokens(eng, _prompts_long(), ["a", None, "a", "a"])
+    fam = eng._mixed_graphs
+    bufs = next(b for k, b in fam._bufs.items() if k in fam._graphs)
+    ids = bufs.lora_ids.cpu().numpy()
+    assert (ids == 1).any()
+    snap = {n: t.clone() for n, t in eng.cache.items()}
+
+    def restore():
+        for n, t in snap.items():
+            eng.cache[n].copy_(t)
+
+    first = fam.run(eng._mixed_program, bufs).clone()
+    restore()
+    eng.add_lora("b", _adapter(2))  # slot 2, written after the capture
+    upload(bufs.lora_ids, np.where(ids == 1, 2, ids).astype(np.int32))
+    eager = eng._mixed_program(bufs).clone()
+    restore()
+    captures = fam.captures
+    replay = fam.run(eng._mixed_program, bufs).clone()
+    restore()
+    assert fam.captures == captures
+    assert torch.equal(replay, eager) and not torch.equal(replay, first)
+
+
+def test_packed_graph_cap_evicts_least_recently_replayed(monkeypatch):
+    """Past MAX_GRAPHS the least recently replayed mixed-step graph goes;
+    its bucket is captured again on its next use (buckets of idle rows:
+    every token on the trash slot, every q_len 0)."""
+    _need_cuda()
+    from ray_tpu_torch.llm import graphs
+
+    monkeypatch.setattr(graphs, "MAX_GRAPHS", 1)
+    eng = _packed_engine(torch.float32)
+    fam = eng._mixed_graphs
+    trash = eng.config.num_blocks * eng.config.block_size
+    buckets = []
+    for T_pad in (16, 32):
+        b = fam.buffers("mixed", T_pad, 4, 16)
+        b.slots.fill_(trash)
+        buckets.append(b)
+    for b in (buckets[0], buckets[1], buckets[0]):
+        fam.run(eng._mixed_program, b)
+    st = fam.stats()
+    assert (st["graphs"], st["captured"], st["evicted"], st["replays"]) == (1, 3, 2, 3)
