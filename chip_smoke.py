@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                         # one card, no arguments: every phase
     python3 chip_smoke.py --phases build,flash_kernels   # a short first check of a kernel edit
+    python3 chip_smoke.py --phases build,engine,api      # the serving front end alone
 
 Phases, each printing one JSON line:
 
@@ -67,12 +68,33 @@ Phases, each printing one JSON line:
            serving kernels launched, a mixed replay with adapters gives the
            eager step's bits, and remove_lora of an adapter a request holds
            raises
+  api      LLAMA3_8B served through the OpenAI front end (LLMServer over
+           the engine phase's configuration and weights, the model named
+           "llama3-8b" and resolved by the registry; requests are objects
+           with method, path and json()): the engine phase's 12 requests
+           as text completions (printable ASCII of its token lengths, EOS
+           live) with 2 chats and 2 generate_stream requests riding along,
+           a first pass, four more (steady: the median of those that
+           captured no graph) and one under torch.profiler:
+           client tok/s, engine TTFT and the streams' first-delta TTFT,
+           device busy and idle share, beside the engine phase's; the
+           kernels' launches counted over the first pass. Fails unless
+           every completion has its 32 tokens or a stop, /v1/models names
+           llama3-8b at 8192, a greedy request's streamed deltas join to
+           its completion's text, a preemption before a mixed step and a
+           crash after a step with a decode chunk in flight each recover
+           (2 recoveries; every position delivered once), a burst of 24 at
+           max_queue_depth 3 sheds 429s with Retry-After while the admitted
+           finish, and a drain turns a new request into a 503
   parity   a reduced fp32 model served by the same engine on the card
            (kernels; pipelined on graphs, and sync) and on the CPU (plain
            versions): identical greedy tokens, mixed batching on and off
            (on: every mixed step on the card a graph replay, and a replay
            bit for bit the eager step); then the same with a batch mixing
-           two adapters (wq, wk, wv) and base rows
+           two adapters (wq, wk, wv) and base rows; then LLMServer's greedy
+           completions on the card = the CPU server's = LLMEngine.generate,
+           and after recover(rebuild_kv=True) with graphs captured the
+           streams equal the fault-free pass
   spec     speculative decoding at LLAMA3_8B (bf16, mixed batching, so the
            verify pass runs the ragged kernel at q_len 1..5, every pass a
            replay of a graph per packed-token bucket, bit for bit the
@@ -1366,6 +1388,450 @@ def _device_time(prof):
 
 
 # ---------------------------------------------------------------------------
+# api
+# ---------------------------------------------------------------------------
+
+
+class ApiRequest:
+    """What LLMServer takes: an HTTP request's method, path and JSON body."""
+
+    def __init__(self, method: str, path: str, body=None):
+        self.method, self.path, self.body = method, path, body
+
+    def json(self):
+        return self.body
+
+
+class IdTextTokenizer:
+    """The api phase's tokenizer: ByteTokenizer's encoding (UTF-8 bytes +
+    BOS, so the prompts have the engine phase's token lengths) and a decode
+    that writes every id as "<id>". With random weights nearly every token
+    is past ByteTokenizer's 256 byte ids, which it decodes to nothing: this
+    decode gives each token its text, so completions and stream deltas
+    carry every token."""
+
+    def __init__(self, vocab_size: int):
+        from ray_tpu_torch.llm import ByteTokenizer
+
+        self._bytes = ByteTokenizer(vocab_size)
+        self.eos_token_id = self._bytes.eos_token_id
+
+    def encode(self, text: str) -> list:
+        return self._bytes.encode(text)
+
+    def decode(self, ids: list) -> str:
+        return "".join(f"<{i}>" for i in ids)
+
+
+def _api_traffic(seed: int = 0) -> tuple:
+    """The engine phase's 12 requests as /v1/completions bodies: random
+    printable ASCII whose ByteTokenizer encodings (BOS included) have the
+    engine phase's lengths (numpy seed 0: 64-1536 tokens), requests 0 and
+    11 on one 512-character prefix, 32 outputs, 10 greedy and 2 seeded
+    top-k/top-p; no ignore_eos, so a stream may stop on EOS. Then the two
+    chat bodies and the two generate_stream prompts that ride along."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(64, 1537, size=12)
+
+    def text(n):
+        return rng.integers(32, 127, size=int(n)).astype(np.uint8).tobytes().decode()
+
+    texts = [text(n - 1) for n in lens]
+    shared = text(512)
+    texts[0] = shared + texts[0][: int(lens[0]) - 1 - 512]
+    texts[11] = shared + texts[11][: int(lens[11]) - 1 - 512]
+    greedy = {"max_tokens": 32, "temperature": 0.0}
+    bodies = [{"prompt": t, **greedy} for t in texts[:10]]
+    bodies += [{"prompt": t, "max_tokens": 32, "temperature": 0.8, "top_k": 50, "top_p": 0.9,
+                "seed": 100 + i} for i, t in enumerate(texts[10:])]
+    chats = [{"messages": [{"role": "system", "content": text(80)},
+                           {"role": "user", "content": text(n)}], **greedy} for n in (120, 300)]
+    streams = [text(n) for n in (200, 400)]
+    return bodies, chats, streams
+
+
+def _record_requests(eng) -> dict:
+    """Wrap ``eng.add_request`` (called on the runner's loop thread) so the
+    engine's Request objects stay readable after they finish: rid ->
+    Request."""
+    reqs: dict = {}
+    add = eng.add_request
+
+    def recording(*args, **kwargs):
+        rid = add(*args, **kwargs)
+        reqs[rid] = eng.requests[rid]
+        return rid
+
+    eng.add_request = recording
+    return reqs
+
+
+def _api_pass(server, recorded: dict, bodies, chats, streams) -> dict:
+    """One pass of the api traffic, all sent together on one event loop:
+    the completions, the chats and the streams. Client-side wall, tok/s
+    (every output token the server made for the pass / wall; also the 12
+    completions' alone), engine TTFT (first token booked - arrival) and the
+    streams' client TTFT (first delta - the pass's start)."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    recorded.clear()
+    server.runner.call(lambda: server.engine.allocator.drop_prefix_cache())
+
+    async def stream(prompt, t0):
+        first, deltas = None, []
+        async for d in server.generate_stream(prompt, max_tokens=32, temperature=0.0):
+            if first is None:
+                first = time.perf_counter() - t0
+            deltas.append(d)
+        return first, "".join(deltas)
+
+    async def go():
+        t0 = time.perf_counter()
+        outs = await asyncio.gather(
+            *[server(ApiRequest("POST", "/v1/completions", b)) for b in bodies],
+            *[server(ApiRequest("POST", "/v1/chat/completions", b)) for b in chats],
+            *[stream(p, t0) for p in streams])
+        return outs, time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    outs, wall = asyncio.run(go())
+    torch.cuda.synchronize()
+    n_cmpl = len(bodies)
+    completions, chat_outs, stream_outs = (outs[:n_cmpl], outs[n_cmpl:n_cmpl + len(chats)],
+                                           outs[n_cmpl + len(chats):])
+    for o in completions + chat_outs:
+        if "choices" not in o:
+            raise AssertionError(f"api: a request failed: {o}")
+        for ch in o["choices"]:
+            if ch["finish_reason"] not in ("length", "stop"):
+                raise AssertionError(f"api: finish_reason {ch['finish_reason']!r}")
+    for o in completions:
+        n, reason = o["usage"]["completion_tokens"], o["choices"][0]["finish_reason"]
+        if not (n == 32 or reason == "stop"):
+            raise AssertionError(f"api: {n} tokens, finish {reason!r}, not 32 or a stop")
+    if len(recorded) != len(bodies) + len(chats) + len(streams):
+        raise AssertionError(f"api: {len(recorded)} engine requests for the pass")
+    tokens = sum(len(r.output_token_ids) for r in recorded.values())
+    cmpl_tokens = sum(o["usage"]["completion_tokens"] for o in completions)
+    finishes = [o["choices"][0]["finish_reason"] for o in completions + chat_outs]
+    return {
+        "wall_s": wall, "output_tokens": tokens, "output_tok_per_s": tokens / wall,
+        "completions_output_tok_per_s": cmpl_tokens / wall,
+        "mean_ttft_s": float(np.mean([r.t_first_token - r.arrival for r in recorded.values()])),
+        "stream_ttft_s": [first for first, _ in stream_outs],
+        "finish_reasons": {k: finishes.count(k) for k in sorted(set(finishes))},
+        "completions": completions, "streams": [t for _, t in stream_outs],
+    }
+
+
+def _frontend_ab(server, recorded: dict, bodies) -> dict:
+    """The host cost of the front end on like-for-like traffic: the 12
+    completions alone, served through the LLMServer and handed to
+    ``LLMEngine.generate`` on the runner's loop thread (the same engine,
+    graphs and sampling parameters), in turns S E E S S E, then one pass
+    of each under torch.profiler for the device's idle share. Each pass
+    starts from an empty prefix cache; tok/s is every output token the
+    engine made over the pass's wall."""
+    import asyncio
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = server.engine
+    ids = [server.tokenizer.encode(b["prompt"]) for b in bodies]
+    sps = [server._sampling_from_body(b) for b in bodies]
+
+    def served():
+        recorded.clear()
+
+        async def go():
+            t0 = time.perf_counter()
+            outs = await asyncio.gather(
+                *[server(ApiRequest("POST", "/v1/completions", b)) for b in bodies])
+            return outs, time.perf_counter() - t0
+
+        outs, wall = asyncio.run(go())
+        if any("choices" not in o for o in outs):
+            raise AssertionError(f"api A/B: a request failed: {outs}")
+        return wall, sum(len(r.output_token_ids) for r in recorded.values())
+
+    def direct():
+        t0 = time.perf_counter()
+        outs = server.runner.call(lambda: eng.generate(ids, sps))
+        return time.perf_counter() - t0, sum(len(o) for o in outs)
+
+    def run(fn):
+        server.runner.call(lambda: eng.allocator.drop_prefix_cache())
+        c0 = sum(g.captures for g in _families(eng))
+        torch.cuda.synchronize()
+        wall, tokens = fn()
+        torch.cuda.synchronize()
+        return {"wall_s": wall, "output_tokens": tokens, "output_tok_per_s": tokens / wall,
+                "graphs_captured": sum(g.captures for g in _families(eng)) - c0}
+
+    t0 = time.perf_counter()
+    order = "SEESSE"
+    passes = [{"path": k, **run(served if k == "S" else direct)} for k in order]
+    res = {"order": order, "passes": passes, "turns_s": time.perf_counter() - t0}
+    for k, name in (("S", "server"), ("E", "engine")):
+        res[f"{name}_tok_per_s_median"] = float(np.median(
+            [p["output_tok_per_s"] for p in passes if p["path"] == k]))
+    res["server_over_engine"] = res["server_tok_per_s_median"] / res["engine_tok_per_s_median"]
+    for k, name in (("S", "server"), ("E", "engine")):
+        # device events only: no host op is recorded, so the profiler adds
+        # no host time to either path, and its trace is quick to read
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            p = run(served if k == "S" else direct)
+        busy_ms, _ = _device_time(prof)
+        res[f"profiled_{name}"] = {
+            **p, "device_busy_ms": busy_ms,
+            "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / 1e3 / p["wall_s"],
+            "with_profiler_s": time.perf_counter() - t0}
+    return res
+
+
+def api_phase(dev, params, engine_res: dict) -> dict:
+    """LLAMA3_8B served through the port's OpenAI front end (LLMServer over
+    the engine phase's configuration and weights, the model resolved by the
+    registry): the engine phase's 12 requests as text completions with two
+    chats and two token streams riding along, a first pass, four more (the
+    steady reading: the median of those that captured no graph) and one
+    under torch.profiler; the 12 completions alone through the server and
+    through ``LLMEngine.generate`` in turns (``_frontend_ab``); then the
+    checks: /v1/models, a streamed
+    greedy request's deltas against its completion, a preemption during a
+    mixed step and a crash during a pipelined decode chunk (every position
+    delivered once, two recoveries), a burst past max_queue_depth (429s
+    with Retry-After), and 503 after a drain."""
+    import asyncio
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.llm import EngineConfig, EnginePreempted, LLMConfig, LLMServer
+    from ray_tpu_torch.llm import SamplingParams
+    from ray_tpu_torch.llm.admission import (
+        AdmissionConfig,
+        AdmissionController,
+        retry_after_header,
+    )
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from ray_tpu_torch.ops.ragged import ragged_attention_cuda
+
+    t_phase = t0 = time.perf_counter()
+    cfg = EngineConfig(model="llama3-8b", **ENGINE_KW)
+    server = LLMServer(LLMConfig(model_id="llama3-8b", engine=cfg, params=params,
+                                 tokenizer=IdTextTokenizer(cfg.model.vocab_size),
+                                 device=str(dev)))
+    init_s = time.perf_counter() - t0
+    eng = server.engine
+    recorded = _record_requests(eng)
+    model = eng.config.model
+    res = {"phase": "api", "model": "LLAMA3_8B (registry name llama3-8b)", "dtype": "bfloat16",
+           "layers": model.n_layers, "d_model": model.d_model, "server_init_s": init_s}
+    bodies, chats, streams = _api_traffic()
+    res["requests"] = {"completions": len(bodies), "chats": len(chats), "streams": len(streams),
+                       "prompt_tokens": [len(server.tokenizer.encode(b["prompt"]))
+                                         for b in bodies]}
+    models = asyncio.run(server(ApiRequest("GET", "/v1/models")))
+    card = models["data"][0]
+    if card["id"] != "llama3-8b" or card["max_model_len"] != 8192:
+        raise AssertionError(f"api: /v1/models says {models}")
+
+    # the main path: the counters zeroed just before the first pass, read
+    # just after (eager launches + those of graph replays)
+    paged_attention_cuda.launches = 0
+    ragged_attention_cuda.launches = 0
+    marks = _launch_marks(eng)
+    pmarks = _pass_marks(eng)
+    first = _api_pass(server, recorded, bodies, chats, streams)
+    launches = _launch_counts(eng, marks)
+    res["first_pass_graphs"] = _pass_graphs(eng, pmarks)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"api: a kernel of the path never launched: {launches}")
+    res["kernel_launches"] = launches
+    summary = lambda p: {k: v for k, v in p.items() if k not in ("completions", "streams")}  # noqa: E731
+    res["first"] = summary(first)
+    if None in first["stream_ttft_s"]:
+        raise AssertionError("api: a stream yielded no delta")
+    # four more passes: the chunk controller may step to a longer chunk in
+    # any of them and capture its graph (seconds of the pass), so "warm" is
+    # the second pass and "steady" the median of the passes that captured
+    # no graph
+    passes = []
+    for _ in range(4):
+        c0 = sum(g.captures for g in _families(eng))
+        p = summary(_api_pass(server, recorded, bodies, chats, streams))
+        passes.append({**p, "graphs_captured": sum(g.captures for g in _families(eng)) - c0})
+    res["warm"] = passes[0]
+    read = [p for p in passes if not p["graphs_captured"]] or passes
+    res["steady"] = {
+        "output_tok_per_s": float(np.median([p["output_tok_per_s"] for p in read])),
+        "completions_output_tok_per_s": float(np.median(
+            [p["completions_output_tok_per_s"] for p in read])),
+        "mean_ttft_s": float(np.median([p["mean_ttft_s"] for p in read])),
+        "stream_ttft_s": [float(np.median([p["stream_ttft_s"][i] for p in read]))
+                          for i in range(len(streams))],
+        "passes_read": len(read), "passes": passes,
+    }
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled = _api_pass(server, recorded, bodies, chats, streams)
+    busy_ms, by_name = _device_time(prof)
+    res["profiled"] = {
+        **summary(profiled), "device_busy_ms": busy_ms,
+        "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / 1e3 / profiled["wall_s"],
+        "paged_attention_ms": sum(ms for k, ms, _ in by_name if "paged_attention_" in k),
+        "ragged_attention_ms": sum(ms for k, ms, _ in by_name if "ragged_attention_" in k),
+        "gemm_ms": sum(ms for k, ms, _ in by_name if any(w in k for w in GEMM_WORDS)),
+    }
+    eng_prof = engine_res["profile"]
+    res["engine_phase"] = {
+        "output_tok_per_s": {"first": engine_res["output_tok_per_s"],
+                             "warm": engine_res["warm"]["output_tok_per_s"],
+                             "steady": engine_res["steady"]["output_tok_per_s"]},
+        "mean_ttft_s": {"first": engine_res["mean_ttft_s"],
+                        "warm": engine_res["warm"]["mean_ttft_s"],
+                        "steady": engine_res["steady"]["mean_ttft_s"]},
+        "profiled_device_busy_ms": eng_prof["device_busy_ms"],
+        "profiled_device_idle_share": eng_prof["device_idle_share"],
+        "note": "12 requests, 32 tokens each (ignore_eos); the api pass adds 2 chats and 2 "
+                "streams, so its decode batch is 16 rows where the engine phase's is 12 "
+                "(both pad to B_pad 16)",
+    }
+    res["steady_tok_per_s_over_engine_phase"] = (
+        res["steady"]["output_tok_per_s"] / engine_res["steady"]["output_tok_per_s"])
+    res["frontend_ab"] = _frontend_ab(server, recorded, bodies)
+
+    # a greedy request alone, as a completion and then as a token stream on
+    # the same batch shapes (prefix cache emptied before each): the deltas
+    # join to the completion's text
+    probe = {"prompt": bodies[1]["prompt"], "max_tokens": 32, "temperature": 0.0}
+    texts = []
+    for kind in ("completion", "stream"):
+        server.runner.call(lambda: eng.allocator.drop_prefix_cache())
+
+        async def one():
+            if kind == "completion":
+                return (await server(ApiRequest("POST", "/v1/completions", probe)))[
+                    "choices"][0]["text"]
+            return "".join([d async for d in server.generate_stream(
+                probe["prompt"], max_tokens=32, temperature=0.0)])
+
+        texts.append(asyncio.run(one()))
+    if texts[0] != texts[1] or not texts[0]:
+        raise AssertionError(f"api: the streamed deltas do not join to the completion's "
+                             f"text: {texts}")
+    res["stream_equals_completion"] = {"tokens": texts[0].count("<"), "equal": True}
+
+    # recovery at 8B: a preemption raised before a mixed step (a prompt
+    # mid-prefill), then a crash raised after a step that left a pipelined
+    # decode chunk in flight (its outputs lost); every request must get
+    # each of its 32 positions exactly once
+    faults = {"preempted": None, "crashed": None, "steps": 0}
+    step = eng.step
+
+    def faulty_step():
+        faults["steps"] += 1
+        if faults["preempted"] is None and faults["steps"] >= 3 and eng._mixed_prefills:
+            faults["preempted"] = faults["steps"]
+            raise EnginePreempted("injected before a mixed step")
+        out = step()
+        if (faults["preempted"] is not None and faults["crashed"] is None
+                and eng._pipe_inflight is not None and not eng._mixed_prefills):
+            faults["crashed"] = faults["steps"]
+            raise RuntimeError("injected during a pipelined decode chunk")
+        return out
+
+    server.runner.call(lambda: eng.allocator.drop_prefix_cache())
+    recoveries0 = server.stats()["engine_recoveries"]
+    eng.step = faulty_step
+    ids = [server.tokenizer.encode(b["prompt"]) for b in bodies]
+    sp = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
+    t0 = time.perf_counter()
+    # posted together, so the loop admits them in one step
+    subs = [f.result() for f in [server.runner.submit_future(p, sp) for p in ids]]
+    delivered_ok = 0
+    for rid, q in subs:
+        got, final = [], None
+        while final is None:
+            out = q.get(timeout=300)
+            if isinstance(out, BaseException) or out is None:
+                raise AssertionError(f"api recovery: {rid} got {out!r}")
+            got += out.new_token_ids
+            if out.finished:
+                final = out.output_token_ids
+        if got != final or len(final) != 32:
+            raise AssertionError(f"api recovery: {rid} delivered {len(got)} positions, final "
+                                 f"{len(final)}, equal {got == final}")
+        delivered_ok += 1
+    recovery_wall = time.perf_counter() - t0
+    del eng.step  # the class's step again
+    stats = server.stats()
+    if faults["preempted"] is None or faults["crashed"] is None:
+        raise AssertionError(f"api recovery: a fault never fired: {faults}")
+    if stats["engine_recoveries"] - recoveries0 != 2:
+        raise AssertionError(f"api recovery: {stats['engine_recoveries']} recoveries, not 2")
+    if stats["free_blocks"] != stats["total_blocks"]:
+        raise AssertionError(f"api recovery: KV not returned: {stats['free_blocks']}")
+    res["recovery"] = {"faults_at_step": {k: faults[k] for k in ("preempted", "crashed")},
+                       "engine_recoveries": stats["engine_recoveries"],
+                       "requests_each_position_once": f"{delivered_ok}/{len(subs)}",
+                       "wall_s": recovery_wall, "num_preemptions": eng.num_preemptions}
+
+    # a burst of 24 past max_queue_depth 3: every admission check runs
+    # before any of them enqueues, so the reservations admit 3 and shed 21
+    saved = server.admission
+    server.admission = AdmissionController(AdmissionConfig(max_queue_depth=3),
+                                           model_tag="llama3-8b")
+
+    async def burst():
+        return await asyncio.gather(*[server.completions(
+            {"prompt": b["prompt"], "max_tokens": 8, "temperature": 0.0})
+            for b in (bodies * 2)[:24]])
+
+    outs = asyncio.run(burst())
+    shed = [o for o in outs if o.get("error", {}).get("code") == 429]
+    admitted = [o for o in outs if "choices" in o]
+    if not shed or len(shed) + len(admitted) != 24 or server._admit_reserved != 0:
+        raise AssertionError(f"api burst: {len(shed)} shed, {len(admitted)} admitted")
+    for o in shed:
+        if not retry_after_header(o):
+            raise AssertionError(f"api burst: a 429 without Retry-After: {o}")
+    for o in admitted:
+        if o["usage"]["completion_tokens"] != 8 and o["choices"][0]["finish_reason"] != "stop":
+            raise AssertionError(f"api burst: an admitted request did not finish: {o}")
+    res["burst"] = {"requests": 24, "max_queue_depth": 3, "admitted": len(admitted),
+                    "shed_429": len(shed), "retry_after_header": retry_after_header(shed[0])}
+    server.admission = saved
+
+    # drain: in-flight work finishes, a new request gets 503
+    drained = asyncio.run(server(ApiRequest("POST", "/v1/drain", {"timeout_s": 30.0})))
+    late = asyncio.run(server(ApiRequest("POST", "/v1/completions", probe)))
+    if not drained["drained"] or late.get("error", {}).get("code") != 503:
+        raise AssertionError(f"api drain: {drained}, then {late}")
+    res["drain"] = {**drained, "then": late["error"]["code"],
+                    "retry_after_header": retry_after_header(late)}
+    res["stats_after"] = {k: stats[k] for k in ("num_waiting", "num_running", "free_blocks",
+                                                 "engine_recoveries", "admission")}
+    server.shutdown()
+    if server.runner._thread.is_alive():
+        raise AssertionError("api: the engine loop did not stop")
+    del server, eng
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # parity
 # ---------------------------------------------------------------------------
 
@@ -1465,7 +1931,100 @@ def parity_phase(dev) -> None:
                 emit(result)
                 raise AssertionError(f"{key}: pipelined-card, sync-card and CPU tokens "
                                      f"differ, or no graph replay ran ({replays})")
+    result["api_server"] = _parity_server(dev, model, params_cpu, params_gpu)
     emit(result)
+
+
+def _parity_server(dev, model, params_cpu, params_gpu) -> dict:
+    """fp32, the parity model: LLMServer's greedy completions of 6 text
+    prompts on the card equal the CPU server's and LLMEngine.generate's on
+    the same ids (tokens read from the engine's requests; EOS live, as the
+    server has it); then, graphs already captured, a crash raised after the
+    third step of a second pass (the runner's second rung:
+    recover(rebuild_kv=True), the cache zeroed in place) and the streams
+    equal the fault-free pass, replays of graphs captured before the fault
+    included."""
+    import asyncio
+
+    import numpy as np
+
+    from ray_tpu_torch.llm import (
+        ByteTokenizer,
+        EngineConfig,
+        LLMConfig,
+        LLMEngine,
+        LLMServer,
+        SamplingParams,
+    )
+
+    rng = np.random.default_rng(12)
+    texts = [rng.integers(32, 127, size=n).astype(np.uint8).tobytes().decode()
+             for n in (4, 36, 89, 129, 199, 16)]
+    kw = dict(num_blocks=256, block_size=16, max_num_seqs=8, max_prefill_len=256,
+              mixed_batch=True, mixed_prefill_chunk=64, decode_chunk=8)
+
+    def serve(server, recorded):
+        recorded.clear()
+
+        async def go():
+            return await asyncio.gather(*[server(ApiRequest(
+                "POST", "/v1/completions", {"prompt": t, "max_tokens": 16, "temperature": 0.0}))
+                for t in texts])
+
+        outs = asyncio.run(go())
+        by_prompt = {tuple(r.prompt_token_ids): list(r.output_token_ids)
+                     for r in recorded.values()}
+        return ([o["choices"][0]["text"] for o in outs],
+                [by_prompt[tuple(server.tokenizer.encode(t))] for t in texts])
+
+    out, res = {}, {}
+    for where, params, device in (("cuda", params_gpu, str(dev)), ("cpu", params_cpu, "cpu")):
+        server = LLMServer(LLMConfig(model_id="parity", engine=EngineConfig(model=model, **kw),
+                                     params=params, device=device))
+        eng = server.engine
+        recorded = _record_requests(eng)
+        try:
+            out[where] = serve(server, recorded)
+            if where != "cuda":
+                continue
+            fams = _families(eng)
+            captured = [set(f._graphs) for f in fams]
+            replays0 = [dict(f.replays_by_key) for f in fams]
+            step, calls = eng.step, [0]
+
+            def crash():
+                calls[0] += 1
+                outs = step()
+                if calls[0] == 3:
+                    raise RuntimeError("injected after the third step")
+                return outs
+
+            server.runner.call(lambda: eng.allocator.drop_prefix_cache())
+            eng.step = crash
+            again = serve(server, recorded)
+            del eng.step
+            reused = sum(f.replays_by_key[k] - r0.get(k, 0)
+                         for f, keys, r0 in zip(fams, captured, replays0) for k in keys)
+            st = server.stats()
+            res["recover_rebuild_kv"] = {
+                "identical": again == out["cuda"], "engine_recoveries": st["engine_recoveries"],
+                "replays_of_graphs_captured_before": reused,
+                "graphs_captured_before": sum(map(len, captured)),
+            }
+            if again != out["cuda"] or st["engine_recoveries"] != 1 or reused <= 0:
+                raise AssertionError(f"parity api: after recover(rebuild_kv=True) {res}")
+        finally:
+            server.shutdown()
+    ids = [ByteTokenizer(model.vocab_size).encode(t) for t in texts]
+    direct = LLMEngine(EngineConfig(model=model, **kw), params=params_gpu, device=dev).generate(
+        ids, SamplingParams(max_tokens=16, temperature=0.0))
+    same = out["cuda"] == out["cpu"] and out["cuda"][1] == direct
+    res.update({"identical": same, "tokens": sum(map(len, direct)),
+                "stopped_on_eos": sum(1 for t in direct if t and t[-1] == 2)})
+    if not same:
+        raise AssertionError(f"parity api: card server, CPU server and LLMEngine.generate "
+                             f"differ: {res}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1806,8 +2365,8 @@ def train_parity_phase(dev) -> None:
 
 # ---------------------------------------------------------------------------
 
-PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "parity", "spec", "train",
-          "train_parity")
+PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "api", "parity", "spec",
+          "train", "train_parity")
 
 SOURCES = {
     "paged_attention": ("ray_tpu_torch/ops/csrc/paged_attention.cu",
@@ -1850,8 +2409,8 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
-    if "lora" in phases and "engine" not in phases:
-        ap.error("the lora phase reads the engine phase's streams: add engine")
+    if {"lora", "api"} & set(phases) and "engine" not in phases:
+        ap.error("the lora and api phases read the engine phase's results: add engine")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU only",
               file=sys.stderr)
@@ -1877,14 +2436,17 @@ def main(argv=None) -> int:
         timings.update(kernels_phase(dev))
     if "flash_kernels" in phases:
         timings.update(flash_kernels_phase(dev))
-    params, params_s = params_8b(dev) if {"engine", "spec"} & set(phases) else (None, 0.0)
-    lora_launches, replayed = {}, {}
+    params, params_s = params_8b(dev) if {"engine", "spec", "api"} & set(phases) else (None, 0.0)
+    lora_launches, api_launches, replayed = {}, {}, {}
     if "engine" in phases:
         engine_res = engine_phase(dev, params, params_s)
         launches.update(engine_res["kernel_launches"])
         replayed = engine_res["kernel_launches_in_replays"]
     if "lora" in phases:
         lora_launches = lora_phase(dev, params, engine_res)["kernel_launches"]
+    if "api" in phases:
+        api_launches = api_phase(dev, params, engine_res)["kernel_launches"]
+    if "engine" in phases:
         del engine_res
     if "parity" in phases:
         parity_phase(dev)
@@ -1908,6 +2470,7 @@ def main(argv=None) -> int:
             "launches": launches[name],
             **({"launches_in_graph_replays": replayed[name]} if name in replayed else {}),
             **({"launches_lora_phase": lora_launches[name]} if name in lora_launches else {}),
+            **({"launches_api_phase": api_launches[name]} if name in api_launches else {}),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
             "library_ms": bf["library_ms"], "dtype": "bfloat16", "shape": bf["shape"],

@@ -15,9 +15,9 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["llm", "models", "nn", "ops", "resolve_device", "train"]
+__all__ = ["llm", "models", "nn", "obs", "ops", "resolve_device", "train", "util"]
 
-_SUBPACKAGES = ("llm", "models", "nn", "ops", "train")
+_SUBPACKAGES = ("llm", "models", "nn", "obs", "ops", "train", "util")
 
 
 def resolve_device(device) -> "torch.device":  # noqa: F821

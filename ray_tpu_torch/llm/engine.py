@@ -21,11 +21,12 @@
    salted per slot.
 
 The API mirrors the reference (add_request / step / generate / stats /
-add_lora / remove_lora / evict_lru_lora). Not ported yet, and refused by
-``EngineConfig`` with NotImplementedError so no caller silently gets a
-different engine: the tiered KV cache, tensor-parallel meshes and the
-profiling hooks (ROADMAP.md, Queue 1). Chaos hooks, trace spans,
-telemetry gauges and recover/handoff are left out likewise.
+recover / add_lora / remove_lora / evict_lru_lora); ``EngineConfig.model``
+takes a registry name (``models/registry.py``). Not ported yet, and
+refused by ``EngineConfig`` with NotImplementedError so no caller silently
+gets a different engine: the tiered KV cache, tensor-parallel meshes and
+the profiling hooks (ROADMAP.md, Queue 1). Chaos hooks, trace spans,
+telemetry gauges and the KV handoff are left out likewise.
 """
 
 from __future__ import annotations
@@ -63,6 +64,12 @@ from ray_tpu_torch.models.llama_decode import (
     verify_tokens_ragged,
 )
 from ray_tpu_torch.ops.paged_attention import pick_impl
+
+
+class EnginePreempted(Exception):
+    """The engine was preempted mid-step (the reference's
+    ``ray_tpu.chaos.EnginePreempted``): its state is intact, so the serving
+    runner recovers with ``recover(rebuild_kv=False)``."""
 
 
 class AdapterSlotsExhausted(ValueError):
@@ -110,10 +117,16 @@ class EngineConfig:
     mixed_prefill_chunk: int = 256
 
     def __post_init__(self):
+        if isinstance(self.model, str):
+            # registry name ("llama3-8b", "mistral-7b", ...); an MoE name
+            # raises NotImplementedError (models/registry.py)
+            from ray_tpu_torch.models.registry import get_model_config
+
+            self.model = get_model_config(self.model)
         if not isinstance(self.model, llama.LlamaConfig):
             raise TypeError(
-                f"EngineConfig.model must be a LlamaConfig, got {type(self.model)} "
-                "(the model registry is not ported yet)"
+                f"EngineConfig.model must be a LlamaConfig or a registered model "
+                f"name, got {type(self.model)}"
             )
         unported = (
             ("kvtier", self.kvtier is not None, "the tiered KV cache (Queue 1, C3)"),
@@ -198,6 +211,12 @@ class Request:
     t_first_token: Optional[float] = None
     # LoRA adapter slot (0 = base model); also the prefix-chain salt
     lora_slot: int = 0
+    # the serving layer's trace context and fleet labels, stored as the
+    # reference stores them (their readers, the engine's spans and SLO
+    # labels, are not ported yet)
+    trace: Any = None
+    tenant: str = ""
+    slo_tag: Optional[str] = None
 
     @property
     def num_tokens(self) -> int:
@@ -431,7 +450,10 @@ class LLMEngine:
         sampling_params: Optional[SamplingParams] = None,
         request_id: Optional[str] = None,
         lora_id: Optional[str] = None,
+        trace: Any = None,
         priority: int = 0,
+        tenant: str = "",
+        slo_tag: Optional[str] = None,
     ) -> str:
         sp = sampling_params or SamplingParams()
         rid = request_id or f"req-{next(self._counter)}"
@@ -460,6 +482,7 @@ class LLMEngine:
         req = Request(rid, list(map(int, prompt_token_ids)), sp)
         req.lora_slot = lora_slot
         req.priority = int(priority)
+        req.trace, req.tenant, req.slo_tag = trace, tenant, slo_tag
         req.seed_base = request_seed_base(
             self._seed if sp.seed is None else sp.seed, rid
         )
@@ -550,6 +573,56 @@ class LLMEngine:
         if self.running:
             return self._decode_step()
         return []
+
+    def recover(self, *, rebuild_kv: bool = False) -> list[str]:
+        """Crash/preemption recovery: push every RUNNING request back to the
+        head of the waiting queue with its generated prefix intact.
+
+        Re-admission prefills ``prompt + output_token_ids`` (the
+        preemption-recompute contract), so nothing generated is lost and
+        nothing re-emits. ``rebuild_kv=True`` also discards the allocator
+        (and with it the prefix cache) and zeroes the KV cache, trash page
+        included, IN PLACE: every captured graph of the three families
+        reads the cache tensors by address, so a new cache would leave each
+        later replay writing to a dead one. The LoRA stacks stay.
+
+        Returns the re-enqueued request ids."""
+        # the in-flight pipelined chunk may be what crashed: drop it
+        # un-synced (its tokens were never booked)
+        self._pipe_drop()
+        # mid-prefill mixed cursors die with the batch: re-admission
+        # recomputes each prompt from its cached prefix
+        self._mixed_prefills.clear()
+        victims = sorted(self.running, key=lambda r: r.arrival, reverse=True)
+        self.running.clear()
+        # orphan sweep: a crash inside admission (after waiting.popleft,
+        # before running.append) leaves a live request in neither queue
+        queued = {r.request_id for r in victims} | {r.request_id for r in self.waiting}
+        victims += [
+            r for r in self.requests.values()
+            if r.request_id not in queued
+            and r.status in (RequestStatus.WAITING, RequestStatus.RUNNING)
+        ]
+        if rebuild_kv:
+            c = self.config
+            self.allocator = BlockAllocator(c.num_blocks, c.block_size)
+            for t in self.cache.values():
+                t.zero_()
+            for r in victims:
+                r.seq = None  # blocks died with the old allocator
+        moved = []
+        for r in victims:
+            if r.seq is not None:
+                r.seq.release()
+            r.seq = None
+            r.status = RequestStatus.WAITING
+            r.num_preemptions += 1
+            self.num_preemptions += 1
+            self.waiting.appendleft(r)  # reversed arrival: the oldest ends up first
+            if self.drafter is not None:
+                self.drafter.release(r.request_id)
+            moved.append(r.request_id)
+        return moved
 
     def generate(
         self,

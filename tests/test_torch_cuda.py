@@ -890,3 +890,105 @@ def test_packed_graph_cap_evicts_least_recently_replayed(monkeypatch):
         fam.run(eng._mixed_program, b)
     st = fam.stats()
     assert (st["graphs"], st["captured"], st["evicted"], st["replays"]) == (1, 3, 2, 3)
+
+
+@pytest.mark.parametrize("decode", ["pipelined", "spec"])
+def test_recover_rebuilt_after_captures_replays_write_the_live_cache(decode):
+    """fp32, mixed batching on the card: a first pass captures the mixed
+    graphs and the decode-chunk graphs (pipelined) or the verify graphs
+    (spec). In a second pass of the same prompts, recover(rebuild_kv=True)
+    after three steps zeroes the cache in place (same tensors) and the
+    replays that follow, of graphs captured before it, write the live
+    cache: the tokens equal a fault-free run's."""
+    _need_cuda()
+    from ray_tpu_torch.llm import SamplingParams
+
+    spec = decode == "spec"
+    prompts = _prompts_long()
+    want = [t for t, _ in _serve_tokens(_packed_engine(torch.float32), prompts, [None] * 4)]
+    eng = _packed_engine(torch.float32, spec=spec)
+    assert [t for t, _ in _serve_tokens(eng, prompts, [None] * 4)] == want
+    fams = (eng._graphs, eng._mixed_graphs, eng._verify_graphs)
+    assert eng._mixed_graphs.captures > 0
+    assert (eng._verify_graphs if spec else eng._graphs).captures > 0
+    captured = [set(f._graphs) for f in fams]
+    ptrs = {n: t.data_ptr() for n, t in eng.cache.items()}
+
+    eng.allocator.drop_prefix_cache()
+    sp = SamplingParams(max_tokens=12, temperature=0.0, ignore_eos=True)
+    reqs = [eng.requests[eng.add_request(p, sp)] for p in prompts]
+    for _ in range(3):
+        eng.step()
+    assert any(r.output_token_ids for r in reqs)
+    replays_before = [dict(f.replays_by_key) for f in fams]
+    eng.recover(rebuild_kv=True)
+    torch.cuda.synchronize()
+    assert {n: t.data_ptr() for n, t in eng.cache.items()} == ptrs
+    assert not any(bool(t.any()) for t in eng.cache.values())
+    while eng.has_unfinished():
+        eng.step()
+    assert [r.output_token_ids for r in reqs] == want
+    reused = sum(f.replays_by_key[k] - before.get(k, 0)
+                 for f, keys, before in zip(fams, captured, replays_before) for k in keys)
+    assert reused > 0
+    assert eng.allocator.num_free == eng.config.num_blocks
+
+
+def test_llm_server_on_card_matches_cpu():
+    """The OpenAI front end over an fp32 engine on the card (mixed steps
+    and decode chunks as graph replays, all on the runner's loop thread)
+    answers completions, a list of prompts, chat and a stream with the
+    CPU server's payloads, ids and timestamps aside."""
+    _need_cuda()
+    import asyncio
+
+    from ray_tpu_torch.llm import EngineConfig, LLMConfig, LLMServer
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = LlamaConfig(**GRAPH_MODEL, dtype=torch.float32)
+    params = init_params(model, torch.Generator().manual_seed(0), device="cpu")
+    on_card = {k: (v.cuda() if torch.is_tensor(v) else {n: t.cuda() for n, t in v.items()})
+               for k, v in params.items()}
+
+    class _Req:
+        def __init__(self, method, path, body):
+            self.method, self.path, self.body = method, path, body
+
+        def json(self):
+            return self.body
+
+    bodies = [("/v1/completions", {"prompt": "hello world", "max_tokens": 12,
+                                   "temperature": 0.0}),
+              ("/v1/completions", {"prompt": ["a", "The cat", "0123" * 12], "max_tokens": 10,
+                                   "temperature": 0.0}),
+              ("/v1/chat/completions", {"messages": [{"role": "user", "content": "hi"}],
+                                        "max_tokens": 8, "temperature": 0.0}),
+              ("/v1/completions", {"prompt": "zzz", "max_tokens": 6, "temperature": 0.0,
+                                   "stream": True})]
+
+    async def serve(srv):
+        outs = await asyncio.gather(*[srv(_Req("POST", p, b)) for p, b in bodies])
+        deltas = [d async for d in srv.generate_stream("hello world", max_tokens=12,
+                                                       temperature=0.0)]
+        strip = [o if isinstance(o, str) else
+                 {k: v for k, v in o.items() if k not in ("id", "created", "trace_id")}
+                 for o in outs]
+        strip[-1] = strip[-1].split('"choices"')[1]  # the SSE body past its ids
+        return strip, "".join(deltas)
+
+    results = []
+    for dev, p in (("cuda", on_card), ("cpu", params)):
+        cfg = EngineConfig(model=model, num_blocks=64, block_size=4, max_num_seqs=4,
+                           max_prefill_len=64, mixed_batch=True, mixed_prefill_chunk=16)
+        srv = LLMServer(LLMConfig(model_id="m", engine=cfg, params=p, device=dev))
+        try:
+            results.append(asyncio.run(serve(srv)))
+            st = srv.stats()
+        finally:
+            srv.shutdown()
+        if dev == "cuda":
+            assert st["mixed"]["graphs"]["replays"] == st["mixed"]["dispatches"] > 0
+            assert st["pipeline"]["graphs"]["replays"] > 0
+    assert results[0] == results[1]
+    assert results[0][1] == results[0][0][0]["choices"][0]["text"]

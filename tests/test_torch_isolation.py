@@ -57,11 +57,14 @@ import ray_tpu_torch.ops._build, ray_tpu_torch.ops.ragged
 import ray_tpu_torch.ops.attention, ray_tpu_torch.ops.flash
 import ray_tpu_torch.nn.layers, ray_tpu_torch.models.llama
 import ray_tpu_torch.train, ray_tpu_torch.train.step
+import ray_tpu_torch.models.registry, ray_tpu_torch.obs, ray_tpu_torch.util.metrics
+import ray_tpu_torch.llm.admission, ray_tpu_torch.llm.openai_api, ray_tpu_torch.llm.batch
 import dataclasses, torch
 from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.llama import LLAMA_TINY
 from ray_tpu_torch.train import TrainState, adamw, make_train_step
+assert EngineConfig(model="llama-tiny").model is LLAMA_TINY
 eng = LLMEngine(EngineConfig(model=LLAMA_TINY, num_blocks=32, block_size=4,
                              max_num_seqs=2, max_prefill_len=32), device="cpu")
 out = eng.generate([[5, 6, 7]], SamplingParams(max_tokens=3, temperature=0.0))
