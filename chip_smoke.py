@@ -4,6 +4,7 @@
     python3 chip_smoke.py                         # one card, no arguments: every phase
     python3 chip_smoke.py --phases build,flash_kernels   # a short first check of a kernel edit
     python3 chip_smoke.py --phases build,engine,api      # the serving front end alone
+    python3 chip_smoke.py --phases build,engine,disagg   # disaggregated prefill/decode alone
 
 Phases, each printing one JSON line:
 
@@ -86,6 +87,31 @@ Phases, each printing one JSON line:
            (2 recoveries; every position delivered once), a burst of 24 at
            max_queue_depth 3 sheds 429s with Retry-After while the admitted
            finish, and a drain turns a new request into a 503
+  disagg   LLAMA3_8B disaggregated (the engine phase's weights, one copy
+           shared, configuration and 12 requests): a DisaggOrchestrator
+           with one prefill and one decode engine, each on its own loop
+           thread, and the in-process connector; a first pass (both
+           engines fresh, each capturing its graphs while the other works),
+           three more (steady: the median of those that captured no graph),
+           two gated passes (all 12 admitted in one step, the decode loop
+           parked until the 12 handoffs are sent, so both decode one batch
+           shape: their bf16 streams must be equal, and the first reads
+           every import back from the live cache, bit for bit) and a gated
+           pass with one handoff corrupted in flight; tok/s, TTFT, TPOT,
+           per handoff the export (gather, d2h, seal) and import (verify,
+           h2d, scatter) ms, bytes handed off, graphs and capture seconds
+           per engine, K3/K4 launches per engine (eager and in replays),
+           peak memory. Fails unless the first pass makes 12 transfers and
+           no re-prefill, the decode engine runs no prefill or mixed step,
+           every request has 32 tokens, every mixed step of the prefill
+           engine is a replay with K4 inside and the decode chunks replays
+           with K3 inside, a capture of one engine overlaps the other's
+           steps, the per-thread launch tallies account for every wrapper
+           launch, imports after capture leave the cache tensors in place
+           and are read by replays of graphs captured before them, the
+           corrupted handoff is re-prefilled once (its first token and the
+           11 other streams equal the clean gated pass's), and two
+           completions through LLMServer(disagg=) report "mode": "disagg"
   parity   a reduced fp32 model served by the same engine on the card
            (kernels; pipelined on graphs, and sync) and on the CPU (plain
            versions): identical greedy tokens, mixed batching on and off
@@ -94,7 +120,11 @@ Phases, each printing one JSON line:
            two adapters (wq, wk, wv) and base rows; then LLMServer's greedy
            completions on the card = the CPU server's = LLMEngine.generate,
            and after recover(rebuild_kv=True) with graphs captured the
-           streams equal the fault-free pass
+           streams equal the fault-free pass; and, mixed batching on and
+           off, the disaggregated path on the card and on the CPU gives the
+           colocated greedy tokens and the colocated streams of two seeded
+           requests, and a handoff corrupted in flight on the card is
+           re-prefilled once with the clean run's tokens
   spec     speculative decoding at LLAMA3_8B (bf16, mixed batching, so the
            verify pass runs the ragged kernel at q_len 1..5, every pass a
            replay of a graph per packed-token bucket, bit for bit the
@@ -1832,6 +1862,441 @@ def api_phase(dev, params, engine_res: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# disagg
+# ---------------------------------------------------------------------------
+
+
+def _disagg_connector(namespace: str):
+    """The disagg phase's in-process connector: it keeps each request's last
+    handoff while ``keep`` is set (for the read-back check) and flips bytes
+    of the handoff of request ``corrupt`` once (the reference's chaos
+    corruption, not re-sealed)."""
+    from ray_tpu_torch.llm.disagg import InProcessConnector
+    from ray_tpu_torch.llm.disagg.connector import _corrupt_handoff
+
+    class Recording(InProcessConnector):
+        def __init__(self):
+            super().__init__(namespace)
+            self.keep, self.sent, self.corrupt, self.corrupted = False, {}, None, 0
+
+        def send(self, target, handoff, timeout_s=30.0):
+            if self.keep:
+                self.sent[handoff.request_id] = handoff
+            if handoff.request_id == self.corrupt:
+                self.corrupt = None
+                self.corrupted += 1
+                handoff = _corrupt_handoff(handoff)
+            super().send(target, handoff, timeout_s)
+
+    return Recording()
+
+
+def _watch_steps(eng, windows: list, hooks: dict) -> None:
+    """Wrap ``eng.step`` (it runs on the engine's loop thread): each step's
+    host window and whether it captured a graph go to ``windows``; a
+    callable left in ``hooks["before_step"]`` runs once, before the next
+    step, on that thread."""
+    step = eng.step
+
+    def watched():
+        hook = hooks.pop("before_step", None)
+        if hook is not None:
+            hook()
+        n0 = sum(f.captures for f in _families(eng))
+        t0 = time.perf_counter()
+        try:
+            return step()
+        finally:
+            windows.append((t0, time.perf_counter(),
+                            sum(f.captures for f in _families(eng)) > n0))
+
+    eng.step = watched
+
+
+def _capture_overlap(windows: dict) -> dict:
+    """Seconds during which an engine's capturing steps overlapped the
+    other engine's steps, and how many capturing steps did."""
+    out = {}
+    for a, b in (("prefill", "decode"), ("decode", "prefill")):
+        secs, steps = 0.0, 0
+        for s, e, captured in windows[a]:
+            if not captured:
+                continue
+            o = sum(max(0.0, min(e, e2) - max(s, s2)) for s2, e2, _ in windows[b])
+            secs += o
+            steps += o > 0
+        out[f"{a}_capturing_while_{b}_steps"] = {"seconds": secs, "capturing_steps": steps}
+    return out
+
+
+def _pool_marks(pe) -> dict:
+    """Per serving kernel, for one engine of the orchestrator: its loop
+    thread's launch tally (read on that thread), the launches of its graph
+    replays and those recorded into its captures."""
+    from ray_tpu_torch.ops.paged_attention import thread_launches
+
+    tally = pe.call(thread_launches)
+    fams = _families(pe.engine)
+    return {n: {"tally": tally.get(n, 0),
+                "replayed": sum(g.launches.get(n, 0) for g in fams),
+                "captured": sum(g.captured_launches.get(n, 0) for g in fams)}
+            for n in ("paged_attention", "ragged_attention")}
+
+
+def _pool_launches(before: dict, after: dict) -> dict:
+    """Launches on the device between two ``_pool_marks``: eager (launches
+    outside graphs: warm-ups and eager calls) plus those of replays."""
+    out = {}
+    for n in before:
+        d = {k: after[n][k] - before[n][k] for k in before[n]}
+        eager = d["tally"] - d["captured"]
+        out[n] = {"device": eager + d["replayed"], "eager": eager, "in_replays": d["replayed"]}
+    return out
+
+
+def _hold(pe):
+    """Park an engine's loop at its next step boundary until the returned
+    event is set (what is posted meanwhile is drained right after); returns
+    once the loop is parked."""
+    import threading
+
+    parked, release = threading.Event(), threading.Event()
+
+    def hold():
+        parked.set()
+        release.wait(timeout=300)
+
+    pe.post(hold)
+    if not parked.wait(timeout=300):
+        raise AssertionError(f"disagg: the {pe.role} loop did not park")
+    return release
+
+
+def _disagg_pass(orch, conn, prompts, sps, tag: str, gated: bool = False) -> dict:
+    """Serve the 12 requests through the orchestrator. Ungated as the engine
+    phase serves them: 11 at once, the last (the second on the shared
+    prefix) once the first has its first token. Gated: the prefill loop is
+    parked while all 12 are posted, so one step admits them all, and the
+    decode loop is parked until the 12 handoffs are sent, so it imports
+    them at one step boundary and decodes them as one batch from the first
+    step (the same batch shapes in every gated pass: the same bf16 bits)."""
+    import queue
+
+    import torch
+
+    out_q: queue.Queue = queue.Queue()
+
+    class Sink:
+        def __init__(self, rid):
+            self.rid = rid
+
+        def put(self, item):
+            out_q.put((self.rid, time.perf_counter(), item))
+
+    n = len(prompts)
+    pe, de = orch._prefill[0], orch._decode[0]
+    hand0 = len(orch.handoffs)
+    sent0 = conn.num_sent
+    caps0 = {r: (sum(f.captures for f in _families(p.engine)),
+                 sum(f.capture_s for f in _families(p.engine)))
+             for r, p in (("prefill", pe), ("decode", de))}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    holds = (_hold(pe), _hold(de)) if gated else None
+    t0 = time.perf_counter()
+    t_submit = {}
+
+    def submit(i):
+        rid = f"{tag}{i}"
+        t_submit[rid] = time.perf_counter()
+        return orch.submit_future(prompts[i], sps[i], request_id=rid, sink=Sink(rid))
+
+    first, last, finals = {}, {}, {}
+    try:
+        futs = [submit(i) for i in range(n if gated else n - 1)]
+        if gated:
+            holds[0].set()
+            deadline = time.time() + 300
+            while conn.num_sent - sent0 < n:
+                if time.time() > deadline:
+                    raise AssertionError(f"disagg: {conn.num_sent - sent0} of {n} handoffs sent")
+                time.sleep(0.002)
+            holds[1].set()
+        while len(finals) < n:
+            rid, t, item = out_q.get(timeout=300)
+            if isinstance(item, BaseException) or item is None:
+                raise AssertionError(f"disagg: request {rid} failed: {item!r}")
+            if item.new_token_ids:
+                first.setdefault(rid, t)
+            if item.finished:
+                finals[rid] = item.output_token_ids
+                last[rid] = t
+            if not gated and len(futs) < n and f"{tag}0" in first:
+                futs.append(submit(n - 1))
+    finally:
+        for ev in holds or ():
+            ev.set()
+    wall = time.perf_counter() - t0
+    for f in futs:
+        f.result()
+    torch.cuda.synchronize()
+    hand = list(orch.handoffs)[hand0:]
+    stages = ("pin_ms", "gather_ms", "d2h_ms", "seal_ms", "verify_ms", "h2d_ms", "scatter_ms")
+    graphs = {}
+    for r, p in (("prefill", pe), ("decode", de)):
+        c0, s0 = caps0[r]
+        graphs[r] = {"captured": sum(f.captures for f in _families(p.engine)) - c0,
+                     "capture_s": sum(f.capture_s for f in _families(p.engine)) - s0}
+    return {
+        "finals": finals,
+        "wall_s": wall, "output_tok_per_s": sum(map(len, finals.values())) / wall,
+        "mean_ttft_s": sum(first[r] - t_submit[r] for r in finals) / n,
+        "mean_tpot_s": sum((last[r] - first[r]) / max(1, len(finals[r]) - 1)
+                           for r in finals) / n,
+        "handoffs": len(hand), "bytes_handed_off": sum(h["bytes"] for h in hand),
+        "handoff_ms": {s: {"mean": sum(h[s] for h in hand) / len(hand),
+                           "min": min(h[s] for h in hand), "max": max(h[s] for h in hand)}
+                       for s in stages if all(s in h for h in hand)} if hand else {},
+        "largest_handoff_ms": {s: v for s, v in max(hand, key=lambda h: h["bytes"]).items()
+                               if s in stages} if hand else {},
+        "graphs": graphs, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+
+
+def _readback(eng, sent: dict, out: dict):
+    """On the decode loop, before the first step after the imports: every
+    imported request's K/V in the live cache equals its handoff's pages,
+    bit for bit."""
+    import torch
+
+    def check():
+        same = 0
+        for rid, h in sent.items():
+            req = eng.requests[rid]
+            slots = torch.as_tensor(req.seq.slots_for_range(0, h.num_kv_tokens),
+                                    device=eng.device)
+            same += all(torch.equal(eng.cache[n].index_select(2, slots).cpu(), p)
+                        for n, p in (("k", h.k_pages), ("v", h.v_pages)))
+        out["requests"], out["bits_equal"] = len(sent), same
+
+    return check
+
+
+def disagg_phase(dev, params, engine_res: dict) -> dict:
+    """LLAMA3_8B disaggregated: one DisaggOrchestrator, one prefill and one
+    decode engine (each ENGINE_KW, on its own loop thread, sharing the
+    engine phase's weights), the in-process connector; the engine phase's
+    12 requests: a first pass (both engines capture while the other works),
+    three more (steady: the median of those that captured no graph), two
+    gated passes (one batch shape: the bf16 streams equal; the first reads
+    every import back from the live cache) and a gated pass with one
+    handoff corrupted in flight (re-prefilled once); then two completions
+    through LLMServer(disagg=)."""
+    import asyncio
+    import gc
+
+    import torch
+
+    from ray_tpu_torch.llm import EngineConfig, LLMConfig, LLMServer
+    from ray_tpu_torch.llm.disagg import DisaggConfig, DisaggOrchestrator
+    from ray_tpu_torch.models.llama import LLAMA3_8B
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from ray_tpu_torch.ops.ragged import ragged_attention_cuda
+
+    t_phase = time.perf_counter()
+    model = LLAMA3_8B
+    prompts, sps = _engine_traffic(model)
+    conn = _disagg_connector("chip-disagg")
+    t0 = time.perf_counter()
+    orch = DisaggOrchestrator(
+        DisaggConfig(engine=EngineConfig(model=model, **ENGINE_KW), num_prefill=1,
+                     num_decode=1, connector="inproc"),
+        params=params, model_tag="chip-disagg", connector=conn, device=dev)
+    res = {"phase": "disagg", "model": "LLAMA3_8B", "dtype": "bfloat16",
+           "layers": model.n_layers, "d_model": model.d_model, "requests": 12,
+           "prompt_tokens": int(sum(map(len, prompts))), "output_tokens": 12 * 32,
+           "init_s": time.perf_counter() - t0}
+    try:
+        pe, de = orch._prefill[0], orch._decode[0]
+        flat = [(k, v) for k, v in params.items() if torch.is_tensor(v)]
+        flat += [(f"{k}.{n}", t) for k, v in params.items() if not torch.is_tensor(v)
+                 for n, t in v.items()]
+        for p in (pe, de):
+            got = p.engine.params
+            for name, t in flat:
+                a = got[name] if "." not in name else got[name.split(".")[0]][name.split(".")[1]]
+                if a.data_ptr() != t.data_ptr():
+                    raise AssertionError(f"disagg: {p.role} engine holds a copy of {name}")
+        res["weights_shared"] = True
+        cache_ptrs = {n: t.data_ptr() for n, t in de.engine.cache.items()}
+        windows = {"prefill": [], "decode": []}
+        hooks = {"prefill": {}, "decode": {}}
+        for p in (pe, de):
+            _watch_steps(p.engine, windows[p.role], hooks[p.role])
+
+        # the first pass: the kernels' counters zeroed just before it
+        paged_attention_cuda.launches = 0
+        ragged_attention_cuda.launches = 0
+        marks = {p.role: _pool_marks(p) for p in (pe, de)}
+        first = _disagg_pass(orch, conn, prompts, sps, "d")
+        launches = {p.role: _pool_launches(marks[p.role], _pool_marks(p)) for p in (pe, de)}
+        total = {n: paged_attention_cuda.launches if n == "paged_attention"
+                 else ragged_attention_cuda.launches for n in ("paged_attention",
+                                                               "ragged_attention")}
+        tallied = {n: sum(launches[r][n]["eager"] for r in launches) for n in total}
+        # every wrapper launch of the pass is booked to one engine's thread
+        captured = {n: sum(_pool_marks(p)[n]["captured"] - marks[p.role][n]["captured"]
+                           for p in (pe, de)) for n in total}
+        if {n: tallied[n] + captured[n] for n in total} != total:
+            raise AssertionError(f"disagg: per-thread launch tallies {tallied} + captured "
+                                 f"{captured} != the wrappers' counts {total}")
+        finals = first.pop("finals")
+        st = orch.stats()
+        pre_st, dec_st = st["prefill"][0], st["decode"][0]
+        _check_served(de.engine, finals, model, 12, 32)
+        if st["transfer"]["kv_transfers"] != 12 or st["transfer"]["reprefills"] != 0:
+            raise AssertionError(f"disagg: {st['transfer']}")
+        if dec_st["num_prefill_batches"] != 0 or dec_st.get("mixed", {}).get("dispatches", 0):
+            raise AssertionError("disagg: the decode engine ran a prefill or a mixed step")
+        _check_packed_replays(pre_st["mixed"]["graphs"], pre_st["mixed"]["dispatches"],
+                              "disagg prefill engine: mixed steps")
+        graphs = dec_st["pipeline"]["graphs"]
+        if graphs["replays"] <= 0 or launches["decode"]["paged_attention"]["in_replays"] <= 0:
+            raise AssertionError(f"disagg: no decode chunk replay with the paged kernel: {graphs}")
+        if launches["decode"]["ragged_attention"]["device"] or \
+                launches["prefill"]["paged_attention"]["device"]:
+            raise AssertionError(f"disagg: a kernel ran in the wrong pool: {launches}")
+        overlap = _capture_overlap(windows)
+        if not any(v["capturing_steps"] for v in overlap.values()):
+            raise AssertionError(f"disagg: no capture overlapped the other engine's work: "
+                                 f"{overlap}")
+        first_tokens = engine_res["first_pass_tokens"]
+        res["first"] = {**first, "kernel_launches": launches, "capture_overlap": overlap,
+                        "greedy_streams_equal_engine_phase": sum(
+                            finals[f"d{i}"] == first_tokens[f"r{i}"] for i in range(10))}
+        res["kernel_launches"] = {n: sum(launches[r][n]["device"] for r in launches)
+                                  for n in total}
+
+        # three more passes (the decode engine's batch shapes follow the
+        # handoffs' timing, so a later pass may still capture a bucket)
+        passes, steady = [], []
+        for k in range(3):
+            for p in (pe, de):
+                p.call(p.engine.allocator.drop_prefix_cache)
+            r = _disagg_pass(orch, conn, prompts, sps, f"s{k}")
+            f = r.pop("finals")
+            r["greedy_streams_equal_first_pass"] = sum(f[f"s{k}{i}"] == finals[f"d{i}"]
+                                                       for i in range(10))
+            passes.append(r)
+            if not any(g["captured"] for g in r["graphs"].values()):
+                steady.append(r)
+        res["passes"] = passes
+        res["steady_from"] = f"{len(steady)} capture-free of {len(passes)}"
+        if steady:
+            steady.sort(key=lambda r: r["output_tok_per_s"])
+            res["steady"] = steady[len(steady) // 2]
+
+        # gated passes (the first captures the 12-row batch's graphs): the
+        # second one's imports land after every graph it replays was captured
+        fams = _families(de.engine)
+        gated, back = [], {}
+        for k in range(2):
+            for p in (pe, de):
+                p.call(p.engine.allocator.drop_prefix_cache)
+            if k == 1:
+                keys0 = [set(f._graphs) for f in fams]
+                replays0 = [dict(f.replays_by_key) for f in fams]
+                conn.keep, conn.sent = True, {}
+                hooks["decode"]["before_step"] = _readback(de.engine, conn.sent, back)
+            gated.append(_disagg_pass(orch, conn, prompts, sps, "g", gated=True))
+        conn.keep, conn.sent = False, {}
+        reused = sum(f.replays_by_key[key] - r0.get(key, 0)
+                     for f, keys, r0 in zip(fams, keys0, replays0) for key in keys)
+        same_ptrs = {n: t.data_ptr() for n, t in de.engine.cache.items()} == cache_ptrs
+        equal = sum(gated[0]["finals"][f"g{i}"] == gated[1]["finals"][f"g{i}"]
+                    for i in range(12))
+        res["gated"] = {"readback": back, "replays_of_graphs_captured_before": reused,
+                        "graphs_captured": [sum(g["graphs"][r]["captured"] for r in g["graphs"])
+                                            for g in gated],
+                        "cache_tensors_unchanged": same_ptrs, "streams_equal": f"{equal}/12",
+                        "tok_per_s": [g["output_tok_per_s"] for g in gated]}
+        if back.get("bits_equal") != 12 or back.get("requests") != 12:
+            raise AssertionError(f"disagg: imported K/V read back from the live cache: {back}")
+        if not same_ptrs or reused <= 0 or equal != 12:
+            raise AssertionError(f"disagg: imports after capture: {res['gated']}")
+
+        # a handoff corrupted in flight: verify fails, one re-prefill; the
+        # 11 others keep their batch shapes (the corrupted request is the
+        # last exported, and not the one that sets the block-table width)
+        victim = "g11"
+        for p in (pe, de):
+            p.call(p.engine.allocator.drop_prefix_cache)
+        n_re, n_fail = orch.num_reprefills, orch.num_transfer_failures
+        conn.corrupt = victim
+        bad = _disagg_pass(orch, conn, prompts, sps, "g", gated=True)
+        clean = gated[1]["finals"]
+        others = sum(bad["finals"][f"g{i}"] == clean[f"g{i}"] for i in range(11))
+        res["corrupted"] = {
+            "request": victim, "corrupted_sends": conn.corrupted,
+            "reprefills": orch.num_reprefills - n_re,
+            "transfer_failures": orch.num_transfer_failures - n_fail,
+            "tokens": len(bad["finals"][victim]),
+            "first_token_equal_clean": bad["finals"][victim][:1] == clean[victim][:1],
+            "stream_equal_clean": bad["finals"][victim] == clean[victim],
+            "other_streams_equal_clean": f"{others}/11",
+        }
+        c = res["corrupted"]
+        if (c["corrupted_sends"], c["reprefills"], c["transfer_failures"], c["tokens"]) != \
+                (1, 1, 1, 32) or not c["first_token_equal_clean"] or others != 11:
+            raise AssertionError(f"disagg: corrupted handoff: {c}")
+        st = orch.stats()
+        res["graphs"] = {p.role: {"captured": sum(f.captures for f in _families(p.engine)),
+                                  "capture_s": sum(f.capture_s for f in _families(p.engine)),
+                                  "replays": sum(f.replays for f in _families(p.engine)),
+                                  "buckets": [str(k) for f in _families(p.engine)
+                                              for k in f.capture_s_by_key]}
+                         for p in (pe, de)}
+        res["transfer"] = st["transfer"]
+        _check_packed_replays(st["prefill"][0]["mixed"]["graphs"],
+                              st["prefill"][0]["mixed"]["dispatches"],
+                              "disagg prefill engine: mixed steps, every pass")
+    finally:
+        orch.shutdown()
+    del orch, pe, de
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # two completions through the OpenAI front end, disaggregated
+    bodies, _chats, _streams = _api_traffic()
+    cfg = EngineConfig(model="llama3-8b", **ENGINE_KW)
+    server = LLMServer(LLMConfig(model_id="llama3-8b", engine=cfg, params=params,
+                                 tokenizer=IdTextTokenizer(cfg.model.vocab_size),
+                                 device=str(dev), disagg={"num_prefill": 1, "num_decode": 1}))
+    try:
+        async def go():
+            outs = await asyncio.gather(*[server(ApiRequest("POST", "/v1/completions", b))
+                                          for b in bodies[:2]])
+            return outs, await server(ApiRequest("GET", "/v1/stats"))
+
+        outs, stats = asyncio.run(go())
+    finally:
+        server.shutdown()
+    n_out = [o["usage"]["completion_tokens"] for o in outs]
+    res["api"] = {"completion_tokens": n_out, "mode": stats.get("mode"),
+                  "kv_transfers": stats["transfer"]["kv_transfers"],
+                  "decode_prefill_batches": stats["decode"][0]["num_prefill_batches"]}
+    if stats.get("mode") != "disagg" or stats["transfer"]["kv_transfers"] != 2 or \
+            any(not (0 < n <= 32) for n in n_out):
+        raise AssertionError(f"disagg: LLMServer(disagg=): {res['api']}")
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # parity
 # ---------------------------------------------------------------------------
 
@@ -1927,12 +2392,81 @@ def parity_phase(dev) -> None:
                            "tokens": sum(map(len, outs["cpu"])),
                            "mixed_step_replays": mixed_replays,
                            "mixed_replay_equals_eager": replay_check}
+            if not lora:
+                result[key]["disagg"] = _parity_disagg(dev, model, params_cpu, params_gpu,
+                                                       prompts, sp, mixed, outs["cpu"])
             if not same or replays <= 0:
                 emit(result)
                 raise AssertionError(f"{key}: pipelined-card, sync-card and CPU tokens "
                                      f"differ, or no graph replay ran ({replays})")
     result["api_server"] = _parity_server(dev, model, params_cpu, params_gpu)
     emit(result)
+
+
+def _parity_disagg(dev, model, params_cpu, params_gpu, prompts, sp, mixed, colocated) -> dict:
+    """fp32, the parity model, disaggregated (one prefill and one decode
+    engine): greedy tokens on the card and on the CPU equal the colocated
+    engine's; two seeded requests equal the colocated engine's streams of
+    the same request ids, on each device; on the card, a handoff corrupted
+    in flight is re-prefilled once and its tokens equal the clean run's."""
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.llm.disagg import DisaggConfig, DisaggOrchestrator
+
+    cfg = dict(model=model, num_blocks=256, block_size=16, max_num_seqs=8, max_prefill_len=256,
+               mixed_batch=mixed, mixed_prefill_chunk=64, decode_chunk=8)
+    seeded = [SamplingParams(max_tokens=16, temperature=0.9, top_k=40, top_p=0.9, seed=7 + i,
+                             ignore_eos=True) for i in range(2)]
+    res = {}
+
+    def run(params, device, connector=None):
+        orch = DisaggOrchestrator(DisaggConfig(engine=EngineConfig(**cfg)), params=params,
+                                  device=device, model_tag="parity-disagg", connector=connector)
+        try:
+            greedy = orch.generate(prompts, sp, timeout_s=300)
+            subs = [orch.submit(prompts[i], seeded[i], request_id=f"seeded{i}")
+                    for i in range(2)]
+            outs = []
+            for _rid, q in subs:
+                out = None
+                while out is None or not out.finished:
+                    out = q.get(timeout=300)
+                    if isinstance(out, BaseException) or out is None:
+                        raise AssertionError(f"parity disagg: {out!r}")
+                outs.append(out.output_token_ids)
+            st = orch.stats()
+        finally:
+            orch.shutdown()
+        if st["decode"][0]["num_prefill_batches"] or st["transfer"]["imported"] < len(prompts):
+            raise AssertionError(f"parity disagg: {st['transfer']}")
+        return greedy, outs, st
+
+    for where, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+        device = dev if where == "cuda" else "cpu"
+        greedy, outs, st = run(params, device)
+        eng = LLMEngine(EngineConfig(**cfg), params=params, device=device)
+        for i in range(2):
+            eng.add_request(prompts[i], seeded[i], request_id=f"seeded{i}")
+        want = {}
+        while eng.has_unfinished():
+            for o in eng.step():
+                if o.finished:
+                    want[o.request_id] = o.output_token_ids
+        res[where] = {"greedy_equal_colocated": greedy == colocated,
+                      "seeded_equal_colocated": outs == [want["seeded0"], want["seeded1"]],
+                      "reprefills": st["transfer"]["reprefills"]}
+        if where == "cuda":
+            conn = _disagg_connector("parity-disagg-corrupt")
+            conn.corrupt = "dreq-2"
+            bad, _, st = run(params, device, connector=conn)
+            res["cuda"]["corrupted"] = {"equal_clean": bad == greedy,
+                                        "reprefills": st["transfer"]["reprefills"],
+                                        "corrupted_sends": conn.corrupted}
+    ok = all(r["greedy_equal_colocated"] and r["seeded_equal_colocated"] and not r["reprefills"]
+             for r in res.values())
+    c = res["cuda"]["corrupted"]
+    if not ok or not c["equal_clean"] or (c["reprefills"], c["corrupted_sends"]) != (1, 1):
+        raise AssertionError(f"parity disagg (mixed {mixed}): {res}")
+    return res
 
 
 def _parity_server(dev, model, params_cpu, params_gpu) -> dict:
@@ -2365,8 +2899,8 @@ def train_parity_phase(dev) -> None:
 
 # ---------------------------------------------------------------------------
 
-PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "api", "parity", "spec",
-          "train", "train_parity")
+PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "api", "disagg", "parity",
+          "spec", "train", "train_parity")
 
 SOURCES = {
     "paged_attention": ("ray_tpu_torch/ops/csrc/paged_attention.cu",
@@ -2409,8 +2943,8 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
-    if {"lora", "api"} & set(phases) and "engine" not in phases:
-        ap.error("the lora and api phases read the engine phase's results: add engine")
+    if {"lora", "api", "disagg"} & set(phases) and "engine" not in phases:
+        ap.error("the lora, api and disagg phases read the engine phase's results: add engine")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU only",
               file=sys.stderr)
@@ -2436,8 +2970,9 @@ def main(argv=None) -> int:
         timings.update(kernels_phase(dev))
     if "flash_kernels" in phases:
         timings.update(flash_kernels_phase(dev))
-    params, params_s = params_8b(dev) if {"engine", "spec", "api"} & set(phases) else (None, 0.0)
-    lora_launches, api_launches, replayed = {}, {}, {}
+    params, params_s = (params_8b(dev) if {"engine", "spec", "api", "disagg"} & set(phases)
+                        else (None, 0.0))
+    lora_launches, api_launches, disagg_launches, replayed = {}, {}, {}, {}
     if "engine" in phases:
         engine_res = engine_phase(dev, params, params_s)
         launches.update(engine_res["kernel_launches"])
@@ -2446,6 +2981,8 @@ def main(argv=None) -> int:
         lora_launches = lora_phase(dev, params, engine_res)["kernel_launches"]
     if "api" in phases:
         api_launches = api_phase(dev, params, engine_res)["kernel_launches"]
+    if "disagg" in phases:
+        disagg_launches = disagg_phase(dev, params, engine_res)["kernel_launches"]
     if "engine" in phases:
         del engine_res
     if "parity" in phases:
@@ -2471,6 +3008,8 @@ def main(argv=None) -> int:
             **({"launches_in_graph_replays": replayed[name]} if name in replayed else {}),
             **({"launches_lora_phase": lora_launches[name]} if name in lora_launches else {}),
             **({"launches_api_phase": api_launches[name]} if name in api_launches else {}),
+            **({"launches_disagg_phase": disagg_launches[name]}
+               if name in disagg_launches else {}),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
             "library_ms": bf["library_ms"], "dtype": "bfloat16", "shape": bf["shape"],

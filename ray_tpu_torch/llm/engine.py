@@ -21,12 +21,15 @@
    salted per slot.
 
 The API mirrors the reference (add_request / step / generate / stats /
-recover / add_lora / remove_lora / evict_lru_lora); ``EngineConfig.model``
-takes a registry name (``models/registry.py``). Not ported yet, and
-refused by ``EngineConfig`` with NotImplementedError so no caller silently
-gets a different engine: the tiered KV cache, tensor-parallel meshes and
-the profiling hooks (ROADMAP.md, Queue 1). Chaos hooks, trace spans,
-telemetry gauges and the KV handoff are left out likewise.
+recover / add_lora / remove_lora / evict_lru_lora, and the KV handoff of
+disaggregated serving: export_request / import_handoff /
+peek_prefix_tokens, ``llm/disagg``); ``EngineConfig.model`` takes a
+registry name (``models/registry.py``). Not ported yet, and refused by
+``EngineConfig`` with NotImplementedError so no caller silently gets a
+different engine: the tiered KV cache, tensor-parallel meshes and the
+profiling hooks (ROADMAP.md, Queue 1); ``export_request(keep_on_device=
+True)`` raises likewise (the device fabric, C1). Chaos hooks, trace spans
+and telemetry gauges are left out (B4c).
 """
 
 from __future__ import annotations
@@ -188,6 +191,36 @@ class RequestStatus:
     RUNNING = "running"
     FINISHED = "finished"
     ABORTED = "aborted"
+    # exported to another engine by a KV handoff (disaggregated prefill/
+    # decode); this engine no longer owns the request
+    MIGRATED = "migrated"
+
+
+class _Stages:
+    """Milliseconds of named stages of device work: on the card CUDA events
+    recorded on the stream each stage ran on (read once every stage is
+    done), on the CPU the host clock, where the ops are synchronous."""
+
+    def __init__(self, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self._spans: list = []
+
+    def start(self):
+        if not self._cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()  # on the current stream
+        return ev
+
+    def stage(self, name: str, start) -> None:
+        self._spans.append((name, start, self.start()))
+
+    def done(self) -> dict:
+        if self._cuda:
+            for _, _, end in self._spans:
+                end.synchronize()
+            return {n: a.elapsed_time(b) for n, a, b in self._spans}
+        return {n: (b - a) * 1e3 for n, a, b in self._spans}
 
 
 @dataclasses.dataclass
@@ -269,6 +302,7 @@ class LLMEngine:
         self.prefix_hit_tokens = 0
         self.prefix_lookup_tokens = 0
         self.num_prefill_batches = 0
+        self.num_kv_imports = 0
         # mixed ragged batching: prefill cursors (request_id -> next
         # un-prefilled absolute token index; a request in here is RUNNING
         # but mid-prompt) and padding-waste stats. The cursor dict exists
@@ -301,6 +335,9 @@ class LLMEngine:
         # order of evict_lru_lora
         self._lora_last_used: dict[str, int] = {}
         self._lora_clock = itertools.count()
+        # the KV handoff's host<->device copies run on a stream of their own,
+        # so they overlap the kernels another engine queues on this device
+        self._copy_stream = None
         if c.max_loras > 0:
             m = c.model
             out_dims = {"wq": m.n_heads * m.head_dim, "wk": m.n_kv_heads * m.head_dim,
@@ -659,6 +696,8 @@ class LLMEngine:
                 ),
             },
         }
+        if self.num_kv_imports:
+            out["num_kv_imports"] = self.num_kv_imports
         if self.spec_stats is not None:
             # verify_graphs: the ragged verify passes (mixed batching), as
             # graph replays on the card ("replays") or eager on the CPU
@@ -671,6 +710,214 @@ class LLMEngine:
         if self._mixed_stats is not None and self._mixed_stats.dispatches:
             out["mixed"] = {**self._mixed_stats.to_dict(), "graphs": self._mixed_graphs.stats()}
         return out
+
+    # -- disaggregated prefill/decode (llm/disagg) -----------------------------
+    # A prefill engine runs admission, prefill and the first token, then
+    # EXPORTS the sequence (KV pages + request state) instead of decoding
+    # it; a decode engine IMPORTS it with zero recompute. The invariant both
+    # sides rely on: a request of num_tokens N has K/V written for positions
+    # 0..N-2 (the newest token is fed, and its K/V written, by the next step).
+
+    def peek_prefix_tokens(self, prompt_token_ids: list, lora_id: Optional[str] = None) -> int:
+        """Read-only probe: prompt tokens a prefix-cache hit would cover on
+        this engine (the disaggregated decode pick's tiebreak)."""
+        return self.allocator.probe_prefix(
+            list(map(int, prompt_token_ids)), self._lora_slot(lora_id)
+        )
+
+    def peek_prefix_tiered(self, prompt_token_ids: list, lora_id: Optional[str] = None) -> dict:
+        """The reference's tiered probe without a tiered cache (the port has
+        none, ROADMAP.md Queue 1, C3): the HBM prefix alone, at full weight.
+        Returns {"n_tokens", "discounted", "by_tier"}."""
+        n = self.peek_prefix_tokens(prompt_token_ids, lora_id)
+        return {"n_tokens": n, "discounted": float(n), "by_tier": ({"hbm": n} if n else {})}
+
+    def _copies(self) -> "torch.cuda.Stream":
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        return self._copy_stream
+
+    def export_request(self, request_id: str, keep_on_device: bool = False):
+        """Export a RUNNING request as a sealed KVHandoff and drop local
+        ownership: its blocks are released (full prompt blocks stay in this
+        engine's prefix cache, so a re-prefill after a lost transfer hits
+        them). The pages are gathered on the device in one index_select per
+        cache tensor, on the current stream, and copied into pinned host
+        memory on the engine's copy stream; the handoff's ``timings`` split
+        the export into pin (allocating the host pages), gather, d2h and
+        seal (on the CPU: gather and seal)."""
+        if keep_on_device:
+            raise NotImplementedError(
+                "export_request(keep_on_device=True): the device-resident KV handoff "
+                "(the fabric's device path) is not ported to ray_tpu_torch yet "
+                "(ROADMAP.md, Queue 1, C1)"
+            )
+        # the pages must hold every position the host has booked: land the
+        # pipelined chunk in flight first
+        self._pipe_flush(deliver=True)
+        from ray_tpu_torch.llm.disagg.handoff import KVHandoff
+
+        req = self.requests.get(request_id)
+        if req is None or req.status != RequestStatus.RUNNING or req.seq is None:
+            raise ValueError(
+                f"request {request_id!r} is not RUNNING on this engine "
+                "(only admitted, in-flight requests can be exported)"
+            )
+        if request_id in self._mixed_prefills:
+            # mid-prompt mixed row: K/V exists only up to its cursor, not the
+            # num_tokens - 1 positions the handoff promises
+            raise ValueError(
+                f"request {request_id!r} is mid-prefill in a mixed batch; "
+                "export after its prompt chunks complete"
+            )
+        c = self.config
+        n_kv = req.num_tokens - 1
+        slots = self._tensor(np.asarray(req.seq.slots_for_range(0, n_kv), np.int64))
+        cuda = self.device.type == "cuda"
+        timings = {}
+        if cuda:
+            t0 = time.perf_counter()
+            shape = (c.model.n_layers, c.model.n_kv_heads, n_kv, c.model.head_dim)
+            hk = torch.empty(shape, dtype=self.cache["k"].dtype, pin_memory=True)
+            hv = torch.empty(shape, dtype=self.cache["v"].dtype, pin_memory=True)
+            timings["pin_ms"] = (time.perf_counter() - t0) * 1e3
+        stages = _Stages(self.device)
+        s0 = stages.start()
+        k = self.cache["k"].index_select(2, slots)
+        v = self.cache["v"].index_select(2, slots)
+        stages.stage("gather_ms", s0)
+        if cuda:
+            cs = self._copies()
+            cs.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(cs):
+                s0 = stages.start()
+                hk.copy_(k, non_blocking=True)
+                hv.copy_(v, non_blocking=True)
+                stages.stage("d2h_ms", s0)
+            k.record_stream(cs)
+            v.record_stream(cs)
+            k, v = hk, hv
+        timings.update(stages.done())
+        lora_id = None
+        if req.lora_slot:
+            lora_id = next((lid for lid, s in self._lora_slots.items() if s == req.lora_slot),
+                           None)
+        handoff = KVHandoff(
+            request_id=req.request_id,
+            prompt_token_ids=list(req.prompt_token_ids),
+            output_token_ids=list(req.output_token_ids),
+            sampling_params=req.sampling_params,
+            seed_base=req.seed_base,
+            num_kv_tokens=n_kv,
+            k_pages=k,
+            v_pages=v,
+            model_sig=(c.model.n_layers, c.model.n_kv_heads, c.model.head_dim),
+            lora_id=lora_id,
+            cumulative_logprob=req.cumulative_logprob,
+            token_logprobs=list(req.token_logprobs),
+            t_arrival=req.arrival,
+            t_first_token=req.t_first_token,
+            t_export=time.time(),
+            trace=dataclasses.asdict(req.trace) if dataclasses.is_dataclass(req.trace) else None,
+        )
+        t0 = time.perf_counter()
+        handoff.seal()
+        timings["seal_ms"] = (time.perf_counter() - t0) * 1e3
+        handoff.timings = timings
+        # drop local ownership; sealed full blocks stay in the prefix cache
+        self.running.remove(req)
+        req.seq.release()
+        req.seq = None
+        req.status = RequestStatus.MIGRATED
+        self.requests.pop(request_id, None)
+        if self.drafter is not None:
+            self.drafter.release(request_id)
+        return handoff
+
+    def import_handoff(self, handoff, trace: Any = None) -> str:
+        """Adopt an exported request: write its KV pages into this engine's
+        cache and enqueue it RUNNING, with no prefill and no recompute
+        (``num_cached_tokens`` covers every transferred position). Raises
+        NoFreeBlocksError, before writing anything, when the cache cannot
+        hold it now, and ValueError on a model mismatch, a request id
+        already live here, or pages that disagree with the header.
+
+        The pages are copied to the device on the engine's copy stream and
+        scattered with index_copy_ into the cache tensors IN PLACE, on the
+        current stream (the one the graph replays run on): every captured
+        decode, mixed and verify graph reads the cache by address, so it is
+        never rebound. Adds h2d (on the card) and scatter to the handoff's
+        ``timings``."""
+        # joining the decode batch is a membership change: land the chunk in
+        # flight so the import sees settled state
+        self._pipe_flush(deliver=True)
+        c = self.config
+        m = c.model
+        sig = (m.n_layers, m.n_kv_heads, m.head_dim)
+        if tuple(handoff.model_sig) != sig:
+            raise ValueError(
+                f"handoff model signature {tuple(handoff.model_sig)} != engine {sig}; "
+                "prefill and decode pools must serve the same model"
+            )
+        rid = handoff.request_id
+        if rid in self.requests:
+            raise ValueError(f"request {rid!r} already live on this engine")
+        n_kv = handoff.num_kv_tokens
+        want = (m.n_layers, m.n_kv_heads, n_kv, m.head_dim)
+        if tuple(handoff.k_pages.shape) != want or tuple(handoff.v_pages.shape) != want:
+            raise ValueError(
+                f"handoff KV pages {tuple(handoff.k_pages.shape)} / "
+                f"{tuple(handoff.v_pages.shape)} disagree with the header's {n_kv} tokens "
+                f"(expected {want})"
+            )
+        req = Request(rid, list(map(int, handoff.prompt_token_ids)), handoff.sampling_params)
+        req.lora_slot = self._lora_slot(handoff.lora_id)
+        req.output_token_ids = list(map(int, handoff.output_token_ids))
+        req.cumulative_logprob = handoff.cumulative_logprob
+        req.token_logprobs = list(handoff.token_logprobs)
+        req.seed_base = int(handoff.seed_base)
+        if trace is None and handoff.trace is not None:
+            from ray_tpu_torch.obs import TraceContext
+
+            trace = TraceContext(**handoff.trace)
+        req.trace = trace
+        req.arrival = handoff.t_arrival
+        req.t_first_token = handoff.t_first_token
+
+        seq = SequenceBlocks(self.allocator)
+        seq.chain = req.lora_slot  # salt the hash chain as admission does
+        seq.ensure_capacity(req.num_tokens)  # may raise NoFreeBlocksError
+        slots = self._tensor(np.asarray(seq.slots_for_range(0, n_kv), np.int64))
+        dt = self.cache["k"].dtype
+        stages = _Stages(self.device)
+        if self.device.type == "cuda":
+            cur, cs = torch.cuda.current_stream(self.device), self._copies()
+            with torch.cuda.stream(cs):
+                s0 = stages.start()
+                k = handoff.k_pages.to(device=self.device, dtype=dt, non_blocking=True)
+                v = handoff.v_pages.to(device=self.device, dtype=dt, non_blocking=True)
+                stages.stage("h2d_ms", s0)
+            cur.wait_stream(cs)
+            k.record_stream(cur)
+            v.record_stream(cur)
+        else:
+            k, v = handoff.k_pages.to(dt), handoff.v_pages.to(dt)
+        s0 = stages.start()
+        self.cache["k"].index_copy_(2, slots, k)
+        self.cache["v"].index_copy_(2, slots, v)
+        stages.stage("scatter_ms", s0)
+        handoff.timings.update(stages.done())
+        seq.num_tokens = req.num_tokens
+        seq.num_cached_tokens = n_kv  # every transferred position: zero recompute
+        if c.enable_prefix_caching:
+            # imported full blocks serve later prompts sharing this prefix
+            seq.seal_full_blocks(req.prompt_token_ids + req.output_token_ids[:-1])
+        req.seq = seq
+        req.status = RequestStatus.RUNNING
+        self.requests[rid] = req
+        self.running.append(req)
+        self.num_kv_imports += 1
+        return rid
 
     # -- admission -------------------------------------------------------------
 

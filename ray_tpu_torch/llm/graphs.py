@@ -40,12 +40,24 @@ once, when its launch is recorded into the graph (``captured_launches``
 sums those), so each graph keeps the count recorded at its capture and
 every replay adds it here. Launches on the device = wrapper count -
 captured_launches + launches, summed over an engine's graph families.
+
+Several engines may run in one process, each on its own thread (the
+disaggregated pools, ``llm/disagg``). A capture runs in the
+``thread_local`` capture mode, so another thread's syncs, allocations and
+launches neither fail it nor join it; captures take one process-wide lock,
+so two never overlap (entering a capture synchronizes the device and
+empties the allocator's cache), and hold the garbage collector off, so no
+thread's collection destroys another engine's graph mid-capture; a
+graph's per-replay count is read from the capturing thread's own tally of
+launches.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
+import threading
 import time
 from typing import Any, Callable, Optional
 
@@ -68,11 +80,22 @@ def upload(dst: torch.Tensor, src: np.ndarray) -> None:
         dst.copy_(t)
 
 
-def _kernel_counters() -> dict:
-    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
-    from ray_tpu_torch.ops.ragged import ragged_attention_cuda
+# one capture at a time in the process (see the module docstring)
+_CAPTURE_LOCK = threading.Lock()
 
-    return {"paged_attention": paged_attention_cuda, "ragged_attention": ragged_attention_cuda}
+
+class _no_gc:
+    """No automatic garbage collection inside: a collection run by any
+    thread during a capture may free another engine's graph, and a graph
+    freed mid-capture fails it."""
+
+    def __enter__(self):
+        self._was = gc.isenabled()
+        gc.disable()
+
+    def __exit__(self, *exc):
+        if self._was:
+            gc.enable()
 
 
 @dataclasses.dataclass
@@ -199,21 +222,24 @@ class GraphFamily:
         if len(self._graphs) >= MAX_GRAPHS:
             self._graphs.popitem(last=False)
             self.evicted += 1
+        from ray_tpu_torch.ops.paged_attention import thread_launches
+
         t0 = time.perf_counter()
-        pool, s = self._capture_context()
-        cur = torch.cuda.current_stream(self.device)
-        s.wait_stream(cur)
-        if warm_key not in self._warm:
-            with torch.cuda.stream(s):
-                warm()
-            self._warm.add(warm_key)
-        cur.wait_stream(s)
-        counters = _kernel_counters()
-        before = {n: f.launches for n, f in counters.items()}
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool, stream=s):
-            outs = record()
-        per_replay = {n: f.launches - before[n] for n, f in counters.items()}
+        with _CAPTURE_LOCK, _no_gc():
+            pool, s = self._capture_context()
+            cur = torch.cuda.current_stream(self.device)
+            s.wait_stream(cur)
+            if warm_key not in self._warm:
+                with torch.cuda.stream(s):
+                    warm()
+                self._warm.add(warm_key)
+            cur.wait_stream(s)
+            before = thread_launches()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=s, capture_error_mode="thread_local"):
+                outs = record()
+            after = thread_launches()
+        per_replay = {n: k - before.get(n, 0) for n, k in after.items()}
         per_replay = {n: k for n, k in per_replay.items() if k}
         self.captured_launches.update(per_replay)
         entry = (graph, tuple(outs), per_replay)

@@ -13,9 +13,12 @@ kept here so the port imports nothing from the JAX package).
 Chains are salted per LoRA adapter slot (slot 0, the base model, roots
 at 0), and ``drop_prefix_cache(salt=...)`` drops one slot's chains.
 
-Not copied, because nothing ported uses them yet: the seal/evict/drop
-listeners of the tiered cache (``llm/kvtier``) and the read-only
-``probe_prefix`` / ``contains_hash`` probes (disaggregated serving, kvtier).
+The allocator's handoff surface is the reference's too: the read-only
+``probe_prefix`` (the disaggregated decode pick, ``llm/disagg``) and
+``contains_hash`` probes, and the ``seal_listener`` / ``evict_listener`` /
+``drop_listener`` hooks, fired where the reference fires them (their
+reader there, the tiered cache ``llm/kvtier``, is not ported: ROADMAP.md
+Queue 1, C3).
 """
 
 from __future__ import annotations
@@ -70,6 +73,15 @@ class BlockAllocator:
         self._hash_salt: dict[int, int] = {}
         # LRU order of zero-ref cached blocks (eviction candidates)
         self._zero_ref_lru: list[int] = []
+        # hooks: seal_listener(block_id, hash, parent_hash, tokens,
+        # n_prefix_tokens) when a full block becomes canonical under its
+        # hash; evict_listener(block_id, hash) just before a zero-ref cached
+        # block is reused (its pages still intact); drop_listener(salt) on
+        # drop_prefix_cache. A listener that raises never breaks the
+        # allocator
+        self.seal_listener = None
+        self.evict_listener = None
+        self.drop_listener = None
 
     # -- stats ---------------------------------------------------------------
 
@@ -90,6 +102,11 @@ class BlockAllocator:
             h = self._block_hash.pop(victim, None)
             if h is not None:
                 self._hash_to_block.pop(h, None)
+                if self.evict_listener is not None:
+                    try:
+                        self.evict_listener(victim, h)
+                    except Exception:  # noqa: BLE001
+                        pass
             return victim
         raise NoFreeBlocksError("KV cache exhausted")
 
@@ -138,28 +155,46 @@ class BlockAllocator:
             self._hash_to_block.clear()
             self._block_hash.clear()
             self._hash_salt.clear()
-            return
-        for h in [h for h, s in self._hash_salt.items() if s == salt]:
-            del self._hash_salt[h]
-            b = self._hash_to_block.pop(h, None)
-            if b is None:
-                continue
-            self._block_hash.pop(b, None)
-            if b in self._zero_ref_lru:
-                self._zero_ref_lru.remove(b)
-                self._free.append(b)
+        else:
+            for h in [h for h, s in self._hash_salt.items() if s == salt]:
+                del self._hash_salt[h]
+                b = self._hash_to_block.pop(h, None)
+                if b is None:
+                    continue
+                self._block_hash.pop(b, None)
+                if b in self._zero_ref_lru:
+                    self._zero_ref_lru.remove(b)
+                    self._free.append(b)
+        if self.drop_listener is not None:
+            try:
+                self.drop_listener(salt)
+            except Exception:  # noqa: BLE001
+                pass
 
     def register_full_block(self, block_id: int, content_hash: int,
-                            parent_hash: int = 0) -> None:
+                            parent_hash: Optional[int] = None,
+                            tokens: Optional[tuple] = None,
+                            n_prefix_tokens: int = 0) -> None:
         """Mark a just-written full block reusable under its content hash;
         ``parent_hash`` is the hash it chains from (the salt for a first
-        block)."""
+        block). ``tokens`` and ``n_prefix_tokens`` are the chain metadata
+        the seal listener receives (a sealer passing no tokens fires none)."""
         existing = self._hash_to_block.get(content_hash)
         if existing is not None and existing != block_id:
             return  # another copy already canonical; keep ours private
         self._hash_to_block[content_hash] = block_id
         self._block_hash[block_id] = content_hash
-        self._hash_salt[content_hash] = self._hash_salt.get(parent_hash, parent_hash)
+        parent = 0 if parent_hash is None else parent_hash
+        self._hash_salt[content_hash] = self._hash_salt.get(parent, parent)
+        if self.seal_listener is not None and tokens is not None:
+            try:
+                self.seal_listener(block_id, content_hash, parent, tokens, n_prefix_tokens)
+            except Exception:  # noqa: BLE001
+                pass
+
+    def contains_hash(self, content_hash: int) -> bool:
+        """Read-only membership probe: no reference taken, no LRU motion."""
+        return content_hash in self._hash_to_block
 
     def lookup(self, content_hash: int) -> Optional[int]:
         """Take a reference on a cached block if present."""
@@ -170,6 +205,21 @@ class BlockAllocator:
             self._zero_ref_lru.remove(b)
         self._refcount[b] = self._refcount.get(b, 0) + 1
         return b
+
+    def probe_prefix(self, tokens: list[int], salt: int = 0) -> int:
+        """Tokens of ``tokens`` a prefix-cache hit would cover: a read-only
+        ``match_prefix`` that takes no reference and moves no block (the
+        disaggregated decode pick scores engines by it)."""
+        h = salt
+        n_full = len(tokens) // self.block_size
+        matched = 0
+        for i in range(n_full):
+            blk = tuple(tokens[i * self.block_size : (i + 1) * self.block_size])
+            h = self.chain_hash(h, blk)
+            if self._hash_to_block.get(h) is None:
+                break
+            matched += 1
+        return matched * self.block_size
 
     def probe_admission_need(self, tokens: list[int], salt: int = 0) -> int:
         """Blocks a full prefill of ``tokens`` must take FROM THE FREE
@@ -245,7 +295,8 @@ class SequenceBlocks:
             blk = tuple(tokens[i * bs : (i + 1) * bs])
             parent = h
             h = self.allocator.chain_hash(h, blk)
-            self.allocator.register_full_block(self.blocks[i], h, parent)
+            self.allocator.register_full_block(self.blocks[i], h, parent_hash=parent,
+                                               tokens=blk, n_prefix_tokens=(i + 1) * bs)
         self.chain = h
         self.num_sealed_tokens = n_full * bs
 

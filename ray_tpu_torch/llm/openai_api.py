@@ -2,8 +2,10 @@
 ``ray_tpu/llm/openai_api.py``).
 
 ``LLMServer`` hosts one ``LLMEngine`` behind a dedicated engine-loop thread
-doing continuous batching; requests are asyncio coroutines fed as the loop
-emits tokens. It is driven directly with any request object that has
+doing continuous batching, or, with ``LLMConfig(disagg=DisaggConfig(...))``,
+prefill and decode engine pools behind a ``DisaggOrchestrator``
+(``llm/disagg``); requests are asyncio coroutines fed as the loop emits
+tokens. It is driven directly with any request object that has
 ``method``, ``path`` and ``json()``: ``await server(request)`` returns the
 payload dict (or, with ``stream``, the SSE transcript string).
 
@@ -13,9 +15,9 @@ surface (/v1/requests and /v1/requests/{id}/trace: the ``api.*`` spans;
 the engine's spans are not ported yet, ROADMAP.md Queue 1 B4c), and
 ``generate_stream`` for token-level text deltas.
 
-Not ported: ``build_openai_app`` (it deploys through ``ray_tpu.serve``,
-which has no counterpart here) and disaggregated serving (``disagg=``,
-ROADMAP.md Queue 1 C2).
+Not ported: ``build_openai_app`` and ``build_disagg_openai_app`` (they
+deploy through ``ray_tpu.serve``, which has no counterpart here, ROADMAP.md
+Queue 1 B8).
 
 The engine runner differs from the reference's in one way: callers never
 wait behind a running step. ``submit``, ``abort`` and state reads are
@@ -386,17 +388,18 @@ class LLMConfig:
     # admission control / load shedding (llm/admission.py); None = an
     # unbounded controller that still supports graceful drain
     admission: Any = None
-    # disaggregated prefill/decode: not ported (ROADMAP.md, Queue 1, C2)
+    # disaggregated prefill/decode (llm/disagg): a DisaggConfig (or a dict
+    # of one) replaces the single engine with prefill and decode pools
+    # behind the same routes; its engine defaults to ``engine`` above
     disagg: Any = None
     # the port's entry-point rule: the card unless the caller asks for the CPU
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.disagg is not None:
-            raise NotImplementedError(
-                "LLMConfig.disagg: disaggregated prefill/decode serving (llm/disagg) is not "
-                "ported to ray_tpu_torch yet (ROADMAP.md, Queue 1, C2)"
-            )
+        if isinstance(self.disagg, dict):
+            from ray_tpu_torch.llm.disagg import DisaggConfig
+
+            self.disagg = DisaggConfig(**{"engine": self.engine, **self.disagg})
 
 
 class LLMServer:
@@ -406,13 +409,25 @@ class LLMServer:
         self.config = config
         self.tokenizer = config.tokenizer or ByteTokenizer(config.engine.model.vocab_size)
         config.engine.eos_token_id = getattr(self.tokenizer, "eos_token_id", 2)
+        self.orchestrator = None
+        self.runner = None
+        if config.disagg is not None:
+            # disaggregated: submit, abort, depths, drain and stats route
+            # through the orchestrator, whose engines each have a loop thread
+            from ray_tpu_torch.llm.disagg import DisaggOrchestrator
 
-        def _build_engine():
-            # also the crash-recovery fallback: fresh engine, same weights/seed
-            return LLMEngine(config.engine, params=config.params, seed=config.seed,
-                             device=config.device)
+            config.disagg.engine.eos_token_id = config.engine.eos_token_id
+            self.orchestrator = DisaggOrchestrator(
+                config.disagg, params=config.params, seed=config.seed,
+                model_tag=config.model_id, device=config.device,
+            )
+        else:
+            def _build_engine():
+                # also the crash-recovery fallback: fresh engine, same weights/seed
+                return LLMEngine(config.engine, params=config.params, seed=config.seed,
+                                 device=config.device)
 
-        self.runner = _EngineRunner(_build_engine(), engine_factory=_build_engine)
+            self.runner = _EngineRunner(_build_engine(), engine_factory=_build_engine)
         acfg = config.admission
         if isinstance(acfg, dict):
             acfg = AdmissionConfig(**acfg)
@@ -424,32 +439,51 @@ class LLMServer:
 
     @property
     def engine(self) -> LLMEngine:
+        if self.orchestrator is not None:
+            # configuration reads (eos, max_seq): the pools share one config
+            return self.orchestrator._decode[0].engine
         # via the runner: crash recovery may have swapped in a rebuilt one
         return self.runner.engine
 
     def __del__(self):
         try:
-            self.runner.shutdown()
+            self._stop_engines()
         except Exception:  # noqa: BLE001 — interpreter teardown
             pass
 
+    def _stop_engines(self) -> None:
+        if self.orchestrator is not None:
+            self.orchestrator.shutdown()
+        if self.runner is not None:
+            self.runner.shutdown()
+
     def shutdown(self):
-        """Graceful shutdown: stop admission, give the engine a short
-        drain, stop the loop."""
+        """Graceful shutdown: stop admission, give the engines a short
+        drain, stop the loops."""
         try:
             self.drain(timeout_s=5.0)
         finally:
-            self.runner.shutdown()
+            self._stop_engines()
 
     def drain(self, timeout_s: float = 30.0) -> dict:
         """Maintenance drain: new requests get 503 + Retry-After while
         in-flight requests run to completion (bounded wait)."""
         self.admission.start_drain()
         deadline = time.time() + timeout_s
+        if self.orchestrator is not None:
+            while time.time() < deadline and self.orchestrator.has_unfinished():
+                time.sleep(0.05)
+            # the orchestrator's in-flight set, not engine depths: a handoff
+            # in transit sits on no engine
+            left = self.orchestrator.num_inflight()
+            return {"drained": left == 0, "inflight": left}
         while time.time() < deadline and self.runner.busy():
             time.sleep(0.05)
         left = sum(self.runner.depths())
         return {"drained": left == 0, "inflight": left}
+
+    def _abort(self, rid: str) -> None:
+        (self.orchestrator or self.runner).abort(rid)
 
     # -- request plumbing -----------------------------------------------------
 
@@ -471,8 +505,8 @@ class LLMServer:
         explicitly: the engine loop is a separate thread."""
         sink = _AsyncSink(asyncio.get_running_loop())
         try:
-            submitted = self.runner.submit_future(prompt_ids, sp, request_id=request_id,
-                                                  trace=obs.current(), sink=sink)
+            submitted = (self.orchestrator or self.runner).submit_future(
+                prompt_ids, sp, request_id=request_id, trace=obs.current(), sink=sink)
             rid, _ = await asyncio.wrap_future(submitted)
         except asyncio.CancelledError:
             # the caller went away; if the loop had already taken the submit,
@@ -495,11 +529,11 @@ class LLMServer:
                 if out.finished:
                     return
         finally:
-            self.runner.abort(rid)
+            self._abort(rid)
 
     def _abort_if_submitted(self, submitted: concurrent.futures.Future) -> None:
         if not submitted.cancelled() and submitted.exception() is None:
-            self.runner.abort(submitted.result()[0])
+            self._abort(submitted.result()[0])
 
     async def _generate_text(self, prompt_ids: list, sp: SamplingParams,
                              request_id: Optional[str] = None,
@@ -643,7 +677,13 @@ class LLMServer:
     def stats(self) -> dict:
         """The engine's scheduling/KV state (read between two steps), the
         admission counters, the runner's recoveries and the snapshot
-        header."""
+        header; disaggregated, the per-pool and transfer-plane view."""
+        if self.orchestrator is not None:
+            out = {"model_id": self.config.model_id, "mode": "disagg",
+                   **self.orchestrator.stats()}
+            out["admission"] = self.admission.stats()
+            out["telemetry"] = snapshot_meta()
+            return out
         out = self.runner.call(lambda: {"model_id": self.config.model_id,
                                         **self.engine.stats()})
         out["admission"] = self.admission.stats()
@@ -661,7 +701,11 @@ class LLMServer:
         the depth check before any of them enqueues. The depths are read
         without waiting for the engine loop."""
         with self._admit_lock:
-            num_waiting, num_running = self.runner.depths()
+            if self.orchestrator is not None:
+                depths = self.orchestrator.queue_depths()
+                num_waiting, num_running = sum(depths["prefill"]), sum(depths["decode"])
+            else:
+                num_waiting, num_running = self.runner.depths()
             rej = self.admission.check(num_waiting=num_waiting + self._admit_reserved,
                                        num_running=num_running)
             if rej is not None:

@@ -73,6 +73,10 @@ def _rope(c: LlamaConfig, device: torch.device):
     tables = _rope_tables.get(key)
     if tables is None:
         tables = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta, device=device)
+        if device.type == "cuda":
+            # written on this thread's stream and shared by every engine of
+            # the process: ready before another thread's stream can read it
+            torch.cuda.current_stream(device).synchronize()
         _rope_tables[key] = tables
     return tables
 

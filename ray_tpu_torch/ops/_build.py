@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -29,6 +30,8 @@ NVCC_FLAGS = (
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
+# engines on several threads may reach a kernel's first launch together
+_load_lock = threading.Lock()
 # ptxas register / shared-memory report of each library built by this process
 build_logs: dict[str, str] = {}
 
@@ -95,7 +98,10 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _libs.get(name)
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(_library_path(name)))
-        _libs[name] = lib
+        with _load_lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build((name,))
+                lib = ctypes.CDLL(str(_library_path(name)))
+                _libs[name] = lib
     return lib

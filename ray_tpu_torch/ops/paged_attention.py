@@ -23,8 +23,10 @@ kernel writes (``paged_attention_xla`` returns NaN there).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -151,6 +153,28 @@ def decode_workspace(q, H: int, KVH: int, D: int, B: int, max_kv: int):
     return splits, ws
 
 
+_launch_lock = threading.Lock()
+_thread_tally = threading.local()
+
+
+def count_launch(wrapper, name: str) -> None:
+    """Book one launch of ``wrapper``'s kernel: its ``launches`` count (every
+    thread's, under a lock so concurrent engines lose none) and this
+    thread's tally (``thread_launches``), which a graph capture reads so
+    that another thread's launches never enter its per-replay count."""
+    with _launch_lock:
+        wrapper.launches += 1
+    tally = getattr(_thread_tally, "counts", None)
+    if tally is None:
+        tally = _thread_tally.counts = collections.Counter()
+    tally[name] += 1
+
+
+def thread_launches() -> dict:
+    """Kernel launches booked by the calling thread so far, by kernel name."""
+    return dict(getattr(_thread_tally, "counts", {}))
+
+
 def raise_on_error(lib, name: str, rc: int) -> None:
     if rc != 0:
         err = getattr(lib, f"{name}_error_string")
@@ -194,7 +218,7 @@ def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens, *,
         None if ws is None else ws.data_ptr(), _DTYPE_CODES[q.dtype], stream,
     )
     raise_on_error(lib, "paged_attention", rc)
-    paged_attention_cuda.launches += 1
+    count_launch(paged_attention_cuda, "paged_attention")
     return out
 
 

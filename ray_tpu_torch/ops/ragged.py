@@ -33,6 +33,7 @@ import torch
 from ray_tpu_torch.ops.paged_attention import (
     _DTYPE_CODES,
     check_kernel_args,
+    count_launch,
     decode_workspace,
     pick_impl,
     raise_on_error,
@@ -124,7 +125,7 @@ def ragged_attention_cuda(q, k_cache, v_cache, block_tables, cu_q_lens, context_
         None if ws is None else ws.data_ptr(), _DTYPE_CODES[q.dtype], stream,
     )
     raise_on_error(lib, "ragged_attention", rc)
-    ragged_attention_cuda.launches += 1
+    count_launch(ragged_attention_cuda, "ragged_attention")
     return out
 
 

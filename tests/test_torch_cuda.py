@@ -992,3 +992,155 @@ def test_llm_server_on_card_matches_cpu():
             assert st["pipeline"]["graphs"]["replays"] > 0
     assert results[0] == results[1]
     assert results[0][1] == results[0][0][0]["choices"][0]["text"]
+
+
+def _export_after_prefill(eng, prompt, rid):
+    """Admit ``prompt`` on ``eng``, step until its prompt is complete, export."""
+    from ray_tpu_torch.llm import SamplingParams
+
+    eng.add_request(prompt, SamplingParams(max_tokens=12, temperature=0.0, ignore_eos=True),
+                    request_id=rid)
+    while rid in eng._mixed_prefills or not eng.requests[rid].output_token_ids:
+        eng.step()
+    return eng.export_request(rid)
+
+
+def test_import_after_capture_is_read_by_the_replays():
+    """fp32, mixed batching on the card: a decode engine serves a first pass
+    (its graphs captured), then twice imports handoffs of the same prompts
+    that a card prefill engine exported. The imports write the cache in
+    place (same tensors), the second round captures nothing and replays
+    only graphs captured before its imports, and every continued stream
+    equals a colocated engine's. The chunk controller is pinned (no
+    step-up), so both rounds decode the same chunks."""
+    _need_cuda()
+    from ray_tpu_torch.llm.pipeline import ChunkController, PipelineStats
+
+    prompts = _prompts_long()
+    want = [t for t, _ in _serve_tokens(_packed_engine(torch.float32), prompts, [None] * 4)]
+    dec = _packed_engine(torch.float32)
+    dec._pipe_ctl, dec._pipe_stats = ChunkController(initial=8, target_ratio=0.0), PipelineStats()
+    assert [t for t, _ in _serve_tokens(dec, prompts, [None] * 4)] == want
+    fams = (dec._graphs, dec._mixed_graphs)
+    assert all(f.captures > 0 for f in fams)
+    ptrs = {n: t.data_ptr() for n, t in dec.cache.items()}
+    prefills = dec.num_prefill_batches
+    pre = _packed_engine(torch.float32)
+    for rnd in range(2):
+        captures0 = sum(f.captures for f in fams)
+        keys0 = [set(f._graphs) for f in fams]
+        replays0 = [dict(f.replays_by_key) for f in fams]
+        handoffs = [_export_after_prefill(pre, p, f"h{rnd}-{i}") for i, p in enumerate(prompts)]
+        for h in handoffs:
+            assert h.k_pages.is_pinned() and h.verify()
+            dec.import_handoff(h)
+            assert set(h.timings) == {"pin_ms", "gather_ms", "d2h_ms", "seal_ms", "h2d_ms",
+                                      "scatter_ms"}
+        assert {n: t.data_ptr() for n, t in dec.cache.items()} == ptrs
+        got = {}
+        while dec.has_unfinished():
+            for o in dec.step():
+                if o.finished:
+                    got[o.request_id] = o.output_token_ids
+        assert [got[f"h{rnd}-{i}"] for i in range(4)] == want
+        if rnd == 1:
+            assert sum(f.captures for f in fams) == captures0
+            reused = sum(f.replays_by_key[k] - r0.get(k, 0)
+                         for f, keys, r0 in zip(fams, keys0, replays0) for k in keys)
+            assert reused > 0
+    assert dec.num_prefill_batches == prefills and dec.stats()["num_kv_imports"] == 8
+    assert dec.allocator.num_free == dec.config.num_blocks
+
+
+def test_bf16_export_import_bit_for_bit():
+    """bf16 on the card: the exported pages are the prefill cache's slots,
+    bit for bit; imported, they are the decode cache's slots, bit for bit."""
+    _need_cuda()
+    pre = _packed_engine(torch.bfloat16)
+    prompt = _prompts_long()[3]
+    pre.add_request(prompt, None, request_id="b")
+    while "b" in pre._mixed_prefills or not pre.requests["b"].output_token_ids:
+        pre.step()
+    src = pre.requests["b"].seq.slots_for_range(0, len(prompt))
+    k_src = pre.cache["k"][:, :, src].cpu()
+    v_src = pre.cache["v"][:, :, src].cpu()
+    h = pre.export_request("b")
+    assert h.k_pages.dtype == torch.bfloat16 and h.num_kv_tokens == len(prompt)
+    assert torch.equal(h.k_pages, k_src) and torch.equal(h.v_pages, v_src)
+    dec = _packed_engine(torch.bfloat16)
+    dec.import_handoff(h)
+    dst = dec.requests["b"].seq.slots_for_range(0, len(prompt))
+    assert torch.equal(dec.cache["k"][:, :, dst].cpu(), k_src)
+    assert torch.equal(dec.cache["v"][:, :, dst].cpu(), v_src)
+
+
+def test_two_engines_capture_concurrently_on_two_threads():
+    """Two fresh fp32 engines served at once from two threads, each
+    capturing its graphs while the other one works: the tokens equal one
+    engine served alone, and each graph's per-replay launch count equals
+    the lone engine's (a capture reads its own thread's launch tally)."""
+    _need_cuda()
+    import threading
+
+    prompts = _prompts_long()
+    alone = _packed_engine(torch.float32)
+    want = [t for t, _ in _serve_tokens(alone, prompts, [None] * 4)]
+    engines = [_packed_engine(torch.float32) for _ in range(2)]
+    results, errors = [None, None], []
+    start = threading.Barrier(2)
+
+    def serve(i):
+        try:
+            start.wait()
+            for _ in range(2):  # the second pass replays what the first captured
+                engines[i].allocator.drop_prefix_cache()
+                results[i] = [t for t, _ in _serve_tokens(engines[i], prompts, [None] * 4)]
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors, errors
+    assert results == [want, want]
+    for eng in engines:
+        for fam, ref in ((eng._graphs, alone._graphs), (eng._mixed_graphs, alone._mixed_graphs)):
+            assert fam.captures > 0 and fam.replays > 0
+            common = fam._graphs.keys() & ref._graphs.keys()
+            assert common
+            assert all(fam._graphs[k][2] == ref._graphs[k][2] for k in common)
+
+
+def test_disagg_on_card_matches_cpu_colocated():
+    """The orchestrator on the card (fp32; one prefill and one decode
+    engine, each on its loop thread, graphs captured concurrently) gives
+    the CPU colocated engine's greedy tokens, mixed batching on and off."""
+    _need_cuda()
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.llm.disagg import DisaggConfig, DisaggOrchestrator
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = LlamaConfig(**GRAPH_MODEL, dtype=torch.float32)
+    params = init_params(model, torch.Generator().manual_seed(0), device="cpu")
+    on_card = {k: (v.cuda() if torch.is_tensor(v) else {n: t.cuda() for n, t in v.items()})
+               for k, v in params.items()}
+    prompts = _prompts_long()
+    sp = SamplingParams(max_tokens=12, temperature=0.0, ignore_eos=True)
+    for mixed in (False, True):
+        cfg = EngineConfig(model=model, num_blocks=64, block_size=4, max_num_seqs=4,
+                           max_prefill_len=64, mixed_batch=mixed, mixed_prefill_chunk=16)
+        want = LLMEngine(cfg, params=params, device="cpu").generate(prompts, sp)
+        orch = DisaggOrchestrator(DisaggConfig(engine=cfg), params=on_card, device="cuda")
+        try:
+            got = orch.generate(prompts, sp, timeout_s=120)
+            st = orch.stats()
+        finally:
+            orch.shutdown()
+        assert got == want
+        assert st["transfer"]["kv_transfers"] == 4 and st["transfer"]["reprefills"] == 0
+        assert st["decode"][0]["num_prefill_batches"] == 0
+        assert st["decode"][0]["pipeline"]["graphs"]["replays"] > 0
+        assert orch._prefill[0].engine.params["embed"].data_ptr() == on_card["embed"].data_ptr()

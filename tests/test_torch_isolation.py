@@ -44,8 +44,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
 
 def test_port_imports_without_jax_triton_or_gpu():
     """Every module of the port imports with jax, optax, ray_tpu and triton
-    blocked, and the plain path runs pipelined and speculative decoding and
-    a train step on the CPU."""
+    blocked, and the plain path runs pipelined and speculative decoding,
+    disaggregated serving and a train step on the CPU."""
     code = """
 import sys
 for name in ("jax", "jaxlib", "optax", "ray_tpu", "triton"):
@@ -59,6 +59,7 @@ import ray_tpu_torch.nn.layers, ray_tpu_torch.models.llama
 import ray_tpu_torch.train, ray_tpu_torch.train.step
 import ray_tpu_torch.models.registry, ray_tpu_torch.obs, ray_tpu_torch.util.metrics
 import ray_tpu_torch.llm.admission, ray_tpu_torch.llm.openai_api, ray_tpu_torch.llm.batch
+import ray_tpu_torch.llm.disagg, ray_tpu_torch.llm.disagg.orchestrator
 import dataclasses, torch
 from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
 from ray_tpu_torch.models import llama
@@ -74,6 +75,12 @@ spec = LLMEngine(EngineConfig(model=LLAMA_TINY, num_blocks=32, block_size=4, max
                               max_prefill_len=32, spec=SpecConfig(num_draft_tokens=2)),
                  device="cpu")
 assert len(spec.generate([[5, 6, 5, 6, 5]], SamplingParams(max_tokens=4))[0]) == 4
+from ray_tpu_torch.llm.disagg import DisaggConfig, DisaggOrchestrator
+orch = DisaggOrchestrator(DisaggConfig(engine=EngineConfig(
+    model=LLAMA_TINY, num_blocks=32, block_size=4, max_num_seqs=2, max_prefill_len=32)),
+    device="cpu")
+assert len(orch.generate([[5, 6, 7]], SamplingParams(max_tokens=3, temperature=0.0))[0]) == 3
+orch.shutdown()
 cfg = dataclasses.replace(LLAMA_TINY, attention_impl="flash", remat=True)
 state = TrainState.create(llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
                           adamw())

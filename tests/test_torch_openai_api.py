@@ -278,8 +278,11 @@ def test_refusals():
     JAdmissionConfig(target_queue_wait_s=0.5)  # the reference sheds on its histogram
     with pytest.raises(NotImplementedError, match="B4c"):
         AdmissionConfig(target_queue_wait_s=0.5)
-    with pytest.raises(NotImplementedError, match="C2"):
-        LLMConfig(disagg={"num_prefill": 1})
+    # disaggregated serving is ported (llm/disagg); its unported transfer
+    # planes are refused by name
+    assert LLMConfig(disagg={"num_prefill": 1}).disagg.num_prefill == 1
+    with pytest.raises(NotImplementedError, match="C5/B8"):
+        LLMConfig(disagg={"connector": "rpc"})
 
 
 # ---------------------------------------------------------------------------
