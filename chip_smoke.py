@@ -47,7 +47,17 @@ Phases, each printing one JSON line:
            replay with the ragged kernel inside, and unless a replay of the
            largest mixed bucket gives the eager step's logits and K/V bits.
            Each pass reports the mixed graphs captured and their capture
-           seconds per T_pad bucket, and its peak device memory
+           seconds per T_pad bucket, and its peak device memory.
+           Observability: fails unless every request of the first pass has
+           the engine.queue_wait, engine.prefill and llm.request spans and a
+           decode_chunk or mixed_round span, its spans cover >= 90 % of
+           arrival -> finish, each pass adds one TTFT / TPOT / queue-wait /
+           e2e sample per request, and the utilization gauges refreshed at
+           the third step read the engine's own values. The hooks' host ms
+           per pass (timed by wrapping them on that engine instance) and a
+           steady A/B in turns, hooks made no-ops on the instance then on,
+           each pass under a device-events-only profiler: tok/s, TTFT and
+           the device's idle share
   lora     LoRA multiplexing at LLAMA3_8B (the engine phase's weights,
            configuration and 12 requests): max_loras 4, rank 8, targets wq
            and wv, 3 adapters of random weights (numpy seeds 1-3, A ~
@@ -82,7 +92,10 @@ Phases, each printing one JSON line:
            kernels' launches counted over the first pass. Fails unless
            every completion has its 32 tokens or a stop, /v1/models names
            llama3-8b at 8192, a greedy request's streamed deltas join to
-           its completion's text, a preemption before a mixed step and a
+           its completion's text, the first pass adds one TTFT sample per
+           row to the exported Prometheus text, the last steady pass's rows
+           each have api.* and engine.* spans covering >= 90 % of their
+           /v1/requests/{id}/trace, a preemption before a mixed step and a
            crash after a step with a decode chunk in flight each recover
            (2 recoveries; every position delivered once), a burst of 24 at
            max_queue_depth 3 sheds 429s with Retry-After while the admitted
@@ -97,13 +110,18 @@ Phases, each printing one JSON line:
            parked until the 12 handoffs are sent, so both decode one batch
            shape: their bf16 streams must be equal, and the first reads
            every import back from the live cache, bit for bit) and a gated
-           pass with one handoff corrupted in flight; tok/s, TTFT, TPOT,
+           pass with one handoff corrupted in flight (a CORRUPT_KV_TRANSFER
+           chaos fault at the connector's disagg.kv_transfer gate); tok/s,
+           TTFT, TPOT,
            per handoff the export (gather, d2h, seal) and import (verify,
            h2d, scatter) ms, bytes handed off, graphs and capture seconds
            per engine, K3/K4 launches per engine (eager and in replays),
            peak memory. Fails unless the first pass makes 12 transfers and
            no re-prefill, the decode engine runs no prefill or mixed step,
-           every request has 32 tokens, every mixed step of the prefill
+           every request has 32 tokens, each request of the first pass has
+           an llm.kv_transfer span between its prefill and decode spans and
+           its spans cover >= 90 %, every pass books one
+           llm_kv_transfer_seconds sample per handoff, every mixed step of the prefill
            engine is a replay with K4 inside and the decode chunks replays
            with K3 inside, a capture of one engine overlaps the other's
            steps, the per-thread launch tallies account for every wrapper
@@ -165,6 +183,8 @@ before printing anything. Imports nothing of JAX or of ray_tpu.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -824,6 +844,125 @@ def _check_packed_replays(st_family: dict, dispatches: int, what: str) -> None:
         raise AssertionError(f"{what}: the ragged kernel did not run inside the replays")
 
 
+# the engine's observability hooks (host-only dict writes): timed, or made
+# no-ops, by wrapping them on one engine instance, never in the package
+# every observability method of the engine: the span hooks, the gauges, and
+# ``_obs_series``, through which every other registry write goes (the
+# prefix counters, the pipeline's two histograms, the spec series, an
+# abort's SLO record). Left on in the A/B's "off" side: the chaos guard (an
+# attribute read) and the gauge throttle (a clock read) once a step, and
+# the ``time.time()`` stamps the spans read.
+OBS_HOOKS = ("_obs_span", "_obs_prefilled", "_obs_decode_round", "_obs_finalize",
+             "_count_preemption", "update_telemetry_gauges", "_obs_series")
+# the first pass's launches at this configuration before the observability
+# hooks existed (PERF.md kernel table)
+FIRST_PASS_LAUNCHES = {"paged_attention": {"device": 1056, "eager": 32, "in_replays": 1024},
+                       "ragged_attention": {"device": 480, "eager": 160, "in_replays": 320}}
+TRACE_NEED = {"engine.queue_wait", "engine.prefill", "llm.request"}
+DECODE_SPANS = {"engine.decode_chunk", "engine.mixed_round"}
+
+
+def _time_hooks(eng) -> dict:
+    """Wrap the engine's hooks on this instance: host seconds inside them
+    (``s``: outermost calls only, since a round's span and finalize calls
+    nest; ``by_hook``: inclusive) and the spans recorded. The caller
+    resets the counters per pass (``_hook_cost``)."""
+    acc = {"s": 0.0, "calls": 0, "spans": 0, "depth": 0,
+           "by_hook": dict.fromkeys(OBS_HOOKS, 0.0)}
+    for name in OBS_HOOKS:
+        fn = getattr(type(eng), name).__get__(eng)
+
+        def timed(*a, _fn=fn, _name=name, **k):
+            acc["spans"] += _name == "_obs_span"
+            acc["depth"] += 1
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                dt = time.perf_counter() - t0
+                acc["by_hook"][_name] += dt
+                acc["depth"] -= 1
+                if not acc["depth"]:
+                    acc["s"] += dt
+                    acc["calls"] += 1
+
+        setattr(eng, name, timed)
+    return acc
+
+
+def _hooks_off(eng) -> None:
+    """The hooks as no-ops on this instance (the A/B's "off" side)."""
+    for name in OBS_HOOKS:
+        setattr(eng, name, lambda *a, **k: None)
+    eng._obs_decode_round = lambda batch, outputs, *a, **k: outputs
+
+
+def _hook_cost(acc: dict) -> dict:
+    out = {"host_ms": acc["s"] * 1e3, "calls": acc["calls"], "spans": acc["spans"],
+           "ms_by_hook": {k: v * 1e3 for k, v in acc["by_hook"].items()}}
+    acc.update(s=0.0, calls=0, spans=0, by_hook=dict.fromkeys(OBS_HOOKS, 0.0))
+    return out
+
+
+def _check_traces(rec, traces: dict, what: str, need=TRACE_NEED, one_of=DECODE_SPANS) -> dict:
+    """Every request's trace (rid -> trace_id in the recorder ``rec``) holds
+    the ``need`` spans and one of ``one_of``, and its spans cover >= 90 %
+    of its root (arrival -> finish)."""
+    covs, n_spans = [], []
+    for rid, tid in traces.items():
+        spans = rec.get(tid)
+        names = {s.name for s in spans}
+        if not need <= names or (one_of and not names & one_of):
+            raise AssertionError(f"{what}: {rid}'s trace lacks spans: {sorted(names)}")
+        covs.append(rec.summary(tid)["coverage_pct"])
+        n_spans.append(len(spans))
+    if min(covs) < 90.0:
+        raise AssertionError(f"{what}: span coverage {min(covs)} % < 90 %")
+    return {"requests": len(covs), "coverage_pct_min": min(covs),
+            "spans_per_request_mean": sum(n_spans) / len(n_spans)}
+
+
+def _slo_counts(tag: str) -> dict:
+    """Samples so far in the SLO histograms of one model tag."""
+    from ray_tpu_torch.obs import slo
+
+    out = {}
+    for name, h in (("ttft", slo.ttft_histogram()), ("tpot", slo.tpot_histogram()),
+                    ("queue_wait", slo.queue_wait_histogram()), ("e2e", slo.e2e_histogram())):
+        out[name] = sum(n for k, (_b, _s, n) in h.hist_data().items() if k[0] == tag)
+    return out
+
+
+def _check_slo_delta(before: dict, tag: str, n: int, what: str) -> dict:
+    d = {k: v - before[k] for k, v in _slo_counts(tag).items()}
+    if any(v != n for v in d.values()):
+        raise AssertionError(f"{what}: SLO samples {d} for {n} finished requests")
+    return d
+
+
+def _gauge_probe(eng, out: dict):
+    """An ``on_step`` callback for ``_serve``: at the third step, refresh the
+    engine's gauges and hold them against its own state."""
+    from ray_tpu_torch.llm.engine import utilization_gauges
+
+    def probe(step_i):
+        if step_i != 3:
+            return
+        eng.update_telemetry_gauges()
+        tag = (eng.model_tag,)
+        got = {k: g.series()[tag] for k, g in utilization_gauges().items()}
+        c = eng.config
+        want = {"kv_pages_used": c.num_blocks - eng.allocator.num_free,
+                "kv_pages_total": c.num_blocks,
+                "kv_hbm_bytes": sum(t.numel() * t.element_size() for t in eng.cache.values()),
+                "queue_depth": len(eng.waiting), "running": len(eng.running)}
+        if got != {k: float(v) for k, v in want.items()}:
+            raise AssertionError(f"engine: gauges {got} != the engine's {want}")
+        out.update(got)
+
+    return probe
+
+
 def engine_phase(dev, params, params_s: float) -> dict:
     """Serve 12 requests through LLMEngine at LLAMA3_8B width: the default
     (pipelined decode on captured CUDA graphs), then the same requests on
@@ -842,6 +981,11 @@ def engine_phase(dev, params, params_s: float) -> dict:
     eng = LLMEngine(cfg, params=params, device=dev)
     torch.cuda.synchronize()
     init_s = params_s + time.perf_counter() - t0
+    from ray_tpu_torch import obs
+
+    eng.model_tag = tag = "chip-engine"
+    hooks = _time_hooks(eng)
+    gauges: dict = {}
 
     prompts, sps = _engine_traffic(model)
 
@@ -854,10 +998,19 @@ def engine_phase(dev, params, params_s: float) -> dict:
     marks = _launch_marks(eng)
     replayed0 = _replayed_marks(eng)
     pmarks = _pass_marks(eng)
-    finals, reqs, wall, steps = _serve(eng, prompts, sps, "r")
+    slo0 = _slo_counts(tag)
+    finals, reqs, wall, steps = _serve(eng, prompts, sps, "r",
+                                       on_step=_gauge_probe(eng, gauges))
     launches = _launch_counts(eng, marks)
     replayed = {n: v - replayed0[n] for n, v in _replayed_marks(eng).items()}
     first_graphs = _pass_graphs(eng, pmarks)
+    first_hooks = _hook_cost(hooks)
+    first_obs = {"traces": _check_traces(obs.get_recorder(), _trace_ids(reqs),
+                                         "engine first pass"),
+                 "slo_samples": _check_slo_delta(slo0, tag, 12, "engine first pass"),
+                 "gauges_at_step_3": gauges, "hooks": first_hooks}
+    if not gauges:
+        raise AssertionError("engine: the gauge probe never ran")
 
     st = eng.stats()
     _check_served(eng, finals, model, 12, 32)
@@ -871,6 +1024,12 @@ def engine_phase(dev, params, params_s: float) -> dict:
     graphs = st["pipeline"]["graphs"]
     if graphs["replays"] <= 0 or graphs["replay_kernel_launches"].get("paged_attention", 0) <= 0:
         raise AssertionError(f"no decode chunk ran as a graph replay with the paged kernel: {graphs}")
+    # the hooks add no launch and no sync: the first pass launches and
+    # replays what it did before they existed
+    got = {n: {"device": launches[n], "eager": launches[n] - replayed[n],
+               "in_replays": replayed[n]} for n in FIRST_PASS_LAUNCHES}
+    if got != FIRST_PASS_LAUNCHES:
+        raise AssertionError(f"engine: first-pass launches {got} != {FIRST_PASS_LAUNCHES}")
     ttft = [r.t_first_token - r.arrival for r in reqs.values()]
     res = {
         "phase": "engine", "model": "LLAMA3_8B", "layers": model.n_layers,
@@ -882,6 +1041,7 @@ def engine_phase(dev, params, params_s: float) -> dict:
         "kernel_launches": launches,
         "kernel_launches_in_replays": replayed,
         "kernel_launches_eager": {n: launches[n] - replayed[n] for n in launches},
+        "obs": first_obs,
         "first_pass_graphs": first_graphs, "pipeline": st["pipeline"], "mixed": st["mixed"],
         "prefix_cache": st["prefix_cache"], "free_blocks": eng.allocator.num_free,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
@@ -894,14 +1054,25 @@ def engine_phase(dev, params, params_s: float) -> dict:
     # A later pass may capture graphs too: the chunk controller may step to
     # a longer chunk, whose bucket is captured on first use. So a third pass
     # reads the steady state, and each says how many graphs exist after it.
-    for key, tag in (("warm", "w"), ("steady", "x")):
+    for key, rtag in (("warm", "w"), ("steady", "x")):
         eng.allocator.drop_prefix_cache()
         pmarks = _pass_marks(eng)
-        finals_w, reqs_w, wall_w, _ = _serve(eng, prompts, sps, tag)
+        slo0 = _slo_counts(tag)
+        finals_w, reqs_w, wall_w, _ = _serve(eng, prompts, sps, rtag)
         res[key] = {**_pass_summary(finals_w, reqs_w, wall_w, finals),
                     "graphs": _pass_graphs(eng, pmarks),
                     "graphs_captured_so_far": eng._graphs.captures,
-                    "chunks_by_steps_so_far": eng.stats()["pipeline"]["chunks_by_steps"]}
+                    "chunks_by_steps_so_far": eng.stats()["pipeline"]["chunks_by_steps"],
+                    "hooks": _hook_cost(hooks),
+                    "traces": _check_traces(obs.get_recorder(), _trace_ids(reqs_w),
+                                            f"engine {key} pass"),
+                    "slo_samples": _check_slo_delta(slo0, tag, 12, f"engine {key} pass")}
+    # one steady pair, hooks off then on, under a device-events-only
+    # profiler (scripts/port_hooks_ab.py runs several pairs in turns)
+    ab = {side: _ab_pass(eng, prompts, sps, finals, side, rtag, profiled=True)
+          for side, rtag in (("off", "a"), ("on", "b"))}
+    ab["on_over_off_tok_per_s"] = ab["on"]["output_tok_per_s"] / ab["off"]["output_tok_per_s"]
+    res["hooks_ab"] = ab
     eng.allocator.drop_prefix_cache()
     prof = _profile_serving(eng, prompts, sps)
     st = eng.stats()
@@ -934,6 +1105,82 @@ def engine_phase(dev, params, params_s: float) -> dict:
     emit({**prof, "phase": "engine_profile", "decode": "pipelined"})
     emit({**prof_sync, "phase": "engine_profile", "decode": "sync"})
     return {**res, "profile": prof}
+
+
+def _ab_pass(eng, prompts, sps, first: dict, side: str, rtag: str, profiled: bool) -> dict:
+    """One steady pass of the hooks A/B, the prefix cache emptied first:
+    ``side`` "off" makes every hook a no-op on the instance, "on" times
+    them (``_time_hooks``) and checks every request's trace. With
+    ``profiled``, under torch.profiler recording device events only (no
+    host op is recorded, so it costs both sides the same): the device's
+    idle share. Also the interpreter's garbage-collection pauses inside the
+    pass. The instance has the class's hooks again after it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch import obs
+
+    for name in OBS_HOOKS:
+        eng.__dict__.pop(name, None)
+    acc = _time_hooks(eng) if side == "on" else None
+    if side == "off":
+        _hooks_off(eng)
+    eng.allocator.drop_prefix_cache()
+    c0 = sum(g.captures for g in _families(eng))
+
+    def serve():
+        with _gc_pauses() as gcp:
+            return (*_serve(eng, prompts, sps, rtag), gcp)
+
+    try:
+        if profiled:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                finals, reqs, wall, _, pauses = serve()
+        else:
+            finals, reqs, wall, _, pauses = serve()
+    finally:
+        for name in OBS_HOOKS:
+            eng.__dict__.pop(name, None)
+    out = {"side": side, **_pass_summary(finals, reqs, wall, first),
+           "gc_pause_ms": pauses["ms"], "gc_collections": pauses["n"],
+           "graphs_captured": sum(g.captures for g in _families(eng)) - c0}
+    if profiled:
+        busy_ms, _ = _device_time(prof)
+        out["device_busy_ms"] = busy_ms
+        out["device_idle_share"] = None if busy_ms is None else 1.0 - busy_ms / 1e3 / wall
+    if acc is not None:
+        out["hooks"] = _hook_cost(acc)
+        out["traces"] = _check_traces(obs.get_recorder(), _trace_ids(reqs),
+                                      f"hooks A/B {side} pass")
+    return out
+
+
+@contextlib.contextmanager
+def _gc_pauses():
+    """The interpreter's garbage-collection pauses inside the block, as
+    ``{"ms": ..., "n": ..., "ms_by_gen": [g0, g1, g2], "n_by_gen": [...]}``
+    (by the generation collected)."""
+    acc = {"ms": 0.0, "n": 0, "t0": None, "ms_by_gen": [0.0] * 3, "n_by_gen": [0] * 3}
+
+    def cb(phase, info):
+        if phase == "start":
+            acc["t0"] = time.perf_counter()
+        elif acc["t0"] is not None:
+            dt = (time.perf_counter() - acc["t0"]) * 1e3
+            acc["ms"] += dt
+            acc["n"] += 1
+            acc["ms_by_gen"][info["generation"]] += dt
+            acc["n_by_gen"][info["generation"]] += 1
+            acc["t0"] = None
+
+    gc.callbacks.append(cb)
+    try:
+        yield acc
+    finally:
+        gc.callbacks.remove(cb)
+
+
+def _trace_ids(reqs: dict) -> dict:
+    return {r: q.trace.trace_id for r, q in reqs.items()}
 
 
 def _engine_traffic(model):
@@ -1240,13 +1487,13 @@ def _pass_summary(finals, reqs, wall, first) -> dict:
             "greedy_tokens_equal_first_pass": f"{tokens_same}/{10 * len(first['r0'])}"}
 
 
-def _serve(eng, prompts, sps, tag, mark_steps: bool = False, lora_ids=None):
+def _serve(eng, prompts, sps, tag, mark_steps: bool = False, lora_ids=None, on_step=None):
     """Run the requests to completion (request i under adapter
     ``lora_ids[i]``, default none); the last request (the second on the
     shared prefix) arrives once the first one has its first token, so its
     admission can hit the prefix cache. With ``mark_steps`` each step runs
     inside a profiler range and its kind is recorded: "mixed" when it made
-    a mixed dispatch, else "decode"."""
+    a mixed dispatch, else "decode". ``on_step(i)`` runs after step i."""
     import torch
     from torch.profiler import record_function
 
@@ -1279,6 +1526,8 @@ def _serve(eng, prompts, sps, tag, mark_steps: bool = False, lora_ids=None):
             if out.finished:
                 finals[out.request_id] = out.output_token_ids
         steps += 1
+        if on_step is not None:
+            on_step(steps)
         if steps > 10_000:
             raise AssertionError("the engine made no progress")
     torch.cuda.synchronize()
@@ -1555,8 +1804,36 @@ def _api_pass(server, recorded: dict, bodies, chats, streams) -> dict:
         "mean_ttft_s": float(np.mean([r.t_first_token - r.arrival for r in recorded.values()])),
         "stream_ttft_s": [first for first, _ in stream_outs],
         "finish_reasons": {k: finishes.count(k) for k in sorted(set(finishes))},
-        "completions": completions, "streams": [t for _, t in stream_outs],
+        "completions": completions, "chats": chat_outs, "streams": [t for _, t in stream_outs],
     }
+
+
+def _ttft_count(model: str) -> int:
+    """``llm_ttft_seconds``' sample count of one model, read from the
+    Prometheus text the port exports."""
+    from ray_tpu_torch.util.metrics import prometheus_text
+
+    line = f'ray_tpu_llm_ttft_seconds_count{{model="{model}"}} '
+    return next((int(ln[len(line):]) for ln in prometheus_text().splitlines()
+                 if ln.startswith(line)), 0)
+
+
+def _check_api_traces(server, rows: list, what: str) -> dict:
+    """Every row's /v1/requests/{id}/trace holds api.* and engine.* spans
+    and covers >= 90 % of the api span."""
+    covs, n_spans = [], []
+    for o in rows:
+        t = server.request_trace(o["id"])
+        names = {s["name"] for s in t.get("spans", ())}
+        if not any(n.startswith("api.") for n in names) or not TRACE_NEED <= names \
+                or not names & DECODE_SPANS:
+            raise AssertionError(f"{what}: {o['id']}'s trace lacks spans: {sorted(names)}")
+        covs.append(t["coverage_pct"])
+        n_spans.append(t["total_spans"])
+    if min(covs) < 90.0:
+        raise AssertionError(f"{what}: span coverage {min(covs)} % < 90 %")
+    return {"rows": len(covs), "coverage_pct_min": min(covs),
+            "spans_per_row_mean": sum(n_spans) / len(n_spans)}
 
 
 def _frontend_ab(server, recorded: dict, bodies) -> dict:
@@ -1682,13 +1959,20 @@ def api_phase(dev, params, engine_res: dict) -> dict:
     ragged_attention_cuda.launches = 0
     marks = _launch_marks(eng)
     pmarks = _pass_marks(eng)
+    ttft0 = _ttft_count("llama3-8b")
     first = _api_pass(server, recorded, bodies, chats, streams)
     launches = _launch_counts(eng, marks)
     res["first_pass_graphs"] = _pass_graphs(eng, pmarks)
+    # one TTFT sample per finished row in the exported text
+    res["ttft_samples_first_pass"] = _ttft_count("llama3-8b") - ttft0
+    if res["ttft_samples_first_pass"] != len(recorded):
+        raise AssertionError(f"api: {res['ttft_samples_first_pass']} TTFT samples for "
+                             f"{len(recorded)} finished rows")
     if min(launches.values()) <= 0:
         raise AssertionError(f"api: a kernel of the path never launched: {launches}")
     res["kernel_launches"] = launches
-    summary = lambda p: {k: v for k, v in p.items() if k not in ("completions", "streams")}  # noqa: E731
+    summary = lambda p: {k: v for k, v in p.items()  # noqa: E731
+                         if k not in ("completions", "chats", "streams")}
     res["first"] = summary(first)
     if None in first["stream_ttft_s"]:
         raise AssertionError("api: a stream yielded no delta")
@@ -1697,10 +1981,15 @@ def api_phase(dev, params, engine_res: dict) -> dict:
     # the second pass and "steady" the median of the passes that captured
     # no graph
     passes = []
-    for _ in range(4):
+    for k in range(4):
         c0 = sum(g.captures for g in _families(eng))
-        p = summary(_api_pass(server, recorded, bodies, chats, streams))
-        passes.append({**p, "graphs_captured": sum(g.captures for g in _families(eng)) - c0})
+        raw = _api_pass(server, recorded, bodies, chats, streams)
+        passes.append({**summary(raw),
+                       "graphs_captured": sum(g.captures for g in _families(eng)) - c0})
+    # the traces of the last pass's rows (a first pass's requests may wait
+    # in the runner's inbox behind a capturing step, outside every span)
+    res["traces_last_pass"] = _check_api_traces(server, raw["completions"] + raw["chats"],
+                                                "api last pass")
     res["warm"] = passes[0]
     read = [p for p in passes if not p["graphs_captured"]] or passes
     res["steady"] = {
@@ -1868,27 +2157,32 @@ def api_phase(dev, params, engine_res: dict) -> dict:
 
 def _disagg_connector(namespace: str):
     """The disagg phase's in-process connector: it keeps each request's last
-    handoff while ``keep`` is set (for the read-back check) and flips bytes
-    of the handoff of request ``corrupt`` once (the reference's chaos
-    corruption, not re-sealed)."""
+    handoff while ``keep`` is set (for the read-back check), as handed to
+    the connector's chaos gate."""
     from ray_tpu_torch.llm.disagg import InProcessConnector
-    from ray_tpu_torch.llm.disagg.connector import _corrupt_handoff
 
     class Recording(InProcessConnector):
         def __init__(self):
             super().__init__(namespace)
-            self.keep, self.sent, self.corrupt, self.corrupted = False, {}, None, 0
+            self.keep, self.sent = False, {}
 
         def send(self, target, handoff, timeout_s=30.0):
             if self.keep:
                 self.sent[handoff.request_id] = handoff
-            if handoff.request_id == self.corrupt:
-                self.corrupt = None
-                self.corrupted += 1
-                handoff = _corrupt_handoff(handoff)
             super().send(target, handoff, timeout_s)
 
     return Recording()
+
+
+def _corrupt_once(request_id: str):
+    """Install a chaos schedule that corrupts the handoff of ``request_id``
+    once at the connector's gate (site ``disagg.kv_transfer``; the pages
+    bit-flipped, not re-sealed). The caller uninstalls it."""
+    from ray_tpu_torch import chaos
+
+    return chaos.install(chaos.FaultSchedule(0, [chaos.FaultSpec(
+        chaos.CORRUPT_KV_TRANSFER, site="disagg.kv_transfer",
+        match={"request_id": request_id}, max_fires=1)]))
 
 
 def _watch_steps(eng, windows: list, hooks: dict) -> None:
@@ -1993,9 +2287,15 @@ def _disagg_pass(orch, conn, prompts, sps, tag: str, gated: bool = False) -> dic
         def put(self, item):
             out_q.put((self.rid, time.perf_counter(), item))
 
+    from ray_tpu_torch import obs
+    from ray_tpu_torch.obs import slo
+
     n = len(prompts)
     pe, de = orch._prefill[0], orch._decode[0]
     hand0 = len(orch.handoffs)
+    xfer = slo.kv_transfer_histogram()
+    xfer0 = xfer.hist_data().get((orch.model_tag, conn.name), ([], 0.0, 0))[2]
+    traces = {}
     sent0 = conn.num_sent
     caps0 = {r: (sum(f.captures for f in _families(p.engine)),
                  sum(f.capture_s for f in _families(p.engine)))
@@ -2008,8 +2308,10 @@ def _disagg_pass(orch, conn, prompts, sps, tag: str, gated: bool = False) -> dic
 
     def submit(i):
         rid = f"{tag}{i}"
+        traces[rid] = obs.new_context()
         t_submit[rid] = time.perf_counter()
-        return orch.submit_future(prompts[i], sps[i], request_id=rid, sink=Sink(rid))
+        return orch.submit_future(prompts[i], sps[i], request_id=rid, sink=Sink(rid),
+                                  trace=traces[rid])
 
     first, last, finals = {}, {}, {}
     try:
@@ -2041,6 +2343,10 @@ def _disagg_pass(orch, conn, prompts, sps, tag: str, gated: bool = False) -> dic
         f.result()
     torch.cuda.synchronize()
     hand = list(orch.handoffs)[hand0:]
+    # one llm_kv_transfer_seconds sample per imported handoff
+    n_xfer = xfer.hist_data().get((orch.model_tag, conn.name), ([], 0.0, 0))[2] - xfer0
+    if n_xfer != len(hand):
+        raise AssertionError(f"disagg: {n_xfer} kv-transfer samples for {len(hand)} handoffs")
     stages = ("pin_ms", "gather_ms", "d2h_ms", "seal_ms", "verify_ms", "h2d_ms", "scatter_ms")
     graphs = {}
     for r, p in (("prefill", pe), ("decode", de)):
@@ -2048,7 +2354,8 @@ def _disagg_pass(orch, conn, prompts, sps, tag: str, gated: bool = False) -> dic
         graphs[r] = {"captured": sum(f.captures for f in _families(p.engine)) - c0,
                      "capture_s": sum(f.capture_s for f in _families(p.engine)) - s0}
     return {
-        "finals": finals,
+        "finals": finals, "traces": {rid: c.trace_id for rid, c in traces.items()},
+        "kv_transfer_samples": n_xfer,
         "wall_s": wall, "output_tok_per_s": sum(map(len, finals.values())) / wall,
         "mean_ttft_s": sum(first[r] - t_submit[r] for r in finals) / n,
         "mean_tpot_s": sum((last[r] - first[r]) / max(1, len(finals[r]) - 1)
@@ -2151,6 +2458,12 @@ def disagg_phase(dev, params, engine_res: dict) -> dict:
             raise AssertionError(f"disagg: per-thread launch tallies {tallied} + captured "
                                  f"{captured} != the wrappers' counts {total}")
         finals = first.pop("finals")
+        from ray_tpu_torch import obs
+
+        first["traces"] = _check_traces(obs.get_recorder(), first.pop("traces"),
+                                        "disagg first pass",
+                                        need=TRACE_NEED | {"llm.kv_transfer"},
+                                        one_of={"engine.decode_chunk"})
         st = orch.stats()
         pre_st, dec_st = st["prefill"][0], st["decode"][0]
         _check_served(de.engine, finals, model, 12, 32)
@@ -2185,6 +2498,7 @@ def disagg_phase(dev, params, engine_res: dict) -> dict:
                 p.call(p.engine.allocator.drop_prefix_cache)
             r = _disagg_pass(orch, conn, prompts, sps, f"s{k}")
             f = r.pop("finals")
+            r.pop("traces")
             r["greedy_streams_equal_first_pass"] = sum(f[f"s{k}{i}"] == finals[f"d{i}"]
                                                        for i in range(10))
             passes.append(r)
@@ -2210,6 +2524,8 @@ def disagg_phase(dev, params, engine_res: dict) -> dict:
                 hooks["decode"]["before_step"] = _readback(de.engine, conn.sent, back)
             gated.append(_disagg_pass(orch, conn, prompts, sps, "g", gated=True))
         conn.keep, conn.sent = False, {}
+        for g in gated:
+            g.pop("traces")
         reused = sum(f.replays_by_key[key] - r0.get(key, 0)
                      for f, keys, r0 in zip(fams, keys0, replays0) for key in keys)
         same_ptrs = {n: t.data_ptr() for n, t in de.engine.cache.items()} == cache_ptrs
@@ -2232,12 +2548,18 @@ def disagg_phase(dev, params, engine_res: dict) -> dict:
         for p in (pe, de):
             p.call(p.engine.allocator.drop_prefix_cache)
         n_re, n_fail = orch.num_reprefills, orch.num_transfer_failures
-        conn.corrupt = victim
-        bad = _disagg_pass(orch, conn, prompts, sps, "g", gated=True)
+        from ray_tpu_torch import chaos
+
+        sched = _corrupt_once(victim)
+        try:
+            bad = _disagg_pass(orch, conn, prompts, sps, "g", gated=True)
+        finally:
+            chaos.uninstall()
+        bad.pop("traces")
         clean = gated[1]["finals"]
         others = sum(bad["finals"][f"g{i}"] == clean[f"g{i}"] for i in range(11))
         res["corrupted"] = {
-            "request": victim, "corrupted_sends": conn.corrupted,
+            "request": victim, "corrupted_sends": len(sched.log), "via": "chaos gate",
             "reprefills": orch.num_reprefills - n_re,
             "transfer_failures": orch.num_transfer_failures - n_fail,
             "tokens": len(bad["finals"][victim]),
@@ -2418,9 +2740,9 @@ def _parity_disagg(dev, model, params_cpu, params_gpu, prompts, sp, mixed, coloc
                              ignore_eos=True) for i in range(2)]
     res = {}
 
-    def run(params, device, connector=None):
+    def run(params, device):
         orch = DisaggOrchestrator(DisaggConfig(engine=EngineConfig(**cfg)), params=params,
-                                  device=device, model_tag="parity-disagg", connector=connector)
+                                  device=device, model_tag="parity-disagg")
         try:
             greedy = orch.generate(prompts, sp, timeout_s=300)
             subs = [orch.submit(prompts[i], seeded[i], request_id=f"seeded{i}")
@@ -2455,12 +2777,16 @@ def _parity_disagg(dev, model, params_cpu, params_gpu, prompts, sp, mixed, coloc
                       "seeded_equal_colocated": outs == [want["seeded0"], want["seeded1"]],
                       "reprefills": st["transfer"]["reprefills"]}
         if where == "cuda":
-            conn = _disagg_connector("parity-disagg-corrupt")
-            conn.corrupt = "dreq-2"
-            bad, _, st = run(params, device, connector=conn)
+            from ray_tpu_torch import chaos
+
+            sched = _corrupt_once("dreq-2")
+            try:
+                bad, _, st = run(params, device)
+            finally:
+                chaos.uninstall()
             res["cuda"]["corrupted"] = {"equal_clean": bad == greedy,
                                         "reprefills": st["transfer"]["reprefills"],
-                                        "corrupted_sends": conn.corrupted}
+                                        "corrupted_sends": len(sched.log)}
     ok = all(r["greedy_equal_colocated"] and r["seeded_equal_colocated"] and not r["reprefills"]
              for r in res.values())
     c = res["cuda"]["corrupted"]
@@ -2715,6 +3041,22 @@ def _timed_steps(step, state, batch, iters: int):
     return state, [float(x) for x in losses], time.perf_counter() - t0
 
 
+def _host_state() -> dict:
+    """What the process holds on the host: its threads, the port's recorder
+    and registry, and the interpreter's tracked objects."""
+    import threading
+
+    from ray_tpu_torch import obs
+    from ray_tpu_torch.util import metrics
+
+    rec = obs.get_recorder()
+    return {"threads": sorted(t.name for t in threading.enumerate()),
+            "recorder_traces": len(rec),
+            "registry_series": sum(len(m.series()) if not isinstance(m, metrics.Histogram)
+                                   else len(m.hist_data()) for m in metrics.registry_snapshot()),
+            "gc_tracked_objects": len(gc.get_objects())}
+
+
 def train_phase(dev) -> dict:
     """LLAMA_400M at full width and depth (bf16 compute, fp32 params, remat
     "dots", flash attention) trained on one fixed batch, with bench.py's
@@ -2755,8 +3097,9 @@ def train_phase(dev) -> dict:
         state, metrics = step(state, batch)
     warm_loss = float(metrics["loss"])
     for _attempt in range(2):  # one retry, as bench.py: a host hiccup is not a bug
-        state, losses_a, dt_a = _timed_steps(step, state, batch, iters)
-        state, losses_b, dt_b = _timed_steps(step, state, batch, 3 * iters)
+        with _gc_pauses() as gcp:
+            state, losses_a, dt_a = _timed_steps(step, state, batch, iters)
+            state, losses_b, dt_b = _timed_steps(step, state, batch, 3 * iters)
         ratio = (dt_b / (3 * iters)) / (dt_a / iters)
         if 0.75 <= ratio <= 1.33:
             break
@@ -2786,6 +3129,10 @@ def train_phase(dev) -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
         "steps": steps_run, "kernel_launches": launches,
         "launches_per_step": {k: n / steps_run for k, n in launches.items()},
+        # the host paces this step: what it shares the interpreter with
+        "gc_pause_ms_timed_steps": gcp["ms"], "gc_collections_timed_steps": gcp["n"],
+        "gc_by_generation_timed_steps": {"ms": gcp["ms_by_gen"], "n": gcp["n_by_gen"]},
+        "left_by_earlier_phases": _host_state(),
     }
     emit(res)
     emit(_profile_train(step, state, batch))

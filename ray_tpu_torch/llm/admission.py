@@ -1,17 +1,22 @@
 """Admission control for the OpenAI serving front end: shed load before the
 queue does it for you (counterpart of ``ray_tpu/llm/admission.py``).
 
-One trigger is ported: queue depth. More than ``max_queue_depth`` requests
-already waiting in the engine -> 429 with a Retry-After hint. The
-reference's second trigger, the measured queue-wait SLO, reads the
-``llm_queue_wait_seconds`` histogram that the engine's trace spans fill;
-those spans are not ported (ROADMAP.md, Queue 1, B4c), so
-``target_queue_wait_s > 0`` is refused rather than shedding on no data,
-and Retry-After is priced as the reference prices it before any history.
+The ``llm_queue_wait_seconds`` histogram the engine records per finished
+request (``obs/slo.py``) prices both the shedding decision and the
+Retry-After hint. Two triggers:
+
+ * queue depth: ``max_queue_depth`` or more requests already waiting in
+   the engine -> 429 (the engine would only park the new arrival behind
+   them);
+ * measured queue-wait SLO: the recent mean queue_wait (a windowed delta
+   over the histogram) exceeds ``target_queue_wait_s`` while the queue is
+   at least ``min_queue_depth`` deep -> 429 below the depth cap too,
+   because the SLO is already burning.
 
 Draining (maintenance) turns every new request into a 503 with
 Retry-After while in-flight requests finish. Rejections are counted in
-``llm_admission_rejected_total{model,code,tenant}`` (``util/metrics.py``).
+``llm_admission_rejected_total{model,code,tenant}`` (tenant empty outside
+a multi-tenant fleet).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import threading
+import time
 from typing import Optional
 
 from ray_tpu_torch.util.metrics import Counter
@@ -28,10 +34,13 @@ from ray_tpu_torch.util.metrics import Counter
 class AdmissionConfig:
     # waiting-queue depth at which new requests shed (-1 = unbounded)
     max_queue_depth: int = -1
-    # recent mean queue_wait above this sheds (0 = SLO trigger disabled;
-    # anything else is refused until B4c, which also brings the trigger's
-    # min_queue_depth and window_s)
+    # recent mean queue_wait above this sheds (0 = SLO trigger disabled)
     target_queue_wait_s: float = 0.0
+    # SLO shedding needs this much queue to act on (a briefly-slow lone
+    # request must not flip the app into rejecting everything)
+    min_queue_depth: int = 2
+    # histogram delta window for "recent" queue_wait
+    window_s: float = 10.0
     retry_after_floor_s: float = 0.1
     retry_after_cap_s: float = 30.0
     drain_retry_after_s: float = 5.0
@@ -39,12 +48,6 @@ class AdmissionConfig:
     def __post_init__(self):
         if self.retry_after_cap_s < self.retry_after_floor_s:
             raise ValueError("retry_after_cap_s < retry_after_floor_s")
-        if self.target_queue_wait_s > 0:
-            raise NotImplementedError(
-                "AdmissionConfig.target_queue_wait_s: the queue-wait SLO trigger reads "
-                "the engine's queue-wait histogram, whose trace spans are not ported to "
-                "ray_tpu_torch yet (ROADMAP.md, Queue 1, B4c)"
-            )
 
 
 def rejected_counter() -> Counter:
@@ -52,39 +55,104 @@ def rejected_counter() -> Counter:
         "llm_admission_rejected_total",
         description="serving admission control: requests shed with 429 "
         "(overload) or 503 (draining), attributable per tenant (empty "
-        "tenant = single-tenant serving)",
+        "tenant = pre-fleet single-tenant serving)",
         tag_keys=("model", "code", "tenant"),
     )
 
 
-class AdmissionController:
-    """Per-LLMServer admission decisions; thread-safe."""
+def register_metrics() -> None:
+    rejected_counter()
 
-    # the reference's Retry-After estimate before any queue-wait history
-    NO_HISTORY_WAIT_S = 0.5
+
+class AdmissionController:
+    """Per-LLMServer admission decisions; thread-safe, observability-fed."""
 
     def __init__(self, config: Optional[AdmissionConfig] = None,
                  model_tag: str = "engine"):
+        from collections import deque
+
         self.config = config or AdmissionConfig()
         self.model_tag = model_tag
         self.draining = False
         self._lock = threading.Lock()
+        # (t, cum_sum, cum_count) snapshots of the queue_wait histogram,
+        # kept just long enough to window a delta over window_s. The
+        # computed mean is TTL-cached so the histogram walk + snapshot
+        # churn run a few times per second REGARDLESS of request rate —
+        # admission cost must not grow with the very load it sheds
+        self._snaps: "deque[tuple[float, float, int]]" = deque()
+        self._cached_mean: tuple[float, Optional[float]] = (0.0, None)
         self.num_rejected_429 = 0
         self.num_rejected_503 = 0
+
+    MEAN_CACHE_TTL_S = 0.25
+
+    # -- drain ----------------------------------------------------------------
 
     def start_drain(self) -> None:
         self.draining = True
 
+    # -- the observability loop: queue_wait priced from the SLO histogram -----
+
+    def _queue_wait_cum(self) -> tuple[float, int]:
+        """Cumulative (sum_s, count) of llm_queue_wait_seconds for this
+        model across the process registry."""
+        try:
+            from ray_tpu_torch.obs import slo
+
+            data = slo.queue_wait_histogram().hist_data()
+        except Exception:  # noqa: BLE001 — metrics must not break admission
+            return (0.0, 0)
+        total, count = 0.0, 0
+        for key, (_buckets, s, n) in data.items():
+            if key and key[0] == self.model_tag:
+                total += s
+                count += n
+        return (total, count)
+
+    def recent_queue_wait_mean(self) -> Optional[float]:
+        """Mean queue_wait over roughly the last window_s, from histogram
+        snapshot deltas (TTL-cached); None until a request landed."""
+        now = time.monotonic()
+        with self._lock:
+            t_cache, cached = self._cached_mean
+            if now - t_cache < self.MEAN_CACHE_TTL_S:
+                return cached
+        cum_sum, cum_count = self._queue_wait_cum()
+        with self._lock:
+            self._snaps.append((now, cum_sum, cum_count))
+            horizon = now - self.config.window_s
+            # keep ONE snapshot at/behind the horizon as the delta base
+            while len(self._snaps) >= 2 and self._snaps[1][0] <= horizon:
+                self._snaps.popleft()
+            _t0, s0, n0 = self._snaps[0]
+            if cum_count > n0:
+                mean: Optional[float] = (cum_sum - s0) / (cum_count - n0)
+            elif cum_count > 0:
+                # nothing finished inside the window: lifetime fallback
+                mean = cum_sum / cum_count
+            else:
+                mean = None
+            self._cached_mean = (now, mean)
+        return mean
+
     def estimate_retry_after(self, num_waiting: int, num_running: int) -> float:
-        """The queue ahead of a retry is ~num_waiting deep and drains at
-        ~one queue_wait per admission wave (scaled by how loaded decode is)."""
+        """Price the hint from measured behavior: the queue ahead of a
+        retry is ~num_waiting deep and drains at ~mean queue_wait per
+        admission wave (scaled by how loaded decode is)."""
         cfg = self.config
-        est = self.NO_HISTORY_WAIT_S * (1.0 + num_waiting / max(1, num_running))
+        per = self.recent_queue_wait_mean()
+        if per is None or per <= 0:
+            per = cfg.target_queue_wait_s or 0.5
+        est = per * (1.0 + num_waiting / max(1, num_running))
         return min(cfg.retry_after_cap_s, max(cfg.retry_after_floor_s, est))
+
+    # -- the decision ---------------------------------------------------------
 
     def check(self, *, num_waiting: int, num_running: int) -> Optional[dict]:
         """None = admit; otherwise an OpenAI-style error payload carrying
-        ``code`` (429/503) and ``retry_after`` seconds."""
+        ``code`` (429/503) and ``retry_after`` seconds (the HTTP proxy
+        maps these onto the status line and Retry-After header)."""
         cfg = self.config
         if self.draining:
             with self._lock:
@@ -95,18 +163,29 @@ class AdmissionController:
                 "server is draining; retry against another replica",
                 cfg.drain_retry_after_s,
             )
-        # num_waiting > 0: depth 0 means "no waiting queue", not "reject
-        # even when idle" — an idle engine always admits
-        if not (cfg.max_queue_depth >= 0 and num_waiting > 0
+        reason = None
+        # num_waiting > 0 guard: depth 0 means "no waiting queue", not
+        # "reject even when idle" — an idle engine always admits
+        if (cfg.max_queue_depth >= 0 and num_waiting > 0
                 and num_waiting >= cfg.max_queue_depth):
+            reason = (
+                f"queue depth {num_waiting} >= max_queue_depth="
+                f"{cfg.max_queue_depth}"
+            )
+        elif cfg.target_queue_wait_s > 0 and num_waiting >= cfg.min_queue_depth:
+            mean = self.recent_queue_wait_mean()
+            if mean is not None and mean > cfg.target_queue_wait_s:
+                reason = (
+                    f"recent mean queue_wait {mean:.3f}s > SLO "
+                    f"{cfg.target_queue_wait_s}s at depth {num_waiting}"
+                )
+        if reason is None:
             return None
         with self._lock:
             self.num_rejected_429 += 1
         self._count("429")
         return self._payload(
-            429, "rate_limit_error",
-            f"overloaded: queue depth {num_waiting} >= max_queue_depth="
-            f"{cfg.max_queue_depth}",
+            429, "rate_limit_error", f"overloaded: {reason}",
             self.estimate_retry_after(num_waiting, num_running),
         )
 
@@ -122,24 +201,27 @@ class AdmissionController:
         }
 
     def _count(self, code: str) -> None:
-        rejected_counter().inc(
-            # the reference's schema; tenant stays empty until the fleet is ported
-            tags={"model": self.model_tag, "code": code, "tenant": ""}
-        )
+        try:
+            rejected_counter().inc(
+                # the reference's schema; tenant stays empty until the
+                # fleet is ported
+                tags={"model": self.model_tag, "code": code, "tenant": ""}
+            )
+        except Exception:  # noqa: BLE001
+            pass
 
     def stats(self) -> dict:
         return {
             "draining": self.draining,
             "rejected_429": self.num_rejected_429,
             "rejected_503": self.num_rejected_503,
-            # no queue-wait history until the engine's spans are ported (B4c)
-            "recent_queue_wait_mean_s": None,
+            "recent_queue_wait_mean_s": self.recent_queue_wait_mean(),
         }
 
 
 def retry_after_header(payload: dict) -> Optional[str]:
     """Retry-After header value for a rejection payload (whole seconds,
-    rounded up: RFC 7231 delta-seconds)."""
+    rounded up — RFC 7231 delta-seconds)."""
     err = payload.get("error") if isinstance(payload, dict) else None
     if not isinstance(err, dict):
         return None

@@ -7,10 +7,13 @@ and integrity still goes through the handoff's checksum where it arrives.
 Its queues are process-global and namespaced, so two orchestrators never
 cross-deliver.
 
+Every send passes the ``disagg.kv_transfer`` chaos hook (``_chaos_gate``):
+DROP_KV_TRANSFER raises KVTransferError (counted in ``num_dropped``),
+CORRUPT_KV_TRANSFER flips bytes of the pages in flight (the receiver's
+checksum catches it), DELAY_RPC sleeps.
+
 Not ported: the cluster-RPC backend (``"rpc"``: the port has no cluster
-RPC, ROADMAP.md Queue 1, C5/B8), the device fabric (``"device"``, C1) and
-the chaos hook on every send (``_chaos_gate``, B4c). Tests inject drops
-and corruption through a wrapper connector passed as ``connector=``.
+RPC, ROADMAP.md Queue 1, C5/B8) and the device fabric (``"device"``, C1).
 """
 
 from __future__ import annotations
@@ -18,10 +21,12 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
+import time
 from typing import Any, Optional
 
 import torch
 
+from ray_tpu_torch.chaos import harness as _chaos
 from ray_tpu_torch.llm.disagg.handoff import KVHandoff
 
 
@@ -33,8 +38,7 @@ class KVTransferError(Exception):
 def _corrupt_handoff(handoff: KVHandoff) -> KVHandoff:
     """A deterministic bit-flip of a copy of the K pages (a span of bytes in
     their middle), the checksum NOT re-sealed: the receiver's ``verify()``
-    fails as for a torn wire. The reference's chaos gate applies it; here
-    tests and wrapper connectors do."""
+    fails as for a torn wire. The chaos gate applies it."""
     k = handoff.k_pages.clone()
     flat = k.reshape(-1).view(torch.uint8)
     if flat.numel():
@@ -87,6 +91,26 @@ class KVConnector:
             "bytes_sent": self.bytes_sent,
         }
 
+    def _chaos_gate(self, handoff: KVHandoff, target_label: str) -> KVHandoff:
+        """The ``disagg.kv_transfer`` chaos hook, applied on every send."""
+        if _chaos.ACTIVE is None:
+            return handoff
+        for f in _chaos.fire(
+            "disagg.kv_transfer",
+            kinds=(_chaos.DROP_KV_TRANSFER, _chaos.CORRUPT_KV_TRANSFER, _chaos.DELAY_RPC),
+            request_id=handoff.request_id, connector=self.name, target=target_label,
+        ):
+            if f.kind == _chaos.DROP_KV_TRANSFER:
+                self._count(num_dropped=1)
+                raise KVTransferError(
+                    f"chaos: dropped KV transfer of {handoff.request_id!r} to {target_label}"
+                )
+            if f.kind == _chaos.DELAY_RPC:
+                time.sleep(f.delay_s)
+            if f.kind == _chaos.CORRUPT_KV_TRANSFER:
+                handoff = _corrupt_handoff(handoff)
+        return handoff
+
 
 _INPROC_LOCK = threading.Lock()
 _INPROC_QUEUES: dict[tuple, "queue.Queue[KVHandoff]"] = {}
@@ -117,6 +141,7 @@ class InProcessConnector(KVConnector):
         return q
 
     def send(self, target: str, handoff: KVHandoff, timeout_s: float = 30.0) -> None:
+        handoff = self._chaos_gate(handoff, target)
         self._queue(target).put(handoff)
         self._count(num_sent=1, bytes_sent=handoff.nbytes)
 

@@ -36,8 +36,13 @@ connectors (ROADMAP.md Queue 1, C5/B8 and C1) and the fabric topology
 (C1); ``EngineConfig`` refuses the tiered cache (C3). With no tiered cache
 ``prefix_aware_routing`` and ``fetch_cost_routing`` fall back, as the
 reference's do without one, to the HBM prefix and the depth/peek ladder.
-The ``llm.kv_transfer`` span and the ``llm_kv_transfer_*`` metrics wait
-for the engine's spans (B4c).
+
+Observability, as the reference's: each engine's ``model_tag`` is
+``<model_tag>-prefill<i>`` / ``-decode<i>``; an imported handoff records an
+``llm.kv_transfer`` span (from the end of its prefill span to the end of
+the import, so the request's spans tile across the hop) and the
+``llm_kv_transfer_seconds`` / ``_bytes_total`` series under the
+orchestrator's ``model_tag``; a lost one an ``llm.kv_transfer_failed`` event.
 """
 
 from __future__ import annotations
@@ -64,6 +69,8 @@ from ray_tpu_torch.llm.disagg.handoff import KVHandoff
 from ray_tpu_torch.llm.engine import EngineConfig, LLMEngine, RequestOutput
 from ray_tpu_torch.llm.kv_cache import NoFreeBlocksError
 from ray_tpu_torch.llm.sampling import SamplingParams
+from ray_tpu_torch.obs import slo
+from ray_tpu_torch.obs.context import TraceContext
 
 logger = logging.getLogger("ray_tpu_torch.llm.disagg.orchestrator")
 
@@ -225,6 +232,10 @@ class DisaggOrchestrator:
                         i, "decode")
             for i in range(config.num_decode)
         ]
+        for p in self._prefill:
+            p.engine.model_tag = f"{model_tag}-prefill{p.index}"
+        for d in self._decode:
+            d.engine.model_tag = f"{model_tag}-decode{d.index}"
         # a namespace of its own: two orchestrators with one model_tag in a
         # process never take each other's handoffs off the global queues
         self._ns = f"{model_tag}-{uuid.uuid4().hex[:8]}"
@@ -592,6 +603,7 @@ class DisaggOrchestrator:
             self.num_transfers += 1
 
     def _transfer_failed(self, handoff: KVHandoff, exc: BaseException) -> None:
+        self._obs_transfer_event(handoff, error=str(exc))
         with self._lock:
             self.num_transfer_failures += 1
             rec = self._inflight.get(handoff.request_id)
@@ -732,6 +744,7 @@ class DisaggOrchestrator:
                 with self._lock:
                     de.in_transit -= 1
                 continue  # aborted or failed meanwhile
+            t_import0 = time.time()
             try:
                 de.engine.import_handoff(h)
             except NoFreeBlocksError:
@@ -755,4 +768,41 @@ class DisaggOrchestrator:
                 self.handoffs.append({"request_id": h.request_id, "decode_engine": de.index,
                                       "kv_tokens": h.num_kv_tokens, "bytes": h.nbytes,
                                       **h.timings})
+            self._obs_transfer_span(h, de.index, t_import0, time.time())
         return still
+
+    # -- observability ----------------------------------------------------------
+
+    def _obs_transfer_span(self, h: KVHandoff, decode_index: int,
+                           t_import0: float, t_done: float) -> None:
+        """``llm.kv_transfer``: prefill-span end -> import complete, between
+        ``engine.prefill`` and the first decode round."""
+        try:
+            obs.get_recorder().record(
+                "llm.kv_transfer", min(h.t_export, t_done), t_done,
+                ctx=TraceContext.from_dict(h.trace),
+                attrs={
+                    "request_id": h.request_id,
+                    "backend": self.connector.name,
+                    "decode_engine": decode_index,
+                    "kv_tokens": h.num_kv_tokens,
+                    "bytes": h.nbytes,
+                    "import_ms": round((t_done - t_import0) * 1e3, 3),
+                },
+            )
+            slo.record_kv_transfer(self.model_tag, self.connector.name,
+                                   seconds=max(0.0, t_done - h.t_export), nbytes=h.nbytes)
+        except Exception:  # noqa: BLE001 — tracing must not break serving
+            pass
+
+    def _obs_transfer_event(self, h: KVHandoff, error: str) -> None:
+        try:
+            now = time.time()
+            obs.get_recorder().record(
+                "llm.kv_transfer_failed", now, now, ctx=TraceContext.from_dict(h.trace),
+                attrs={"request_id": h.request_id, "error": error[:200],
+                       "backend": self.connector.name},
+                status="error",
+            )
+        except Exception:  # noqa: BLE001
+            pass

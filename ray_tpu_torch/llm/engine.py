@@ -28,8 +28,17 @@ registry name (``models/registry.py``). Not ported yet, and refused by
 ``EngineConfig`` with NotImplementedError so no caller silently gets a
 different engine: the tiered KV cache, tensor-parallel meshes and the
 profiling hooks (ROADMAP.md, Queue 1); ``export_request(keep_on_device=
-True)`` raises likewise (the device fabric, C1). Chaos hooks, trace spans
-and telemetry gauges are left out (B4c).
+True)`` raises likewise (the device fabric, C1).
+
+Observability, as the reference's: every request carries a trace
+(``obs/``) whose lifecycle spans tile arrival -> finish (queue_wait,
+prefill, one span per decode round, the ``llm.request`` root), the SLO
+histograms (``obs/slo.py``) record each finished request, the prefix,
+preemption and utilization series live on ``util/metrics``, and the
+``llm.engine.step`` chaos hook (``chaos/``) can preempt or slow a step.
+The hooks read the host clock only: no device sync, nothing inside a
+graph capture. Every observability error is swallowed (it must not break
+decode); the gauges' tiered-cache branch waits for C3.
 """
 
 from __future__ import annotations
@@ -44,6 +53,8 @@ import numpy as np
 import torch
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.chaos import harness as _chaos
+from ray_tpu_torch.chaos.harness import EnginePreempted
 from ray_tpu_torch.llm import pipeline
 from ray_tpu_torch.llm.graphs import ChunkGraphs, PackedGraphs
 from ray_tpu_torch.llm.kv_cache import BlockAllocator, NoFreeBlocksError, SequenceBlocks
@@ -56,6 +67,7 @@ from ray_tpu_torch.llm.sampling import (
     sample_tokens,
 )
 from ray_tpu_torch.llm.spec import SpecConfig, SpecStats, accept_draft
+from ray_tpu_torch.llm.spec.stats import export_spec_stats
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.llama_decode import (
     LORA_TARGETS,
@@ -66,13 +78,98 @@ from ray_tpu_torch.models.llama_decode import (
     verify_tokens,
     verify_tokens_ragged,
 )
+from ray_tpu_torch.obs import context as trace_context
+from ray_tpu_torch.obs import recorder as trace_recorder
+from ray_tpu_torch.obs import slo
+from ray_tpu_torch.obs.telemetry import cluster_counter, cluster_gauge
 from ray_tpu_torch.ops.paged_attention import pick_impl
+from ray_tpu_torch.util.metrics import Counter
 
 
-class EnginePreempted(Exception):
-    """The engine was preempted mid-step (the reference's
-    ``ray_tpu.chaos.EnginePreempted``): its state is intact, so the serving
-    runner recovers with ``recover(rebuild_kv=False)``."""
+def prefix_cache_hit_counter() -> Counter:
+    """Prompt tokens served from the prefix cache instead of recomputed, by
+    the tier that held them (``hbm``: the resident paged cache; the host and
+    object tiers come with the tiered cache, C3)."""
+    return Counter(
+        "llm_prefix_cache_hit_tokens_total",
+        description="prompt tokens whose KV was reused from the prefix "
+        "cache at prefill admission (no recompute), by serving tier "
+        "(hbm/host/object)",
+        tag_keys=("model", "tier"),
+    )
+
+
+def prefix_cache_lookup_counter() -> Counter:
+    return Counter(
+        "llm_prefix_cache_lookup_tokens_total",
+        description="prompt tokens considered for prefix-cache reuse at "
+        "prefill admission (hit_tokens / lookup_tokens = hit rate)",
+        tag_keys=("model",),
+    )
+
+
+def record_prefix_lookup(model_tag: str, lookup_tokens: int, tier_counts: dict) -> None:
+    try:
+        prefix_cache_lookup_counter().inc(lookup_tokens, tags={"model": model_tag})
+        for t, n in tier_counts.items():
+            prefix_cache_hit_counter().inc(n, tags={"model": model_tag, "tier": t})
+    except Exception:  # noqa: BLE001 — metrics must not break admission
+        pass
+
+
+def preemption_counter() -> Counter:
+    """Requests kicked out of a running batch, by tenant and ``reason``:
+    ``pressure`` (KV), ``priority`` (a higher-priority request displaced
+    it) or ``recover`` (a crash-recovery re-enqueue)."""
+    return cluster_counter(
+        "llm_preemptions_total",
+        description="requests preempted out of the decode batch, by "
+        "model, tenant, and reason (pressure/priority/recover)",
+        tag_keys=("model", "tenant", "reason"),
+    )
+
+
+def utilization_gauges() -> dict:
+    """Per-engine utilization gauges; each aggregates by sum across engines."""
+    return {
+        "kv_pages_used": cluster_gauge(
+            "llm_kv_pages_used",
+            description="paged-KV blocks currently allocated in this "
+            "engine (used = total - free)",
+            tag_keys=("model",),
+        ),
+        "kv_pages_total": cluster_gauge(
+            "llm_kv_pages_total",
+            description="paged-KV blocks this engine was configured with",
+            tag_keys=("model",),
+        ),
+        "kv_hbm_bytes": cluster_gauge(
+            "llm_kv_hbm_bytes",
+            description="bytes of accelerator memory held by this "
+            "engine's paged KV cache (static allocation)",
+            tag_keys=("model",),
+        ),
+        "queue_depth": cluster_gauge(
+            "llm_queue_depth",
+            description="requests waiting for prefill admission in this "
+            "engine",
+            tag_keys=("model",),
+        ),
+        "running": cluster_gauge(
+            "llm_running_requests",
+            description="requests in this engine's decode batch",
+            tag_keys=("model",),
+        ),
+    }
+
+
+def register_metrics() -> None:
+    """Register the engine's lazily built metrics (a registry listing sees
+    them before the first request)."""
+    prefix_cache_hit_counter()
+    prefix_cache_lookup_counter()
+    preemption_counter()
+    utilization_gauges()
 
 
 class AdapterSlotsExhausted(ValueError):
@@ -244,12 +341,21 @@ class Request:
     t_first_token: Optional[float] = None
     # LoRA adapter slot (0 = base model); also the prefix-chain salt
     lora_slot: int = 0
-    # the serving layer's trace context and fleet labels, stored as the
-    # reference stores them (their readers, the engine's spans and SLO
-    # labels, are not ported yet)
-    trace: Any = None
+    # fleet labels: tenant labels the preemption counter; slo_tag (when set)
+    # records the request's SLO observations under a second series
     tenant: str = ""
     slo_tag: Optional[str] = None
+    # request tracing (obs/): the submitter's TraceContext; every lifecycle
+    # span records as its child. queue_start resets on preemption (each wait
+    # is its own queue_wait span); first_prefill and first_token survive it
+    # (they are the SLOs); span_cursor tiles the decode-round spans so they
+    # cover arrival -> finish without gaps
+    trace: Any = None
+    t_queue_start: float = 0.0
+    t_first_prefill: Optional[float] = None
+    t_prefill_start: Optional[float] = None
+    t_span_cursor: Optional[float] = None
+    _prefill_cached: int = 0
 
     @property
     def num_tokens(self) -> int:
@@ -293,14 +399,22 @@ class LLMEngine:
             c.model, c.num_blocks * c.block_size, dtype=c.cache_dtype,
             trash_slots=c.block_size, device=self.device,
         )
+        # static KV allocation for the llm_kv_hbm_bytes gauge (metadata only)
+        self._kv_cache_nbytes = sum(t.numel() * t.element_size() for t in self.cache.values())
+        self._telemetry_next = 0.0  # gauge-refresh throttle (monotonic s)
         self.waiting: deque[Request] = deque()
         self.running: list[Request] = []
         self.requests: dict[str, Request] = {}  # unfinished only
         self.num_preemptions = 0
         self._counter = itertools.count()
         self._seed = seed ^ 0x5EED
+        # the SLO and metric label (llm_ttft_seconds{model=...}); the serving
+        # front end sets it to its model_id
+        self.model_tag = "engine"
         self.prefix_hit_tokens = 0
         self.prefix_lookup_tokens = 0
+        # hit tokens by serving tier (only "hbm" until the tiered cache, C3)
+        self.tier_hit_tokens: dict[str, int] = {}
         self.num_prefill_batches = 0
         self.num_kv_imports = 0
         # mixed ragged batching: prefill cursors (request_id -> next
@@ -519,7 +633,11 @@ class LLMEngine:
         req = Request(rid, list(map(int, prompt_token_ids)), sp)
         req.lora_slot = lora_slot
         req.priority = int(priority)
-        req.trace, req.tenant, req.slo_tag = trace, tenant, slo_tag
+        req.tenant, req.slo_tag = tenant, slo_tag
+        # every request is traced: the serving layer's context, the ambient
+        # one (the submitter's thread), or a new root
+        req.trace = trace or trace_context.current() or trace_context.new_context()
+        req.t_queue_start = req.arrival
         req.seed_base = request_seed_base(
             self._seed if sp.seed is None else sp.seed, rid
         )
@@ -547,6 +665,18 @@ class LLMEngine:
             req.seq.release()
         req.status = RequestStatus.ABORTED
         req.finish_reason = "abort"
+        now = time.time()
+        self._obs_span(
+            req, "llm.request", req.arrival, now,
+            {"request_id": req.request_id, "finish_reason": "abort",
+             "prompt_tokens": len(req.prompt_token_ids),
+             "output_tokens": len(req.output_token_ids),
+             "e2e_s": round(max(0.0, now - req.arrival), 6)},
+        )
+        self._obs_series(
+            slo.record_request_slo, self.model_tag, ttft_s=None, tpot_s=None,
+            queue_wait_s=None, e2e_s=max(0.0, now - req.arrival), finish_reason="abort",
+        )
         self.requests.pop(request_id, None)
         if self.drafter is not None:
             self.drafter.release(request_id)
@@ -559,6 +689,24 @@ class LLMEngine:
     def step(self) -> list[RequestOutput]:
         """One engine iteration: admit + prefill waiting requests, else
         decode (or, with mixed batching, one mixed dispatch)."""
+        if _chaos.ACTIVE is not None:
+            for f in _chaos.fire(
+                "llm.engine.step",
+                kinds=(_chaos.PREEMPT_ENGINE, _chaos.KILL_WORKER, _chaos.DELAY_RPC),
+                running=len(self.running), waiting=len(self.waiting),
+            ):
+                if f.kind in (_chaos.PREEMPT_ENGINE, _chaos.KILL_WORKER):
+                    # the engine dies before mutating this round's state; its
+                    # owner (the serving runner) recovers through recover()
+                    raise EnginePreempted("chaos: engine preempted mid-step")
+                if f.kind == _chaos.DELAY_RPC:
+                    # a deterministic slowdown: overload builds real queue depth
+                    time.sleep(f.delay_s)
+        now_m = time.monotonic()
+        if now_m >= self._telemetry_next:
+            # throttled gauge refresh: a few dict writes per 0.2 s, not per step
+            self._telemetry_next = now_m + 0.2
+            self.update_telemetry_gauges()
         if self._pending_outputs:
             # outputs of an internal pipeline flush (abort) go out first
             out, self._pending_outputs = self._pending_outputs, []
@@ -580,7 +728,7 @@ class LLMEngine:
                     flushed = self._pipe_flush()
                     if flushed:
                         return flushed
-                    self._preempt_one(below_priority=head.priority)
+                    self._preempt_one(below_priority=head.priority, reason="priority")
                     self._promote_priority()
         if self.config.mixed_batch:
             return self._mixed_step()
@@ -606,7 +754,10 @@ class LLMEngine:
                 reqs = [r for r, _ in admitted]
                 logits = torch.cat([lg for _, lg in admitted], dim=0)
                 tok, logprob = self._sample_batch(logits, reqs)
-                return self._append_tokens(reqs, tok, logprob)
+                t1 = time.time()  # after the sampler's host sync: first tokens exist
+                outputs = self._append_tokens(reqs, tok, logprob)
+                self._obs_prefilled(reqs, t1)
+                return outputs
         if self.running:
             return self._decode_step()
         return []
@@ -630,6 +781,7 @@ class LLMEngine:
         # mid-prefill mixed cursors die with the batch: re-admission
         # recomputes each prompt from its cached prefix
         self._mixed_prefills.clear()
+        now = time.time()
         victims = sorted(self.running, key=lambda r: r.arrival, reverse=True)
         self.running.clear()
         # orphan sweep: a crash inside admission (after waiting.popleft,
@@ -655,9 +807,15 @@ class LLMEngine:
             r.status = RequestStatus.WAITING
             r.num_preemptions += 1
             self.num_preemptions += 1
+            self._count_preemption(r, "recover")
+            r.t_queue_start = now
+            r.t_span_cursor = None
             self.waiting.appendleft(r)  # reversed arrival: the oldest ends up first
             if self.drafter is not None:
                 self.drafter.release(r.request_id)
+            self._obs_span(r, "engine.recover", now, now,
+                           {"rebuild_kv": rebuild_kv,
+                            "output_tokens": len(r.output_token_ids)})
             moved.append(r.request_id)
         return moved
 
@@ -679,6 +837,23 @@ class LLMEngine:
                     finals[out.request_id] = out.output_token_ids
         return [finals[r] for r in rids]
 
+    def update_telemetry_gauges(self) -> None:
+        """Refresh this engine's utilization gauges (KV-page occupancy, KV
+        bytes, queue depth, running requests) from host state. Called
+        throttled from step(); never raises into serving. The tiered cache's
+        gauges join here with C3."""
+        try:
+            g = utilization_gauges()
+            tags = {"model": self.model_tag}
+            c = self.config
+            g["kv_pages_used"].set(c.num_blocks - self.allocator.num_free, tags=tags)
+            g["kv_pages_total"].set(c.num_blocks, tags=tags)
+            g["kv_hbm_bytes"].set(self._kv_cache_nbytes, tags=tags)
+            g["queue_depth"].set(len(self.waiting), tags=tags)
+            g["running"].set(len(self.running), tags=tags)
+        except Exception:  # noqa: BLE001 — observability must not break serving
+            pass
+
     def stats(self) -> dict:
         out = {
             "num_waiting": len(self.waiting),
@@ -694,6 +869,7 @@ class LLMEngine:
                     round(self.prefix_hit_tokens / self.prefix_lookup_tokens, 4)
                     if self.prefix_lookup_tokens else 0.0
                 ),
+                "by_tier": dict(self.tier_hit_tokens),
             },
         }
         if self.num_kv_imports:
@@ -816,9 +992,13 @@ class LLMEngine:
             cumulative_logprob=req.cumulative_logprob,
             token_logprobs=list(req.token_logprobs),
             t_arrival=req.arrival,
+            t_first_prefill=req.t_first_prefill,
             t_first_token=req.t_first_token,
-            t_export=time.time(),
-            trace=dataclasses.asdict(req.trace) if dataclasses.is_dataclass(req.trace) else None,
+            # the llm.kv_transfer span starts where the prefill span ended,
+            # so the request's spans stay gap-free across the hop
+            t_export=req.t_span_cursor if req.t_span_cursor is not None else time.time(),
+            trace=req.trace.to_dict() if isinstance(req.trace, trace_context.TraceContext)
+            else None,
         )
         t0 = time.perf_counter()
         handoff.seal()
@@ -876,12 +1056,11 @@ class LLMEngine:
         req.cumulative_logprob = handoff.cumulative_logprob
         req.token_logprobs = list(handoff.token_logprobs)
         req.seed_base = int(handoff.seed_base)
-        if trace is None and handoff.trace is not None:
-            from ray_tpu_torch.obs import TraceContext
-
-            trace = TraceContext(**handoff.trace)
-        req.trace = trace
+        req.trace = (trace or trace_context.TraceContext.from_dict(handoff.trace)
+                     or trace_context.new_context())
         req.arrival = handoff.t_arrival
+        req.t_queue_start = handoff.t_arrival
+        req.t_first_prefill = handoff.t_first_prefill
         req.t_first_token = handoff.t_first_token
 
         seq = SequenceBlocks(self.allocator)
@@ -917,6 +1096,7 @@ class LLMEngine:
         self.requests[rid] = req
         self.running.append(req)
         self.num_kv_imports += 1
+        req.t_span_cursor = time.time()  # decode rounds tile from the import
         return rid
 
     # -- admission -------------------------------------------------------------
@@ -953,6 +1133,7 @@ class LLMEngine:
         # (a preemption recompute keeps its request's salt)
         salt = req.lora_slot
         seq.chain = salt
+        tier_counts: dict[str, int] = {}
         if c.enable_prefix_caching:
             blocks, matched, chain = self.allocator.match_prefix(prompt, salt)
             if matched >= len(prompt):
@@ -960,6 +1141,8 @@ class LLMEngine:
                 # are next-token logits
                 self.allocator.free(blocks)
                 blocks, matched, chain = self.allocator.match_prefix(prompt[:-1], salt)
+            if matched:
+                tier_counts["hbm"] = matched
             if blocks:
                 seq.adopt_prefix(blocks, chain, matched)
                 matched_blocks = blocks
@@ -976,6 +1159,17 @@ class LLMEngine:
         if req.num_preemptions == 0:
             self.prefix_lookup_tokens += len(req.prompt_token_ids)
             self.prefix_hit_tokens += min(matched, len(req.prompt_token_ids))
+            for t, n in tier_counts.items():
+                self.tier_hit_tokens[t] = self.tier_hit_tokens.get(t, 0) + n
+            self._obs_series(record_prefix_lookup, self.model_tag,
+                             len(req.prompt_token_ids), tier_counts)
+        t_admit = time.time()
+        self._obs_span(req, "engine.queue_wait", req.t_queue_start, t_admit,
+                       {"recompute": req.num_preemptions > 0})
+        req.t_prefill_start = t_admit
+        if req.t_first_prefill is None:
+            req.t_first_prefill = t_admit
+        req._prefill_cached = matched
         return req, seq, prompt, matched
 
     def _prefill_one(self):
@@ -1059,6 +1253,7 @@ class LLMEngine:
         flushed = self._pipe_flush()
         if flushed:
             return flushed
+        wall0 = time.time()
         # KV for this step's writes: mid-prompt rows reserved their full
         # recompute prompt at admission; decode rows grow one position
         while True:
@@ -1081,6 +1276,7 @@ class LLMEngine:
         # advance prefill cursors; a finishing prompt seals its full blocks
         # and becomes a decode row
         done_set = set(plan.completes)
+        prompt_done: list = []
         for row in range(plan.B):
             if plan.kinds[row] != "prefill":
                 continue
@@ -1091,6 +1287,7 @@ class LLMEngine:
                 if c.enable_prefix_caching:
                     r.seq.seal_full_blocks(r.prompt_token_ids + r.output_token_ids)
                 del self._mixed_prefills[r.request_id]
+                prompt_done.append(r)
             else:
                 self._mixed_prefills[r.request_id] = end
 
@@ -1100,7 +1297,14 @@ class LLMEngine:
         tok, logprob = self._sample_batch(
             logits[self._tensor(np.asarray(plan.emit_rows, np.int64))], emit_reqs
         )
-        return self._append_tokens(emit_reqs, tok, logprob)
+        t1 = time.time()  # after the sampler's host sync
+        outputs = self._append_tokens(emit_reqs, tok, logprob)
+        self._obs_prefilled(prompt_done, t1, mixed=True)
+        dec = [j for j, i in enumerate(plan.emit_rows) if plan.kinds[i] == "decode"]
+        if dec:
+            self._obs_decode_round([emit_reqs[j] for j in dec], [outputs[j] for j in dec],
+                                   wall0, "engine.mixed_round", 1)
+        return outputs
 
     def _mixed_program(self, bufs) -> torch.Tensor:
         """One mixed step on a bucket's static buffers -> logits [B_pad, V]
@@ -1140,11 +1344,13 @@ class LLMEngine:
             del w[best_i]
             w.appendleft(req)
 
-    def _preempt_one(self, below_priority: Optional[int] = None) -> bool:
+    def _preempt_one(self, below_priority: Optional[int] = None,
+                     reason: str = "pressure") -> bool:
         """Kick a running request back to waiting (recompute). The victim
         is the lowest-priority, newest-arrival request. ``below_priority``
         only preempts a victim strictly below it and may empty the batch;
-        the KV-pressure path keeps a batch of one running."""
+        the KV-pressure path keeps a batch of one running. ``reason`` labels
+        the preemption counter (pressure / priority)."""
         if not self.running:
             return False
         if below_priority is None and len(self.running) <= 1:
@@ -1152,6 +1358,7 @@ class LLMEngine:
         victim = min(self.running, key=lambda r: (r.priority, -r.arrival))
         if below_priority is not None and victim.priority >= below_priority:
             return False
+        self._count_preemption(victim, reason)
         self.running.remove(victim)
         # a mid-prefill mixed row re-queues like any victim
         self._mixed_prefills.pop(victim.request_id, None)
@@ -1162,6 +1369,11 @@ class LLMEngine:
         victim.num_preemptions += 1
         self.num_preemptions += 1
         self.waiting.appendleft(victim)
+        now = time.time()
+        self._obs_span(victim, "engine.preempt", now, now,
+                       {"num_preemptions": victim.num_preemptions, "reason": reason})
+        victim.t_queue_start = now  # the next queue_wait span starts here
+        victim.t_span_cursor = None
         if self.drafter is not None:
             # re-admission recomputes; stale draft-cache state would desync
             self.drafter.release(victim.request_id)
@@ -1269,6 +1481,7 @@ class LLMEngine:
             return outs if outs else self._plain_decode_step()
 
         t_prep0 = time.perf_counter()
+        wall0 = time.time()  # the decode_chunk span's dispatch stamp
         prev = self._pipe_inflight
         self._pipe_inflight = None
         # chunk length: adaptive from the measured host round overhead vs
@@ -1337,10 +1550,11 @@ class LLMEngine:
         # chunk time
         t_dispatch += self._graphs.capture_s - capture_s0
         self._pipe_stats.record_dispatch(n_steps, host_prep_ms)
+        self._obs_series(pipeline.record_host_prep, host_prep_ms)
         self._pipe_inflight = {
             "batch": list(self.running), "row_of": dict(state.row_of),
             "inflight": inflight, "n_steps": n_steps,
-            "t_dispatch": t_dispatch, "gap_ms": gap_ms,
+            "t_dispatch": t_dispatch, "wall0": wall0, "gap_ms": gap_ms,
         }
         if prev is None:
             # cold start: nothing to overlap with yet; the next step()
@@ -1362,6 +1576,7 @@ class LLMEngine:
         self._pipe_stats.record_sync(
             steps_run=steps_run, sync_wait_ms=sync_wait_ms, chunk_ms=chunk_ms
         )
+        self._obs_series(pipeline.record_sync_wait, sync_wait_ms)
         # rows that finished in an earlier sync are done on the device and
         # emitted nothing; only live rows get bookkeeping
         live = [
@@ -1371,9 +1586,11 @@ class LLMEngine:
         if not live:
             return []
         cols = [rec["row_of"][r.request_id] for r in live]
-        return self._append_chunk(
+        outputs = self._append_chunk(
             live, toks[:, cols], lps[:, cols], row_counts=[int(n_emit[j]) for j in cols],
         )
+        return self._obs_decode_round(live, outputs, rec["wall0"], "engine.decode_chunk",
+                                      rec["n_steps"])
 
     # -- speculative decoding (llm/spec) ---------------------------------------
 
@@ -1388,6 +1605,7 @@ class LLMEngine:
         split verify pass (``verify_tokens``) and the acceptance run
         eagerly."""
         c = self.config
+        wall0 = time.time()
         k = c.spec.num_draft_tokens
         batch = list(self.running)
 
@@ -1405,6 +1623,7 @@ class LLMEngine:
                 if cap > 0 else []
             )
             draft_by_rid[r.request_id] = list(d)
+        t_drafted = time.time()
         if not any(draft_by_rid.values()):
             return self._plain_decode_step()
 
@@ -1504,6 +1723,7 @@ class LLMEngine:
         out_toks = out_toks.cpu().numpy()  # the host sync
         out_lps = out_lps.cpu().numpy()
         accepted = accepted.cpu().numpy()
+        t_verified = time.time()
 
         # keep accepted + 1 tokens per row through the usual stop ladder
         counts = (accepted[:B] + 1).tolist()
@@ -1515,17 +1735,29 @@ class LLMEngine:
                 r.seq.truncate_to(r.num_tokens)
 
         st = self.spec_stats
+        n_drafted, n_accepted = int(draft_lens[:B].sum()), int(accepted[:B].sum())
+        n_emitted = sum(len(o.new_token_ids) for o in outputs)
         st.steps += 1
         st.rows += B
-        st.drafted += int(draft_lens[:B].sum())
-        st.accepted += int(accepted[:B].sum())
-        st.emitted += sum(len(o.new_token_ids) for o in outputs)
-        return outputs
+        st.drafted += n_drafted
+        st.accepted += n_accepted
+        st.emitted += n_emitted
+        self._obs_series(export_spec_stats, st, n_drafted, n_accepted, n_emitted)
+        draft_ms = round((t_drafted - wall0) * 1e3, 3)
+        verify_ms = round((t_verified - t_drafted) * 1e3, 3)
+        extra = {
+            r.request_id: {"k": k, "drafted": int(draft_lens[i]), "accepted": int(accepted[i]),
+                           "draft_ms": draft_ms, "verify_ms": verify_ms}
+            for i, r in enumerate(batch)
+        }
+        return self._obs_decode_round(batch, outputs, wall0, "engine.spec_round", k,
+                                      extra=extra)
 
     # -- sync decode ----------------------------------------------------------
 
     def _plain_decode_step(self) -> list[RequestOutput]:
         c = self.config
+        wall0 = time.time()
         n_steps = self._chunk_steps()
         # grow each sequence by the chunk's slots it can USE: overshoot
         # steps past max_tokens write the trash page (decode_loop
@@ -1560,7 +1792,8 @@ class LLMEngine:
                 lora=self._lora_arg(a["lora_ids"]),
             )
             tok, logprob = self._sample_batch(logits[:B], batch)
-            return self._append_tokens(batch, tok, logprob)
+            return self._obs_decode_round(batch, self._append_tokens(batch, tok, logprob),
+                                          wall0, "engine.decode_chunk", 1)
 
         # multi-step chunk: decode+sample n_steps times on the device, one
         # sync. Seeds derive from (request seed base, absolute output
@@ -1581,7 +1814,129 @@ class LLMEngine:
             lora=self._lora_arg(a["lora_ids"]),
         )
         # the chunk's one host sync
-        return self._append_chunk(batch, toks.cpu().numpy(), logprobs.cpu().numpy())
+        outputs = self._append_chunk(batch, toks.cpu().numpy(), logprobs.cpu().numpy())
+        return self._obs_decode_round(batch, outputs, wall0, "engine.decode_chunk", n_steps)
+
+    # -- observability (host clock only; every error swallowed) ---------------
+
+    def _obs_series(self, record, *args, **kw) -> None:
+        """The registry writes outside the span hooks go through here
+        (``record`` swallows its own errors): one seam per instance."""
+        record(*args, **kw)
+
+    def _count_preemption(self, req, reason: str) -> None:
+        try:
+            preemption_counter().inc(1, tags={"model": self.model_tag,
+                                              "tenant": req.tenant or "", "reason": reason})
+        except Exception:  # noqa: BLE001 — accounting, not correctness
+            pass
+
+    def _obs_span(self, req, name: str, t0: float, t1: float,
+                  attrs: Optional[dict] = None, status: str = "ok") -> None:
+        try:
+            trace_recorder.get_recorder().record(
+                name, t0, t1, ctx=req.trace, attrs=attrs, status=status
+            )
+        except Exception:  # noqa: BLE001
+            pass
+
+    def _obs_prefilled(self, reqs: list, t1: float, mixed: bool = False) -> None:
+        """``engine.prefill`` spans for requests whose first token (or
+        recompute's next token) was just sampled at ``t1``; decode spans
+        tile from there."""
+        for r in reqs:
+            attrs = {"prompt_tokens": len(r.prompt_token_ids),
+                     "cached_tokens": r._prefill_cached,
+                     "recompute": r.num_preemptions > 0}
+            if mixed:
+                attrs["mixed"] = True
+            self._obs_span(r, "engine.prefill",
+                           r.t_prefill_start if r.t_prefill_start is not None else t1, t1, attrs)
+            if r.t_first_token is None:
+                r.t_first_token = t1
+            r.t_span_cursor = t1
+        if reqs:
+            self._obs_finalize(reqs, t1)
+
+    def _obs_decode_round(self, batch: list, outputs: list, wall0: float,
+                          name: str, n_steps: int, extra: Optional[dict] = None) -> list:
+        """Record one decode round for every participating request, then
+        finalize the ones that finished. A span starts at the request's
+        cursor (the end of its previous span), so pipelined rounds, which
+        overlap on the device, still tile arrival -> finish. ``extra`` maps
+        request_id -> more span attrs (a spec round's draft/accept counts)."""
+        try:
+            t1 = time.time()
+            active_ms = round((t1 - wall0) * 1e3, 3)
+            by_rid = {o.request_id: o for o in outputs}
+            for r in batch:
+                out = by_rid.get(r.request_id)
+                start = r.t_span_cursor if r.t_span_cursor is not None else wall0
+                start = min(start, wall0)
+                attrs = {
+                    "n_steps": n_steps,
+                    "new_tokens": len(out.new_token_ids) if out else 0,
+                    "active_ms": active_ms,
+                }
+                gap_ms = (wall0 - start) * 1e3
+                if gap_ms > 0.05:
+                    attrs["sched_gap_ms"] = round(gap_ms, 3)
+                if extra:
+                    attrs.update(extra.get(r.request_id, ()))
+                self._obs_span(r, name, start, t1, attrs)
+                r.t_span_cursor = t1
+            self._obs_finalize(batch, t1)
+        except Exception:  # noqa: BLE001
+            pass
+        return outputs
+
+    def _obs_finalize(self, reqs: list, t_end: float) -> None:
+        """The ``llm.request`` root span and the SLO observations of the
+        requests that just finished (a second SLO record under a request's
+        own ``slo_tag``)."""
+        for r in reqs:
+            if r.status != RequestStatus.FINISHED:
+                continue
+            try:
+                n_out = len(r.output_token_ids)
+                e2e = max(0.0, t_end - r.arrival)
+                ttft = (max(0.0, r.t_first_token - r.arrival)
+                        if r.t_first_token is not None else None)
+                tpot = ((t_end - r.t_first_token) / (n_out - 1)
+                        if r.t_first_token is not None and n_out > 1 else None)
+                queue_wait = (max(0.0, r.t_first_prefill - r.arrival)
+                              if r.t_first_prefill is not None else None)
+                prefill_span = (max(0.0, r.t_first_token - r.t_first_prefill)
+                                if r.t_first_token is not None
+                                and r.t_first_prefill is not None else None)
+                attrs = {
+                    "request_id": r.request_id,
+                    "finish_reason": r.finish_reason,
+                    "prompt_tokens": len(r.prompt_token_ids),
+                    "output_tokens": n_out,
+                    "num_preemptions": r.num_preemptions,
+                    "e2e_s": round(e2e, 6),
+                }
+                if ttft is not None:
+                    attrs["ttft_s"] = round(ttft, 6)
+                if tpot is not None:
+                    attrs["tpot_s"] = round(tpot, 6)
+                if queue_wait is not None:
+                    attrs["queue_wait_s"] = round(queue_wait, 6)
+                self._obs_span(r, "llm.request", r.arrival, t_end, attrs)
+                tags = [self.model_tag]
+                if r.slo_tag and r.slo_tag != self.model_tag:
+                    # the same observation under the request's own tag (a
+                    # tenant or a canary), graded in isolation
+                    tags.append(r.slo_tag)
+                for tag in tags:
+                    slo.record_request_slo(
+                        tag, ttft_s=ttft, tpot_s=tpot, queue_wait_s=queue_wait,
+                        e2e_s=e2e, finish_reason=r.finish_reason or "",
+                        prefill_span_s=prefill_span,
+                    )
+            except Exception:  # noqa: BLE001
+                pass
 
     # -- sampling + bookkeeping ----------------------------------------------
 

@@ -11,9 +11,12 @@ payload dict (or, with ``stream``, the SSE transcript string).
 
 Endpoints: /v1/models, /v1/completions (one prompt or a list; ``stream``),
 /v1/chat/completions (``stream``), /v1/stats, /v1/drain, the request-tracing
-surface (/v1/requests and /v1/requests/{id}/trace: the ``api.*`` spans;
-the engine's spans are not ported yet, ROADMAP.md Queue 1 B4c), and
-``generate_stream`` for token-level text deltas.
+surface (/v1/requests and /v1/requests/{id}/trace: the ``api.*`` spans
+and, under them, the engine's lifecycle spans), and ``generate_stream``
+for token-level text deltas. The engine's ``model_tag`` is the model_id,
+so its SLO histograms and series carry that label; a chaos
+``PREEMPT_ENGINE`` at ``llm.engine.step`` drives the runner's crash
+recovery.
 
 Not ported: ``build_openai_app`` and ``build_disagg_openai_app`` (they
 deploy through ``ray_tpu.serve``, which has no counterpart here, ROADMAP.md
@@ -424,8 +427,10 @@ class LLMServer:
         else:
             def _build_engine():
                 # also the crash-recovery fallback: fresh engine, same weights/seed
-                return LLMEngine(config.engine, params=config.params, seed=config.seed,
-                                 device=config.device)
+                eng = LLMEngine(config.engine, params=config.params, seed=config.seed,
+                                device=config.device)
+                eng.model_tag = config.model_id  # the SLO and metric label
+                return eng
 
             self.runner = _EngineRunner(_build_engine(), engine_factory=_build_engine)
         acfg = config.admission

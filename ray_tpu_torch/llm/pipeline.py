@@ -27,8 +27,10 @@ budget left after the chunk in flight, and dispatches none when every
 row's budget ends inside it. Run eagerly on the CPU, the chunk does
 leave early.
 
-Not ported: the Prometheus histograms of host prep and sync wait (they
-wait for the port's metrics registry).
+The host-prep and sync-wait histograms (``llm_decode_host_prep_ms``,
+``llm_decode_sync_wait_ms``) are the reference's; the reference fills them
+only under ``EngineConfig(profile=True)``, which the port has not yet
+(slice E), so the port's engine observes them on every pipelined round.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import torch
 
 from ray_tpu_torch.llm.sampling import as_int64, row_seeds, sample_tokens
 from ray_tpu_torch.models.llama_decode import decode_step
+from ray_tpu_torch.util.metrics import Histogram
 
 # the chunk lengths the engine runs: decode_chunk is clamped into this set
 CHUNK_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
@@ -71,6 +74,52 @@ def stop_width(n: int) -> int:
         if w >= max(1, n):
             return w
     raise ValueError(f"stop set width {n} exceeds STOP_WIDTH_CAP={STOP_WIDTH_CAP}")
+
+
+# -- observability: the host/device time split of a pipelined round --------
+
+_SPLIT_BOUNDARIES = [0.05, 0.1, 0.25, 0.5, 1, 2, 5, 10, 25, 50, 100, 500]
+
+
+def host_prep_histogram() -> Histogram:
+    """Host ms per pipelined round preparing and dispatching the next chunk
+    (hidden under the chunk in flight)."""
+    return Histogram(
+        "llm_decode_host_prep_ms",
+        description="profiler: host ms per pipelined decode round "
+        "spent preparing + dispatching the next chunk (overlapped "
+        "with the in-flight chunk's device compute)",
+        boundaries=_SPLIT_BOUNDARIES,
+    )
+
+
+def sync_wait_histogram() -> Histogram:
+    return Histogram(
+        "llm_decode_sync_wait_ms",
+        description="profiler: host ms per pipelined decode round "
+        "blocked in the device->host token sync (the un-hidden "
+        "remainder of the round trip)",
+        boundaries=_SPLIT_BOUNDARIES,
+    )
+
+
+def register_metrics() -> None:
+    host_prep_histogram()
+    sync_wait_histogram()
+
+
+def record_host_prep(ms: float) -> None:
+    try:
+        host_prep_histogram().observe(ms)
+    except Exception:  # noqa: BLE001 — observability must not break decode
+        pass
+
+
+def record_sync_wait(ms: float) -> None:
+    try:
+        sync_wait_histogram().observe(ms)
+    except Exception:  # noqa: BLE001
+        pass
 
 
 @dataclasses.dataclass

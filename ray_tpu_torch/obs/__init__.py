@@ -3,12 +3,18 @@
  * context — ``TraceContext`` (trace_id, span_id), carried by contextvar
    within a thread or asyncio task;
  * recorder — ``SpanRecorder``, a bounded flight recorder of the last N
-   requests' spans (``span(...)`` records and propagates in one call).
+   requests' spans (``span(...)`` records and propagates in one call);
+ * slo — the serving SLO histograms (TTFT, TPOT, queue wait, e2e, KV
+   transfer) on ``util/metrics``;
+ * telemetry — the aggregation kinds metrics declare for a cluster plane.
 
-The serving front end records its ``api.*`` spans here and answers
-``/v1/requests`` and ``/v1/requests/{id}/trace`` from it. The engine's
-lifecycle spans, the SLO histograms and the telemetry plane are not ported
-yet (ROADMAP.md, Queue 1, B4c).
+The serving front end records its ``api.*`` spans here, the engine its
+lifecycle spans (``engine.queue_wait``, ``engine.prefill``,
+``engine.decode_chunk`` / ``engine.mixed_round`` / ``engine.spec_round``,
+``engine.preempt``, ``engine.recover``, the ``llm.request`` root) and the
+disaggregated orchestrator ``llm.kv_transfer``; ``/v1/requests`` and
+``/v1/requests/{id}/trace`` answer from it. The telemetry reporter and
+store wait for the cluster runtime (ROADMAP.md, Queue 1, B8).
 """
 
 from ray_tpu_torch.obs.context import TraceContext, attach, current, detach, new_context, use

@@ -31,6 +31,22 @@ class TraceContext:
         under (its spans record this span as parent)."""
         return TraceContext(self.trace_id, _rand_hex(8), self.sampled)
 
+    def to_dict(self) -> dict:
+        return {"trace_id": self.trace_id, "span_id": self.span_id,
+                "sampled": self.sampled}
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> Optional["TraceContext"]:
+        """The context a ``to_dict`` carried (a KV handoff's ``trace``);
+        None for an empty one."""
+        if not d or not d.get("trace_id"):
+            return None
+        return cls(
+            trace_id=str(d["trace_id"]),
+            span_id=str(d.get("span_id") or _rand_hex(8)),
+            sampled=bool(d.get("sampled", True)),
+        )
+
 
 _CURRENT: contextvars.ContextVar[Optional[TraceContext]] = contextvars.ContextVar(
     "ray_tpu_torch_trace_context", default=None

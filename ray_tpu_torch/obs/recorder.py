@@ -126,7 +126,19 @@ class SpanRecorder:
         self.add(span)
         return span
 
+    def clear(self) -> None:
+        with self._lock:
+            self._traces.clear()
+            self._meta.clear()
+            self._by_request.clear()
+            self.num_dropped_traces = 0
+            self.num_dropped_spans = 0
+
     # -- reads ----------------------------------------------------------------
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._traces)
 
     def get(self, trace_id: str) -> list[Span]:
         with self._lock:

@@ -1,11 +1,13 @@
-"""Process-wide metrics (counterpart of ``ray_tpu/util/metrics.py``).
+"""Process-wide metrics: Counter / Gauge / Histogram and the Prometheus
+export (counterpart of ``ray_tpu/util/metrics.py``).
 
-Only what the serving front end reads is here: ``Counter`` (admission's
-``llm_admission_rejected_total``) on this package's own registry, which is
-separate from the reference's even in a process that imports both, and
-``snapshot_meta``, the restart-detection header ``/v1/stats`` carries. The
-gauges, histograms and Prometheus export come with the engine metrics
-(ROADMAP.md, Queue 1, B4c).
+One registry for this package, separate from the reference's even in a
+process that imports both. Names, types, tag keys and histogram
+boundaries follow the reference's, so the two packages' Prometheus texts
+compare line for line. ``snapshot_meta`` is the restart-detection header
+``/v1/stats`` carries; ``snapshot_registry`` the serializable snapshot a
+telemetry plane would ship (the plane itself waits for the cluster
+runtime, ROADMAP.md Queue 1, B8).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import itertools
 import threading
 import time
 import uuid
+from bisect import bisect_right
 from typing import Optional, Sequence
 
 _REGISTRY_LOCK = threading.Lock()
@@ -27,6 +30,10 @@ PROCESS_EPOCH = uuid.uuid4().hex[:12]
 # Monotonic per-process snapshot sequence: a consumer can ignore a delayed
 # or re-ordered snapshot without comparing wall clocks.
 _SNAPSHOT_SEQ = itertools.count(1)
+
+DEFAULT_HISTOGRAM_BOUNDARIES = [
+    0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 10, 50, 100,
+]
 
 
 def _fq(name: str) -> str:
@@ -58,6 +65,11 @@ class Metric:
                     )
                 self._series = existing._series
                 self._lock = existing._lock
+                if isinstance(self, Histogram):
+                    self._buckets = existing._buckets
+                    self._sums = existing._sums
+                    self._counts = existing._counts
+                    self.boundaries = existing.boundaries
                 return
             _REGISTRY[self.name] = self
 
@@ -84,6 +96,59 @@ class Counter(Metric):
             self._series[k] = self._series.get(k, 0.0) + value
 
 
+class Gauge(Metric):
+    TYPE = "gauge"
+
+    def set(self, value: float, tags: Optional[dict] = None) -> None:
+        k = self._key(tags)
+        with self._lock:
+            self._series[k] = float(value)
+
+    def inc(self, value: float = 1.0, tags: Optional[dict] = None) -> None:
+        k = self._key(tags)
+        with self._lock:
+            self._series[k] = self._series.get(k, 0.0) + value
+
+    def dec(self, value: float = 1.0, tags: Optional[dict] = None) -> None:
+        self.inc(-value, tags)
+
+
+class Histogram(Metric):
+    TYPE = "histogram"
+
+    def __init__(self, name: str, description: str = "",
+                 boundaries: Optional[Sequence[float]] = None,
+                 tag_keys: Optional[Sequence[str]] = None):
+        # set before Metric.__init__: its same-name branch replaces these
+        # with the registered instance's storage
+        self.boundaries = sorted(boundaries or DEFAULT_HISTOGRAM_BOUNDARIES)
+        self._buckets: dict[tuple, list] = {}
+        self._sums: dict[tuple, float] = {}
+        self._counts: dict[tuple, int] = {}
+        super().__init__(name, description, tag_keys)
+
+    def observe(self, value: float, tags: Optional[dict] = None) -> None:
+        k = self._key(tags)
+        with self._lock:
+            buckets = self._buckets.setdefault(k, [0] * (len(self.boundaries) + 1))
+            buckets[bisect_right(self.boundaries, value)] += 1
+            self._sums[k] = self._sums.get(k, 0.0) + value
+            self._counts[k] = self._counts.get(k, 0) + 1
+
+    def hist_data(self) -> dict:
+        """tags tuple -> (bucket counts, sum, count); the last bucket is +Inf."""
+        with self._lock:
+            return {
+                k: (list(b), self._sums.get(k, 0.0), self._counts.get(k, 0))
+                for k, b in self._buckets.items()
+            }
+
+
+def registry_snapshot() -> list[Metric]:
+    with _REGISTRY_LOCK:
+        return list(_REGISTRY.values())
+
+
 def snapshot_meta() -> dict:
     """Timestamp + epoch header of a snapshot: ``ts_monotonic`` orders one
     process's snapshots, ``ts_wall`` places them on a timeline, ``epoch``
@@ -94,3 +159,76 @@ def snapshot_meta() -> dict:
         "ts_monotonic": time.monotonic(),
         "ts_wall": time.time(),
     }
+
+
+def snapshot_registry() -> dict:
+    """Serializable point-in-time snapshot of the whole registry: counters
+    as monotonic totals, histograms as full bucket vectors, so a consumer
+    that misses snapshots loses freshness, never counts."""
+    out = snapshot_meta()
+    out["metrics"] = []
+    for m in registry_snapshot():
+        entry: dict = {
+            "name": m.name,
+            "type": m.TYPE,
+            "description": m.description,
+            "tag_keys": list(m.tag_keys),
+        }
+        series: list[dict] = []
+        if isinstance(m, Histogram):
+            entry["boundaries"] = list(m.boundaries)
+            for k, (buckets, total, count) in m.hist_data().items():
+                series.append({"tags": list(k), "buckets": list(buckets),
+                               "sum": total, "count": count})
+        else:
+            for k, v in m.series().items():
+                series.append({"tags": list(k), "value": v})
+        if series:
+            entry["series"] = series
+            out["metrics"].append(entry)
+    return out
+
+
+def clear_registry() -> None:
+    """Test hook."""
+    with _REGISTRY_LOCK:
+        _REGISTRY.clear()
+
+
+def _escape_label_value(v) -> str:
+    """Prometheus exposition escaping: backslash, double quote and newline,
+    else one tag value corrupts every line after it in the scrape."""
+    return str(v).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _fmt_tags(keys: Sequence[str], vals: tuple, extra: str = "") -> str:
+    # empty values are emitted (`k=""`), so a series tagged {model: ""}
+    # never collides with an untagged sibling
+    parts = [f'{k}="{_escape_label_value(v)}"' for k, v in zip(keys, vals)]
+    if extra:
+        parts.append(extra)
+    return "{" + ",".join(parts) + "}" if parts else ""
+
+
+def prometheus_text() -> str:
+    """Render the whole registry in the Prometheus exposition format."""
+    lines = []
+    for m in registry_snapshot():
+        lines.append(f"# HELP {m.name} {m.description}")
+        lines.append(f"# TYPE {m.name} {m.TYPE}")
+        if isinstance(m, Histogram):
+            for k, (buckets, total, count) in m.hist_data().items():
+                cum = 0
+                for b, n in zip(m.boundaries, buckets):
+                    cum += n
+                    le = f'le="{b}"'
+                    lines.append(f"{m.name}_bucket{_fmt_tags(m.tag_keys, k, le)} {cum}")
+                cum += buckets[-1]
+                le_inf = 'le="+Inf"'
+                lines.append(f"{m.name}_bucket{_fmt_tags(m.tag_keys, k, le_inf)} {cum}")
+                lines.append(f"{m.name}_sum{_fmt_tags(m.tag_keys, k)} {total}")
+                lines.append(f"{m.name}_count{_fmt_tags(m.tag_keys, k)} {count}")
+        else:
+            for k, v in m.series().items():
+                lines.append(f"{m.name}{_fmt_tags(m.tag_keys, k)} {v}")
+    return "\n".join(lines) + "\n"

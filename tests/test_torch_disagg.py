@@ -7,8 +7,9 @@ from the JAX package: the allocator's listener trace, the exported pages
 the port, the in-process connector, greedy token identity of the port's
 orchestrator with its colocated engine and the reference's orchestrator,
 the pinned mixed-batch divergence, seeded streams across the hop, drops and
-corruption through a wrapper connector (the port has no chaos harness), and
-LLMServer(disagg=).
+corruption injected through the connector's chaos gate (``disagg.kv_transfer``),
+the ``llm.kv_transfer`` spans and ``llm_kv_transfer_*`` series against the
+reference orchestrator's, and LLMServer(disagg=).
 """
 
 import asyncio
@@ -24,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu import obs as jobs
 from ray_tpu.llm import kv_cache as jkv
 from ray_tpu.llm.disagg import DisaggConfig as JDisaggConfig
 from ray_tpu.llm.disagg import DisaggOrchestrator as JDisaggOrchestrator
@@ -34,7 +36,9 @@ from ray_tpu.llm.openai_api import LLMConfig as JLLMConfig
 from ray_tpu.llm.openai_api import LLMServer as JLLMServer
 from ray_tpu.llm.sampling import SamplingParams as JSamplingParams
 from ray_tpu.models import llama as jllama
+from ray_tpu.obs import slo as jslo
 from ray_tpu.serve.proxy import Request as HttpRequest
+from ray_tpu_torch import chaos, obs
 from ray_tpu_torch.llm import ByteTokenizer, EngineConfig, LLMConfig, LLMEngine, LLMServer
 from ray_tpu_torch.llm import SamplingParams
 from ray_tpu_torch.llm import kv_cache as tkv
@@ -49,6 +53,7 @@ from ray_tpu_torch.llm.disagg import (
 from ray_tpu_torch.llm.disagg.connector import _corrupt_handoff
 from ray_tpu_torch.llm.engine import RequestStatus
 from ray_tpu_torch.models import llama as tllama
+from ray_tpu_torch.obs import slo as tslo
 
 pytestmark = pytest.mark.torch_port
 torch.set_num_threads(2)
@@ -475,46 +480,95 @@ def test_mixed_sampling_over_two_decode_engines(weights, prompts):
 # ---------------------------------------------------------------------------
 
 
-class _FaultyConnector(InProcessConnector):
-    """Drops (KVTransferError before the send) or corrupts (the reference's
-    bit-flip, not re-sealed) the first ``fires`` handoffs; None: every one."""
+@pytest.fixture
+def chaos_off():
+    """A schedule is process-wide: uninstalled after every test that installs one."""
+    yield
+    chaos.uninstall()
 
-    def __init__(self, namespace: str, kind: str, fires=1):
-        super().__init__(namespace)
-        self.kind, self.fires, self.fired = kind, fires, 0
 
-    def send(self, target, handoff, timeout_s=30.0):
-        if self.fires is None or self.fired < self.fires:
-            self.fired += 1
-            if self.kind == "drop":
-                self._count(num_dropped=1)
-                raise KVTransferError(f"dropped {handoff.request_id!r}")
-            handoff = _corrupt_handoff(handoff)
-        super().send(target, handoff, timeout_s)
+def _gate(kind: str, max_fires=1):
+    """A schedule that drops or corrupts the first ``max_fires`` handoffs at
+    the connector's chaos gate (-1: every one)."""
+    k = {"drop": chaos.DROP_KV_TRANSFER, "corrupt": chaos.CORRUPT_KV_TRANSFER}[kind]
+    return chaos.install(chaos.FaultSchedule(7, [
+        chaos.FaultSpec(k, site="disagg.kv_transfer", max_fires=max_fires)]))
 
 
 @pytest.mark.parametrize("kind", ["drop", "corrupt"])
-def test_lost_transfer_reprefills_not_hangs(weights, prompts, colocated, kind):
-    conn = _FaultyConnector(f"t-lost-{kind}", kind)
-    orch = _orch(weights, f"t-lost-{kind}", connector=conn, num_prefill=2)
+def test_lost_transfer_reprefills_not_hangs(weights, prompts, colocated, kind, chaos_off):
+    sched = _gate(kind)
+    orch = _orch(weights, f"t-lost-{kind}", num_prefill=2)
     try:
         out = orch.generate(prompts, _greedy(), timeout_s=60)
         assert out == colocated[False]  # the retry is lossless
         assert orch.num_reprefills == 1 and orch.num_transfer_failures == 1
-        assert conn.fired == 1 and orch.num_transfers == len(prompts) + (kind == "corrupt")
+        assert len(sched.log) == 1 and orch.num_transfers == len(prompts) + (kind == "corrupt")
+        assert orch.connector.num_dropped == (kind == "drop")
+        failed = [s for t in obs.get_recorder().traces(limit=256)
+                  for s in obs.get_recorder().get(t["trace_id"])
+                  if s.name == "llm.kv_transfer_failed" and f"t-lost-{kind}" in s.attrs["error"]]
+        assert len(failed) == 1 and failed[0].status == "error"
     finally:
         orch.shutdown()
 
 
-def test_transfer_budget_exhausts_loudly(weights, prompts):
-    conn = _FaultyConnector("t-budget", "drop", fires=None)
-    orch = _orch(weights, "t-budget", connector=conn, max_handoff_retries=1)
+def test_transfer_budget_exhausts_loudly(weights, prompts, chaos_off):
+    sched = _gate("drop", max_fires=-1)
+    orch = _orch(weights, "t-budget", max_handoff_retries=1)
     try:
         with pytest.raises(KVTransferError, match="budget"):
             orch.generate([prompts[0]], _greedy(), timeout_s=30)
-        assert conn.fired == 2 and orch.num_inflight() == 0
+        assert len(sched.log) == 2 and orch.num_inflight() == 0
+        assert orch.connector.num_dropped == 2
     finally:
         orch.shutdown()
+
+
+def test_kv_transfer_spans_and_series_equal_reference(weights, prompts):
+    """Each disaggregated request's trace holds its ``llm.kv_transfer`` span
+    between prefill and decode and covers >= 90 %; the transfer series
+    count one handoff per request, with the reference's labels and bytes."""
+    out, views = [], []
+    for pkg in ("ref", "port"):
+        tag = f"t-xfer-{pkg}"
+        if pkg == "ref":
+            orch = JDisaggOrchestrator(JDisaggConfig(engine=_jcfg()), params=weights[0],
+                                       seed=0, model_tag=tag)
+            rec, slo_mod, sp = jobs.get_recorder(), jslo, _greedy(JSamplingParams)
+            ctxs = [jobs.new_context() for _ in prompts]
+        else:
+            orch = _orch(weights, tag)
+            rec, slo_mod, sp = obs.get_recorder(), tslo, _greedy()
+            ctxs = [obs.new_context() for _ in prompts]
+        try:
+            subs = [orch.submit(p, sp, trace=c) for p, c in zip(prompts, ctxs)]
+            got = {}
+            for rid, q in subs:
+                o = q.get(timeout=60)
+                while not o.finished:
+                    o = q.get(timeout=60)
+                got[rid] = list(o.output_token_ids)
+            out.append(sorted(got.values()))
+        finally:
+            orch.shutdown()
+        view = []
+        for c in ctxs:
+            spans = rec.get(c.trace_id)
+            names = [s.name for s in spans]
+            xfer = [s for s in spans if s.name == "llm.kv_transfer"]
+            assert len(xfer) == 1 and names.count("llm.request") == 1, names
+            prefill = next(s for s in spans if s.name == "engine.prefill")
+            assert xfer[0].start == pytest.approx(prefill.end, abs=1e-6)
+            assert rec.summary(c.trace_id)["coverage_pct"] >= 90.0
+            view.append((xfer[0].attrs["backend"], xfer[0].attrs["kv_tokens"],
+                         xfer[0].attrs["bytes"]))
+        hist = slo_mod.kv_transfer_histogram().hist_data()[(tag, "inproc")]
+        nbytes = slo_mod.kv_transfer_bytes_counter().series()[(tag, "inproc")]
+        views.append((sorted(view), hist[2], nbytes))
+    assert out[1] == out[0]
+    assert views[1] == views[0]
+    assert views[1][1] == len(prompts)
 
 
 def _fail_once(eng, at: int):

@@ -60,6 +60,7 @@ import ray_tpu_torch.train, ray_tpu_torch.train.step
 import ray_tpu_torch.models.registry, ray_tpu_torch.obs, ray_tpu_torch.util.metrics
 import ray_tpu_torch.llm.admission, ray_tpu_torch.llm.openai_api, ray_tpu_torch.llm.batch
 import ray_tpu_torch.llm.disagg, ray_tpu_torch.llm.disagg.orchestrator
+import ray_tpu_torch.chaos, ray_tpu_torch.obs.slo, ray_tpu_torch.obs.telemetry
 import dataclasses, torch
 from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
 from ray_tpu_torch.models import llama
@@ -70,6 +71,8 @@ eng = LLMEngine(EngineConfig(model=LLAMA_TINY, num_blocks=32, block_size=4,
                              max_num_seqs=2, max_prefill_len=32), device="cpu")
 out = eng.generate([[5, 6, 7]], SamplingParams(max_tokens=3, temperature=0.0))
 assert len(out[0]) == 3 and eng.stats()["pipeline"]["dispatches"] > 0
+from ray_tpu_torch.util.metrics import prometheus_text
+assert 'ray_tpu_llm_ttft_seconds_count{model="engine"}' in prometheus_text()
 from ray_tpu_torch.llm.spec import SpecConfig
 spec = LLMEngine(EngineConfig(model=LLAMA_TINY, num_blocks=32, block_size=4, max_num_seqs=2,
                               max_prefill_len=32, spec=SpecConfig(num_draft_tokens=2)),

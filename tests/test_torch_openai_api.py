@@ -158,6 +158,7 @@ def test_stats_keys_equal_reference(servers):
     assert set(got) == set(ref) - {"weight_version"} | {"num_preemptions"}
     assert set(got["admission"]) == set(ref["admission"])
     assert set(got["telemetry"]) == set(ref["telemetry"])
+    assert set(got["prefix_cache"]) == set(ref["prefix_cache"])
     assert got["model_id"] == "tiny" and got["engine_recoveries"] == 0
     assert got["free_blocks"] == got["total_blocks"] == ENGINE_KW["num_blocks"]
 
@@ -188,8 +189,20 @@ def test_request_trace_resolves_the_completion_id(servers):
     assert set(traces[1]) == set(traces[0])
     assert traces[1]["trace_id"] == got["trace_id"] and traces[1]["root"] == "api.completions"
     names = {s["name"] for s in traces[1]["spans"]}
-    assert names == {"api.completions"}  # the engine spans come with B4c
-    assert "api.completions" in {s["name"] for s in traces[0]["spans"]}
+    # the api span and, under it, the engine's lifecycle spans, as the reference's
+    assert names == {s["name"] for s in traces[0]["spans"]}
+    assert {"api.completions", "engine.queue_wait", "engine.prefill", "llm.request"} <= names
+    # the engine's spans leave no gap in its llm.request span (the api
+    # span's own coverage also counts the runner inbox's wait, which a
+    # loaded host stretches)
+    spans = sorted((s for s in traces[1]["spans"] if s["name"].startswith("engine.")),
+                   key=lambda s: s["start"])
+    root = next(s for s in traces[1]["spans"] if s["name"] == "llm.request")
+    reach = root["start"]
+    for s in spans:
+        assert s["start"] <= reach
+        reach = max(reach, s["end"])
+    assert reach == root["end"]
     # the same route through __call__, the listing, and an unknown id
     routed = asyncio.run(servers[1](_req("GET", f"/v1/requests/{got['id']}/trace")))
     assert routed["trace_id"] == got["trace_id"]
@@ -275,9 +288,10 @@ def test_drain_then_503(admission):
 
 
 def test_refusals():
-    JAdmissionConfig(target_queue_wait_s=0.5)  # the reference sheds on its histogram
-    with pytest.raises(NotImplementedError, match="B4c"):
-        AdmissionConfig(target_queue_wait_s=0.5)
+    # the queue-wait SLO trigger is ported: the reference's fields and defaults
+    kw = {"target_queue_wait_s": 0.5, "min_queue_depth": 3, "window_s": 5.0}
+    assert dataclasses.asdict(AdmissionConfig(**kw)) == dataclasses.asdict(JAdmissionConfig(**kw))
+    assert dataclasses.asdict(AdmissionConfig()) == dataclasses.asdict(JAdmissionConfig())
     # disaggregated serving is ported (llm/disagg); its unported transfer
     # planes are refused by name
     assert LLMConfig(disagg={"num_prefill": 1}).disagg.num_prefill == 1
