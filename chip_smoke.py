@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,flash_kernels   # a short first check of a kernel edit
     python3 chip_smoke.py --phases build,engine,api      # the serving front end alone
     python3 chip_smoke.py --phases build,engine,disagg   # disaggregated prefill/decode alone
+    python3 chip_smoke.py --phases build,kvtier          # the tiered KV cache alone
 
 Phases, each printing one JSON line:
 
@@ -130,6 +131,24 @@ Phases, each printing one JSON line:
            corrupted handoff is re-prefilled once (its first token and the
            11 other streams equal the clean gated pass's), and two
            completions through LLMServer(disagg=) report "mode": "disagg"
+  kvtier   the tiered KV cache at LLAMA3_8B (the engine phase's weights and
+           configuration, but 640 blocks, a 3 GiB pinned host tier, no
+           object tier, async spill and prefetch on): returning multi-turn
+           chat (numpy seed 0): pass A serves 8 conversations of 1 024
+           history tokens, 32 greedy outputs each; 10 distinct 1 088-token
+           fillers (one at a time) push every conversation block out of HBM;
+           pass B serves the 8 conversations again, reply and a 64-token new
+           turn appended. Two rounds in turns with the same three passes on
+           an engine without the tier (pass B recomputes): tier, recompute,
+           tier, recompute, the second round after drop_prefix_cache (graphs
+           captured). Fails unless, before each tier pass B, no conversation
+           block is in HBM and >= 90 % are in the host tier, every
+           resurrected block verifies, every conversation block resurrects,
+           and K3 and K4 launch in graph replays in pass B. Reports spilled
+           bytes and resurrected tokens by tier, per block the capture,
+           gather, pin (a slab slot), seal, verify, h2d and scatter ms, pass
+           B's TTFT and tok/s with the tier and with recompute, peak device
+           memory and the pinned slab
   parity   a reduced fp32 model served by the same engine on the card
            (kernels; pipelined on graphs, and sync) and on the CPU (plain
            versions): identical greedy tokens, mixed batching on and off
@@ -142,7 +161,11 @@ Phases, each printing one JSON line:
            off, the disaggregated path on the card and on the CPU gives the
            colocated greedy tokens and the colocated streams of two seeded
            requests, and a handoff corrupted in flight on the card is
-           re-prefilled once with the clean run's tokens
+           re-prefilled once with the clean run's tokens; and the tiered
+           cache: a prefix spilled to the host tier and resurrected gives
+           the cold prefill's tokens on the card and on the CPU, and a
+           decode graph captured before the resurrection replays over the
+           resurrected pages
   spec     speculative decoding at LLAMA3_8B (bf16, mixed batching, so the
            verify pass runs the ragged kernel at q_len 1..5, every pass a
            replay of a graph per packed-token bucket, bit for bit the
@@ -2619,6 +2642,207 @@ def disagg_phase(dev, params, engine_res: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# kvtier
+# ---------------------------------------------------------------------------
+
+
+KVTIER_BLOCKS = 640
+KVTIER_HOST_BYTES = 3 << 30
+
+
+def _kvtier_traffic(model):
+    """Returning multi-turn chat (numpy seed 0): 8 histories of 1 024
+    tokens, 8 new turns of 64, and 10 distinct 1 088-token fillers."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    hists = [rng.integers(3, model.vocab_size, size=1024).tolist() for _ in range(8)]
+    turns = [rng.integers(3, model.vocab_size, size=64).tolist() for _ in range(8)]
+    fillers = [rng.integers(3, model.vocab_size, size=1088).tolist() for _ in range(10)]
+    return hists, turns, fillers
+
+
+def _serve_all(eng, prompts, sp, tag, prefetch_wait: bool = False) -> dict:
+    """Every request added at once, stepped to completion: finals, wall,
+    tok/s and mean TTFT (first token booked - arrival). With
+    ``prefetch_wait`` the first step waits until the prefetch worker has
+    processed every request (what a queue wait gives it)."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = {}
+    for i, p in enumerate(prompts):
+        rid = eng.add_request(p, sp, request_id=f"{tag}{i}")
+        reqs[rid] = eng.requests[rid]
+    waited = 0.0
+    if prefetch_wait:
+        if not eng.kvfetch.wait_idle(60.0):
+            raise AssertionError("kvtier: the prefetch worker did not finish in 60 s")
+        waited = time.perf_counter() - t0
+    finals = {}
+    while eng.has_unfinished():
+        for out in eng.step():
+            if out.finished:
+                finals[out.request_id] = list(out.output_token_ids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"finals": finals, "wall_s": wall,
+           "output_tok_per_s": sum(map(len, finals.values())) / wall,
+           "mean_ttft_s": float(np.mean([r.t_first_token - r.arrival for r in reqs.values()]))}
+    if prefetch_wait:
+        out["prefetch_wait_s"] = waited
+        out["mean_ttft_after_wait_s"] = out["mean_ttft_s"] - waited
+    return out
+
+
+def _kvtier_round(eng, traffic, tag: str, prefetch_wait: bool = False) -> dict:
+    """Pass A, the fillers, pass B on one engine (tiered or not); with
+    ``prefetch_wait`` pass B's requests wait for the prefetch worker."""
+    import torch
+
+    from ray_tpu_torch.llm import SamplingParams
+    from ray_tpu_torch.llm.kv_cache import BlockAllocator
+
+    hists, turns, fillers = traffic
+    bs = eng.config.block_size
+    greedy = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
+    torch.cuda.reset_peak_memory_stats()
+    a = _serve_all(eng, hists, greedy, f"{tag}a")
+    for i, f in enumerate(fillers):  # one at a time: traffic spread over time
+        _serve_all(eng, [f], SamplingParams(max_tokens=8, temperature=0.0, ignore_eos=True),
+                   f"{tag}f{i}")
+    convs = [hists[i] + a["finals"][f"{tag}a{i}"] + turns[i] for i in range(8)]
+    res = {"pass_a": {k: v for k, v in a.items() if k != "finals"}}
+    if eng.kvtier is not None:
+        if not eng.kvtier.flush_spills(60.0):
+            raise AssertionError("kvtier: the spill queue did not drain in 60 s")
+        # the conversation blocks pass A sealed (history and reply)
+        n_full = [(len(hists[i]) + 32) // bs for i in range(8)]
+        in_hbm = in_host = total = 0
+        for i, c in enumerate(convs):
+            h = 0
+            for j in range(n_full[i]):
+                h = BlockAllocator.chain_hash(h, tuple(c[j * bs:(j + 1) * bs]))
+                in_hbm += eng.allocator.contains_hash(h)
+                in_host += eng.kvtier.peek(h) == "host"
+                total += 1
+        # what admission must resurrect: each conversation's contiguous
+        # host-tier prefix (a spill dropped from the bounded queue ends it),
+        # short of the last prompt token
+        limit = [(len(c) - 1) // bs * bs for c in convs]
+        advertised = sum(min(eng.peek_prefix_tiered(c)["by_tier"].get("host", 0), lim)
+                         for c, lim in zip(convs, limit))
+        res["before_pass_b"] = {"conversation_blocks": total, "in_hbm": in_hbm,
+                                "in_host": in_host, "host_share": in_host / total,
+                                "resurrectable_tokens": advertised}
+        if in_hbm or in_host < 0.9 * total:
+            raise AssertionError(f"kvtier: before pass B {res['before_pass_b']}")
+    marks, replayed = _launch_marks(eng), _replayed_marks(eng)
+    t_before = eng.kvtier.timings() if eng.kvtier is not None else None
+    hits_before = dict(eng.stats()["prefix_cache"]["by_tier"])
+    b = _serve_all(eng, convs, greedy, f"{tag}b", prefetch_wait=prefetch_wait)
+    launches = _launch_counts(eng, marks)
+    in_replays = {n: v - replayed[n] for n, v in _replayed_marks(eng).items()}
+    res["pass_b"] = {k: v for k, v in b.items() if k != "finals"}
+    res["pass_b"]["kernel_launches"] = launches
+    res["pass_b"]["kernel_launches_in_replays"] = in_replays
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    res["finals"] = b["finals"]
+    st = eng.stats()
+    res["pass_b"]["hit_tokens_by_tier"] = {t: n - hits_before.get(t, 0)
+                                           for t, n in st["prefix_cache"]["by_tier"].items()}
+    if eng.kvtier is not None:
+        torch.cuda.synchronize()
+        kt = eng.kvtier.stats()
+        res["kv_tiers"] = {k: kt[k] for k in ("host", "spilled_bytes_total", "resurrected_tokens",
+                                              "corrupt_dropped", "spills_dropped",
+                                              "evicted_blocks", "spill_queue", "slab")}
+        res["kv_tiers"]["prefetch"] = st["kv_tiers"]["fetch"]["prefetch"]
+        res["timings_ms_per_block"] = {s: v["ms_per_block"] for s, v in kt["timings"].items()}
+        res["timings_blocks"] = {s: v["blocks"] for s, v in kt["timings"].items()}
+        res["timings_pass_b_blocks"] = {s: kt["timings"][s]["blocks"] - t_before[s]["blocks"]
+                                        for s in ("verify", "h2d", "scatter")}
+        want = res["before_pass_b"]["resurrectable_tokens"]
+        got = res["pass_b"]["hit_tokens_by_tier"].get("host", 0)
+        if kt["corrupt_dropped"] != {"host": 0, "object": 0} or got != want:
+            raise AssertionError(f"kvtier: pass B resurrected {got} host tokens of {want}, "
+                                 f"corrupt {kt['corrupt_dropped']}")
+        if min(in_replays.values()) <= 0:
+            raise AssertionError(f"kvtier: no K3/K4 launch in pass B's replays: {in_replays}")
+    return res
+
+
+def kvtier_phase(dev, params) -> dict:
+    """LLAMA3_8B with the tiered KV cache against recompute: two rounds of
+    pass A, fillers, pass B, in turns (tier, recompute, tier, recompute)."""
+    import gc
+
+    import torch
+
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.llm.kvtier import KVTierConfig
+    from ray_tpu_torch.models.llama import LLAMA3_8B
+
+    t_phase = time.perf_counter()
+    model = LLAMA3_8B
+    traffic = _kvtier_traffic(model)
+    kw = {**ENGINE_KW, "num_blocks": KVTIER_BLOCKS}
+    kvt = KVTierConfig(host_bytes=KVTIER_HOST_BYTES, object_bytes=0)
+    t0 = time.perf_counter()
+    tiered = LLMEngine(EngineConfig(model=model, kvtier=kvt, **kw), params=params, device=dev)
+    init_s = time.perf_counter() - t0
+    plain = LLMEngine(EngineConfig(model=model, **kw), params=params, device=dev)
+    res = {"phase": "kvtier", "model": "LLAMA3_8B", "dtype": "bfloat16",
+           "num_blocks": KVTIER_BLOCKS, "host_bytes": KVTIER_HOST_BYTES,
+           "block_bytes": tiered.kvtier.block_nbytes, "tiered_init_s": init_s,
+           "slab": tiered.kvtier.stats()["slab"]}
+    try:
+        rounds = []
+        for k in range(2):
+            if k:
+                for eng in (tiered, plain):
+                    eng.allocator.drop_prefix_cache()  # every tier too
+            rnd = {"tier": _kvtier_round(tiered, traffic, f"t{k}"),
+                   "recompute": _kvtier_round(plain, traffic, f"r{k}")}
+            ft, fr = rnd["tier"].pop("finals"), rnd["recompute"].pop("finals")
+            rnd["pass_b_streams_equal_recompute"] = \
+                f"{sum(ft[f't{k}b{i}'] == fr[f'r{k}b{i}'] for i in range(8))}/8"
+            rnd["pass_b_tokens_equal_recompute"] = \
+                f"{sum(a == b for i in range(8) for a, b in zip(ft[f't{k}b{i}'], fr[f'r{k}b{i}']))}/256"
+            for i in range(8):
+                toks = ft[f"t{k}b{i}"]
+                if len(toks) != 32 or not all(0 <= t < model.vocab_size for t in toks):
+                    raise AssertionError(f"kvtier: request {i}: {len(toks)} tokens")
+            rounds.append(rnd)
+        res["rounds"] = rounds
+        # the prefetch's best case: pass B's requests wait in the queue
+        # until the worker has verified (and the tick scattered) their
+        # prefixes; graphs captured
+        tiered.allocator.drop_prefix_cache()
+        pre = _kvtier_round(tiered, traffic, "p", prefetch_wait=True)
+        pre.pop("finals")
+        res["prefetched"] = pre
+        res["kernel_launches"] = rounds[0]["tier"]["pass_b"]["kernel_launches"]
+        res["kernel_launches_in_replays"] = rounds[0]["tier"]["pass_b"][
+            "kernel_launches_in_replays"]
+        try:
+            res["host_memory_stats"] = {k: v for k, v in torch.cuda.host_memory_stats().items()
+                                        if "bytes" in k and ("peak" in k or "current" in k)}
+        except Exception as e:  # noqa: BLE001 — reported, not needed
+            res["host_memory_stats"] = repr(e)
+    finally:
+        tiered.close()
+    del tiered, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # parity
 # ---------------------------------------------------------------------------
 
@@ -2722,7 +2946,78 @@ def parity_phase(dev) -> None:
                 raise AssertionError(f"{key}: pipelined-card, sync-card and CPU tokens "
                                      f"differ, or no graph replay ran ({replays})")
     result["api_server"] = _parity_server(dev, model, params_cpu, params_gpu)
+    result["kvtier"] = _parity_kvtier(dev, model, params_cpu, params_gpu)
     emit(result)
+
+
+def _parity_kvtier(dev, model, params_cpu, params_gpu) -> dict:
+    """fp32, the parity model, the tiered cache on a 32-block cache: a
+    prefix served, pushed out of HBM into the host tier, then resurrected.
+    The resurrected request's tokens equal a cold prefill's on the card, and
+    the CPU engine's; on the card the cache tensors stay in place and decode
+    graphs captured before the resurrection replay over its pages."""
+    import numpy as np
+
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+
+    rng = np.random.default_rng(13)
+    shared = rng.integers(3, model.vocab_size, size=96).tolist()
+    warm = shared + rng.integers(3, model.vocab_size, size=16).tolist()
+    probe = shared + rng.integers(3, model.vocab_size, size=16).tolist()
+    fillers = [rng.integers(3, model.vocab_size, size=160).tolist() for _ in range(4)]
+    sp = SamplingParams(max_tokens=16, temperature=0.0, ignore_eos=True)
+    kw = dict(model=model, num_blocks=32, block_size=16, max_num_seqs=4, max_prefill_len=256,
+              mixed_batch=True, mixed_prefill_chunk=64, decode_chunk=8)
+    res = {}
+    for where, params, device in (("cuda", params_gpu, dev), ("cpu", params_cpu, "cpu")):
+        eng = LLMEngine(EngineConfig(kvtier={"object_bytes": 0}, **kw), params=params,
+                        device=device)
+        try:
+            eng.generate([warm], sp)
+            for f in fillers:
+                eng.generate([f], sp)
+            if not eng.kvtier.flush_spills(60.0):
+                raise AssertionError("parity kvtier: the spill queue did not drain in 60 s")
+            peek = eng.peek_prefix_tiered(probe)
+            out = {"peek_before": peek}
+            if device != "cpu":
+                fams = _families(eng)
+                keys0 = [set(f._graphs) for f in fams]
+                replays0 = [dict(f.replays_by_key) for f in fams]
+                ptrs = {n: t.data_ptr() for n, t in eng.cache.items()}
+            rid = eng.add_request(probe, sp, request_id="resurrected")
+            cached, toks = None, None
+            while eng.has_unfinished():
+                for o in eng.step():
+                    if o.finished and o.request_id == rid:
+                        cached, toks = o.num_cached_tokens, list(o.output_token_ids)
+            st = eng.stats()
+            out.update({"num_cached_tokens": cached,
+                        "by_tier": st["prefix_cache"]["by_tier"],
+                        "resurrected_tokens": st["kv_tiers"]["resurrected_tokens"],
+                        "corrupt_dropped": st["kv_tiers"]["corrupt_dropped"], "tokens": toks})
+            if device != "cpu":
+                out["replays_of_graphs_captured_before"] = sum(
+                    f.replays_by_key[k] - r0.get(k, 0)
+                    for f, keys, r0 in zip(fams, keys0, replays0) for k in keys)
+                out["cache_tensors_unchanged"] = \
+                    {n: t.data_ptr() for n, t in eng.cache.items()} == ptrs
+        finally:
+            eng.close()
+        cold = LLMEngine(EngineConfig(**kw), params=params, device=device)
+        out["cold_tokens_equal"] = cold.generate([probe], sp)[0] == toks
+        res[where] = out
+    c = res["cuda"]
+    ok = (c["cold_tokens_equal"] and res["cpu"]["cold_tokens_equal"]
+          and c["tokens"] == res["cpu"]["tokens"]
+          and c["peek_before"]["by_tier"].get("host", 0) >= 96 and c["num_cached_tokens"] >= 96
+          and c["resurrected_tokens"]["host"] >= 96 and c["replays_of_graphs_captured_before"] > 0
+          and c["cache_tensors_unchanged"])
+    if not ok:
+        raise AssertionError(f"parity kvtier: {res}")
+    for r in res.values():
+        r.pop("tokens")
+    return res
 
 
 def _parity_disagg(dev, model, params_cpu, params_gpu, prompts, sp, mixed, colocated) -> dict:
@@ -3246,8 +3541,8 @@ def train_parity_phase(dev) -> None:
 
 # ---------------------------------------------------------------------------
 
-PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "api", "disagg", "parity",
-          "spec", "train", "train_parity")
+PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "api", "disagg", "kvtier",
+          "parity", "spec", "train", "train_parity")
 
 SOURCES = {
     "paged_attention": ("ray_tpu_torch/ops/csrc/paged_attention.cu",
@@ -3317,9 +3612,10 @@ def main(argv=None) -> int:
         timings.update(kernels_phase(dev))
     if "flash_kernels" in phases:
         timings.update(flash_kernels_phase(dev))
-    params, params_s = (params_8b(dev) if {"engine", "spec", "api", "disagg"} & set(phases)
-                        else (None, 0.0))
+    params, params_s = (params_8b(dev) if {"engine", "spec", "api", "disagg", "kvtier"}
+                        & set(phases) else (None, 0.0))
     lora_launches, api_launches, disagg_launches, replayed = {}, {}, {}, {}
+    kvtier_launches = {}
     if "engine" in phases:
         engine_res = engine_phase(dev, params, params_s)
         launches.update(engine_res["kernel_launches"])
@@ -3332,6 +3628,8 @@ def main(argv=None) -> int:
         disagg_launches = disagg_phase(dev, params, engine_res)["kernel_launches"]
     if "engine" in phases:
         del engine_res
+    if "kvtier" in phases:
+        kvtier_launches = kvtier_phase(dev, params)["kernel_launches"]
     if "parity" in phases:
         parity_phase(dev)
     if "spec" in phases:
@@ -3357,6 +3655,8 @@ def main(argv=None) -> int:
             **({"launches_api_phase": api_launches[name]} if name in api_launches else {}),
             **({"launches_disagg_phase": disagg_launches[name]}
                if name in disagg_launches else {}),
+            **({"launches_kvtier_phase": kvtier_launches[name]}
+               if name in kvtier_launches else {}),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
             "library_ms": bf["library_ms"], "dtype": "bfloat16", "shape": bf["shape"],

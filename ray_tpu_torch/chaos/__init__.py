@@ -17,8 +17,9 @@ Usage::
     finally:
         chaos.uninstall()
 
-Hook sites: ``llm.engine.step`` (``llm/engine.py``) and
-``disagg.kv_transfer`` (``llm/disagg/connector.py``), each behind an
+Hook sites: ``llm.engine.step`` (``llm/engine.py``),
+``disagg.kv_transfer`` (``llm/disagg/connector.py``), ``llm.kvtier.spill``
+and ``llm.kvfetch`` (``llm/kvtier/tiers.py``), each behind an
 ``ACTIVE is None`` fast path. The reference's ``ChaosRunner``
 (orchestrated process kills) and environment propagation to worker
 processes wait for the cluster runtime (ROADMAP.md Queue 1, B8).

@@ -11,8 +11,9 @@ the schedule seed.
 Every kind of the reference is accepted, so a schedule written for the
 reference loads here. The port's hook sites implement the in-process
 kinds they meet: ``llm.engine.step`` (PREEMPT_ENGINE, KILL_WORKER,
-DELAY_RPC) and ``disagg.kv_transfer`` (DROP_KV_TRANSFER,
-CORRUPT_KV_TRANSFER, DELAY_RPC). The orchestrated kinds and the runner
+DELAY_RPC), ``disagg.kv_transfer`` (DROP_KV_TRANSFER, CORRUPT_KV_TRANSFER,
+DELAY_RPC), ``llm.kvtier.spill`` (DROP_KV_TRANSFER, CORRUPT_KV_TRANSFER)
+and ``llm.kvfetch`` (DROP_KV_TRANSFER, CORRUPT_KV_TRANSFER, DELAY_RPC). The orchestrated kinds and the runner
 that executes them against a cluster wait for the cluster runtime
 (ROADMAP.md Queue 1, B8); ``to_wire`` / ``from_wire`` keep the schedule's
 JSON form.

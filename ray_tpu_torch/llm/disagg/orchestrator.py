@@ -27,15 +27,20 @@ Here each engine is touched only by its own loop thread (on the card it
 captures and replays its CUDA graphs on that thread's stream): submits,
 aborts, re-prefills and state reads are posted to a per-engine inbox that
 the loop drains at every step boundary, and imports run on the decode
-loop itself. The decode pick reads the host-side allocator and counters
-of each decode engine without waiting (read-only dict lookups, no device
-work). Captures of two engines never collide (``llm/graphs.py``).
+loop itself. The picks read the host-side allocator, the tier tables and
+the counters of each engine without waiting (read-only dict lookups under
+the tier manager's lock, no device work). Captures of two engines never
+collide (``llm/graphs.py``).
+
+With the tiered cache (``engine.kvtier``) every pool engine publishes into
+one prefix index and registers with one fetch registry of this
+orchestrator (``llm/kvtier``, ``llm/kvfetch``, in-process): the
+prefix-aware picks see the host and object tiers, and with
+``fetch_cost_routing`` an engine holding nothing scores ``fetch_weight``
+times the best holder, since its prefetch worker can pull the prefix.
 
 Not ported, and refused by ``DisaggConfig``: the cluster-RPC and device
-connectors (ROADMAP.md Queue 1, C5/B8 and C1) and the fabric topology
-(C1); ``EngineConfig`` refuses the tiered cache (C3). With no tiered cache
-``prefix_aware_routing`` and ``fetch_cost_routing`` fall back, as the
-reference's do without one, to the HBM prefix and the depth/peek ladder.
+connectors (ROADMAP.md Queue 1, C5/B8 and C1) and the fabric topology (C1).
 
 Observability, as the reference's: each engine's ``model_tag`` is
 ``<model_tag>-prefill<i>`` / ``-decode<i>``; an imported handoff records an
@@ -107,10 +112,12 @@ class DisaggConfig:
     # decode pick: queue depth first, the prefix cache as tiebreak
     cache_aware_pick: bool = True
     # among engines within depth_slack of the least loaded, prefer the one
-    # holding the longest prefix of the prompt (HBM only: no tiered cache)
+    # holding the longest tier-discounted prefix of the prompt
     prefix_aware_routing: bool = True
     depth_slack: int = 4
-    # reads the tiered cache's fetch plane, which the port has not: no effect
+    # with the tiered cache and its prefetch: an engine holding nothing
+    # scores fetch_weight x the best holder (it pulls the prefix over the
+    # fetch plane), so a holder past the slack spreads instead
     fetch_cost_routing: bool = True
     fabric: Any = None
 
@@ -148,8 +155,14 @@ class _PoolEngine:
         self.in_transit = 0
 
     def depth(self) -> int:
+        """Queue depth for the picks: the engine's waiting and running
+        requests plus what was posted or sent to it and has not landed. A
+        posted add stays counted until ``fn()`` has added it, so a pick
+        never sees the engine lighter than it is."""
         e = self.engine
-        return len(e.waiting) + len(e.running) + self.pending_adds + self.in_transit
+        with self._lock:
+            posted = self.pending_adds
+        return len(e.waiting) + len(e.running) + posted + self.in_transit
 
     def post(self, fn: Callable[[], None], adds: int = 0) -> bool:
         """Queue ``fn`` for the loop thread; False once the loop has ended."""
@@ -184,8 +197,12 @@ class _PoolEngine:
                 if not self._inbox:
                     return
                 fn, adds = self._inbox.popleft()
-                self.pending_adds -= adds
-            fn()
+            try:
+                fn()
+            finally:
+                # lowered only once fn() has added the request to the engine
+                with self._lock:
+                    self.pending_adds -= adds
 
     def close(self) -> None:
         """The loop is ending: refuse later posts, run what was posted."""
@@ -242,6 +259,22 @@ class DisaggOrchestrator:
         self.connector = connector if connector is not None else InProcessConnector(self._ns)
         self._target_ids = [f"{model_tag}-decode{i}" for i in range(config.num_decode)]
         self._targets = [self.connector.register_target(t) for t in self._target_ids]
+        # the fetch plane: every pool engine meets on one prefix index and
+        # fetch registry of this orchestrator
+        self._fetch_enabled = False
+        self._registry = None
+        if config.engine.kvtier is not None:
+            from ray_tpu_torch.llm.kvfetch import LocalFetchClient, get_local_fetch_registry
+            from ray_tpu_torch.llm.kvtier import get_local_index
+
+            index = get_local_index(self._ns)
+            self._registry = get_local_fetch_registry(self._ns)
+            for pe in self._prefill + self._decode:
+                key = f"{pe.role}{pe.index}"
+                pe.engine.kvtier.attach_index(index, engine_key=key)
+                self._registry.register(key, pe.engine.kvtier)
+                pe.engine.kvfetch.attach(LocalFetchClient(self._registry))
+            self._fetch_enabled = config.fetch_cost_routing
 
         self._lock = threading.Lock()
         # orchestrator-minted ids: every engine counts its own "req-N"
@@ -418,6 +451,10 @@ class DisaggOrchestrator:
             if t is not threading.current_thread():
                 t.join(timeout=timeout_s)
         self.connector.close()
+        for pe in self._prefill + self._decode:
+            pe.engine.close()  # the tier workers, bounded joins
+            if self._registry is not None:
+                self._registry.unregister(f"{pe.role}{pe.index}")
 
     # -- delivery (watermarked, idempotent across re-prefills) ----------------
 
@@ -515,27 +552,47 @@ class DisaggOrchestrator:
                           reason=f"prefill_death:{type(exc).__name__}")
 
     def _prefix_discounted(self, pe: _PoolEngine, prompt_token_ids: list, lora_id=None) -> float:
+        """Tier-discounted prefix score of the prompt on one engine (a
+        read-only probe across HBM, host and object tiers)."""
         try:
             return float(pe.engine.peek_prefix_tiered(prompt_token_ids, lora_id)["discounted"])
         except ValueError:
             return 0.0  # adapter not loaded there
 
+    def _fetch_weight(self) -> float:
+        """The fetch-cost discount (0.0: an engine holding nothing is never
+        preferred). Needs the prefetch worker, which does the pulling."""
+        kvt = self.config.engine.kvtier
+        if not self._fetch_enabled or kvt is None or not kvt.prefetch:
+            return 0.0
+        return float(kvt.fetch_weight)
+
     def _pick_prefill(self, prompt_token_ids: list) -> _PoolEngine:
-        """The engine holding the longest prefix of the prompt within
-        ``depth_slack`` of the least loaded, else the least loaded."""
+        """The engine holding the longest tier-discounted prefix of the
+        prompt within ``depth_slack`` of the least loaded, else the least
+        loaded. With fetch-cost routing an engine holding nothing scores
+        ``fetch_weight`` times the best holder."""
         if len(self._prefill) == 1:
             return self._prefill[0]
         depths = {p.index: p.depth() for p in self._prefill}
         if self.config.prefix_aware_routing:
             floor = min(depths.values())
+            fw = self._fetch_weight()
+            discs = {}
+            for p in self._prefill:
+                # engines past the slack matter only as fetch sources
+                if fw <= 0.0 and depths[p.index] > floor + self.config.depth_slack:
+                    continue
+                discs[p.index] = self._prefix_discounted(p, prompt_token_ids)
+            best_disc = max(discs.values(), default=0.0)
             best = None
             for p in self._prefill:
                 if depths[p.index] > floor + self.config.depth_slack:
                     continue
-                disc = self._prefix_discounted(p, prompt_token_ids)
-                if disc <= 0.0:
+                eff = max(discs.get(p.index, 0.0), fw * best_disc)
+                if eff <= 0.0:
                     continue
-                cand = (disc, -depths[p.index], -p.index)
+                cand = (eff, -depths[p.index], -p.index)
                 if best is None or cand > best[0]:
                     best = (cand, p)
             if best is not None:
@@ -565,7 +622,9 @@ class DisaggOrchestrator:
             discounted.append((disc, depth, d.index))
         if self.config.prefix_aware_routing:
             floor = min(depth for _, depth, _ in discounted)
-            best = max(((disc, -depth, -i) for disc, depth, i in discounted
+            fw = self._fetch_weight()
+            best_disc = max((disc for disc, _, _ in discounted), default=0.0)
+            best = max(((max(disc, fw * best_disc), -depth, -i) for disc, depth, i in discounted
                         if depth <= floor + self.config.depth_slack), default=None)
             if best is not None and best[0] > 0.0:
                 return -best[2]

@@ -18,7 +18,10 @@
  * LoRA multiplexing (``max_loras > 0``): up to ``max_loras`` adapters in
    slots of one set of stacks, every row of every program selecting its
    own (slot 0, the zero adapter, is the base model), prefix chains
-   salted per slot.
+   salted per slot;
+ * the tiered prefix cache (``kvtier=``, ``llm/kvtier``, ``llm/kvfetch``):
+   evicted full blocks spill to host memory and the object store, and
+   admission (or the prefetch tick before it) scatters them back in place.
 
 The API mirrors the reference (add_request / step / generate / stats /
 recover / add_lora / remove_lora / evict_lru_lora, and the KV handoff of
@@ -26,9 +29,9 @@ disaggregated serving: export_request / import_handoff /
 peek_prefix_tokens, ``llm/disagg``); ``EngineConfig.model`` takes a
 registry name (``models/registry.py``). Not ported yet, and refused by
 ``EngineConfig`` with NotImplementedError so no caller silently gets a
-different engine: the tiered KV cache, tensor-parallel meshes and the
-profiling hooks (ROADMAP.md, Queue 1); ``export_request(keep_on_device=
-True)`` raises likewise (the device fabric, C1).
+different engine: tensor-parallel meshes and the profiling hooks
+(ROADMAP.md, Queue 1); ``export_request(keep_on_device=True)`` raises
+likewise (the device fabric, C1).
 
 Observability, as the reference's: every request carries a trace
 (``obs/``) whose lifecycle spans tile arrival -> finish (queue_wait,
@@ -38,7 +41,7 @@ preemption and utilization series live on ``util/metrics``, and the
 ``llm.engine.step`` chaos hook (``chaos/``) can preempt or slow a step.
 The hooks read the host clock only: no device sync, nothing inside a
 graph capture. Every observability error is swallowed (it must not break
-decode); the gauges' tiered-cache branch waits for C3.
+decode).
 """
 
 from __future__ import annotations
@@ -88,8 +91,8 @@ from ray_tpu_torch.util.metrics import Counter
 
 def prefix_cache_hit_counter() -> Counter:
     """Prompt tokens served from the prefix cache instead of recomputed, by
-    the tier that held them (``hbm``: the resident paged cache; the host and
-    object tiers come with the tiered cache, C3)."""
+    the tier that held them (``hbm``: the resident paged cache; ``host`` and
+    ``object``: resurrected from the tiered cache, ``llm/kvtier``)."""
     return Counter(
         "llm_prefix_cache_hit_tokens_total",
         description="prompt tokens whose KV was reused from the prefix "
@@ -209,6 +212,9 @@ class EngineConfig:
     # speculative decoding (llm/spec): a SpecConfig (or a dict of one)
     # turns each decode round into draft -> one verify pass -> accept
     spec: Any = None
+    # tiered prefix cache (llm/kvtier): evicted full blocks spill to host
+    # memory and the object store, and admission resurrects them with a
+    # verified scatter. True / a dict / a KVTierConfig; None keeps HBM only
     kvtier: Any = None
     # mixed ragged batching (llm/mixed.py over ops/ragged.py): prompts
     # stream mixed_prefill_chunk tokens per step, packed with every decode
@@ -229,7 +235,6 @@ class EngineConfig:
                 f"name, got {type(self.model)}"
             )
         unported = (
-            ("kvtier", self.kvtier is not None, "the tiered KV cache (Queue 1, C3)"),
             ("mesh_spec", self.mesh_spec is not None, "tensor-parallel serving (Queue 1, B4)"),
             ("profile", self.profile, "the decode profiling hooks (Queue 1, slice E)"),
         )
@@ -260,6 +265,18 @@ class EngineConfig:
             if not isinstance(self.spec, SpecConfig):
                 raise ValueError(
                     f"EngineConfig.spec must be a SpecConfig, got {type(self.spec)}"
+                )
+        if self.kvtier is not None:
+            from ray_tpu_torch.llm.kvtier import KVTierConfig
+
+            if self.kvtier is True:
+                self.kvtier = KVTierConfig()
+            elif isinstance(self.kvtier, dict):
+                self.kvtier = KVTierConfig(**self.kvtier)
+            if not isinstance(self.kvtier, KVTierConfig):
+                raise ValueError(
+                    f"EngineConfig.kvtier must be a KVTierConfig, True, or a dict, "
+                    f"got {type(self.kvtier)}"
                 )
 
     def prefill_buckets(self) -> list[int]:
@@ -413,7 +430,7 @@ class LLMEngine:
         self.model_tag = "engine"
         self.prefix_hit_tokens = 0
         self.prefix_lookup_tokens = 0
-        # hit tokens by serving tier (only "hbm" until the tiered cache, C3)
+        # hit tokens by serving tier: hbm resident, host / object resurrected
         self.tier_hit_tokens: dict[str, int] = {}
         self.num_prefill_batches = 0
         self.num_kv_imports = 0
@@ -469,6 +486,18 @@ class LLMEngine:
         if c.spec is not None:
             self.drafter = c.spec.build_drafter(c.model, self.device)
             self.spec_stats = SpecStats()
+        # tiered prefix cache: the tier manager listens to the allocator's
+        # seal / evict / drop events and runs the spill worker; the fetch
+        # manager prefetches a queued request's spilled prefix (and pulls
+        # other engines' blocks over the fetch plane once attached)
+        self.kvtier = None
+        self.kvfetch = None
+        if c.kvtier is not None:
+            from ray_tpu_torch.llm.kvfetch import KVFetchManager
+            from ray_tpu_torch.llm.kvtier import KVTierManager
+
+            self.kvtier = KVTierManager(self, c.kvtier)
+            self.kvfetch = KVFetchManager(self)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
@@ -643,12 +672,18 @@ class LLMEngine:
         )
         self.requests[rid] = req
         self.waiting.append(req)
+        if self.kvfetch is not None:
+            # verify / fetch the spilled prefix while the request waits
+            self.kvfetch.request_admitted(req)
         return rid
 
     def abort_request(self, request_id: str) -> None:
         req = self.requests.get(request_id)
         if req is None or req.status in (RequestStatus.FINISHED, RequestStatus.ABORTED):
             return
+        if self.kvfetch is not None:
+            # an abort mid-prefetch releases the reservation and staged chain
+            self.kvfetch.cancel(request_id)
         if req in self.running:
             # removing a decode-batch row is a membership change: land the
             # in-flight chunk first (its outputs go out with the next
@@ -711,6 +746,10 @@ class LLMEngine:
             # outputs of an internal pipeline flush (abort) go out first
             out, self._pending_outputs = self._pending_outputs, []
             return out
+        if self.kvfetch is not None:
+            # land completed prefetches before admission: the scatter holds
+            # reservation refs, so the head's prefix matches as resident
+            self.kvfetch.tick()
         if self.waiting:
             # QoS admission order: the highest-priority waiting request
             # first (strictly FIFO when priorities are uniform)
@@ -792,11 +831,18 @@ class LLMEngine:
             if r.request_id not in queued
             and r.status in (RequestStatus.WAITING, RequestStatus.RUNNING)
         ]
+        if self.kvfetch is not None:
+            # staged chains and reservations may reference the crashed
+            # state; with rebuild_kv their block ids die with the allocator
+            self.kvfetch.reset(forget_blocks=rebuild_kv)
         if rebuild_kv:
             c = self.config
             self.allocator = BlockAllocator(c.num_blocks, c.block_size)
             for t in self.cache.values():
                 t.zero_()
+            if self.kvtier is not None:
+                # the new allocator's listeners; spilled copies stay usable
+                self.kvtier.rebind_allocator()
             for r in victims:
                 r.seq = None  # blocks died with the old allocator
         moved = []
@@ -839,9 +885,10 @@ class LLMEngine:
 
     def update_telemetry_gauges(self) -> None:
         """Refresh this engine's utilization gauges (KV-page occupancy, KV
-        bytes, queue depth, running requests) from host state. Called
-        throttled from step(); never raises into serving. The tiered cache's
-        gauges join here with C3."""
+        bytes, queue depth, running requests) and the tiered cache's
+        (resident bytes, spill queue) from host state, and publish the
+        prefix-index snapshot on the same throttle. Called throttled from
+        step(); never raises into serving."""
         try:
             g = utilization_gauges()
             tags = {"model": self.model_tag}
@@ -851,6 +898,9 @@ class LLMEngine:
             g["kv_hbm_bytes"].set(self._kv_cache_nbytes, tags=tags)
             g["queue_depth"].set(len(self.waiting), tags=tags)
             g["running"].set(len(self.running), tags=tags)
+            if self.kvtier is not None:
+                self.kvtier.update_gauges()
+                self.kvtier.flush_index()
         except Exception:  # noqa: BLE001 — observability must not break serving
             pass
 
@@ -872,6 +922,10 @@ class LLMEngine:
                 "by_tier": dict(self.tier_hit_tokens),
             },
         }
+        if self.kvtier is not None:
+            # the tier breakdown, with the prefetch / fetch rollup
+            out["kv_tiers"] = self.kvtier.stats()
+            out["kv_tiers"]["fetch"] = self.kvfetch.stats()
         if self.num_kv_imports:
             out["num_kv_imports"] = self.num_kv_imports
         if self.spec_stats is not None:
@@ -902,11 +956,25 @@ class LLMEngine:
         )
 
     def peek_prefix_tiered(self, prompt_token_ids: list, lora_id: Optional[str] = None) -> dict:
-        """The reference's tiered probe without a tiered cache (the port has
-        none, ROADMAP.md Queue 1, C3): the HBM prefix alone, at full weight.
-        Returns {"n_tokens", "discounted", "by_tier"}."""
-        n = self.peek_prefix_tokens(prompt_token_ids, lora_id)
+        """Read-only tiered probe: the longest contiguous prefix this engine
+        can serve without recompute across every tier (HBM resident, host
+        and object resurrectable), with the tier-discounted score the
+        prefix-aware picks rank engines by. Returns {"n_tokens",
+        "discounted", "by_tier"}."""
+        tokens = list(map(int, prompt_token_ids))
+        salt = self._lora_slot(lora_id)
+        if self.kvtier is not None:
+            return self.kvtier.probe_tiers(tokens, salt)
+        n = self.allocator.probe_prefix(tokens, salt)
         return {"n_tokens": n, "discounted": float(n), "by_tier": ({"hbm": n} if n else {})}
+
+    def close(self) -> None:
+        """Stop the tiered cache's spill and prefetch workers (bounded
+        joins); the engine stays usable, spilling inline from then on."""
+        if self.kvfetch is not None:
+            self.kvfetch.close()
+        if self.kvtier is not None:
+            self.kvtier.stop()
 
     def _copies(self) -> "torch.cuda.Stream":
         if self._copy_stream is None:
@@ -1143,6 +1211,17 @@ class LLMEngine:
                 blocks, matched, chain = self.allocator.match_prefix(prompt[:-1], salt)
             if matched:
                 tier_counts["hbm"] = matched
+            if self.kvtier is not None:
+                # blocks past the HBM match may be spilled: scatter them back
+                # (verified) and extend the match
+                rblocks, rtokens, chain, rcounts = self._resurrect_tiers(
+                    prompt, matched, chain, salt
+                )
+                if rblocks:
+                    blocks = list(blocks) + rblocks
+                    matched += rtokens
+                    for t, n in rcounts.items():
+                        tier_counts[t] = tier_counts.get(t, 0) + n
             if blocks:
                 seq.adopt_prefix(blocks, chain, matched)
                 matched_blocks = blocks
@@ -1154,6 +1233,18 @@ class LLMEngine:
             return None  # no room: fall through to decode; retry later
         self.waiting.popleft()
         self.num_prefill_batches += 1
+        if self.kvfetch is not None and matched:
+            # blocks the prefetch tick scattered match as HBM residents:
+            # attribute their hits to the tier they were pulled from (taken
+            # past the commit point, so a failed admission keeps it)
+            for t, n in self.kvfetch.take_attribution(req.request_id).items():
+                move = min(n, tier_counts.get("hbm", 0))
+                if move <= 0:
+                    continue
+                tier_counts["hbm"] -= move
+                tier_counts[t] = tier_counts.get(t, 0) + move
+            if tier_counts.get("hbm") == 0:
+                tier_counts.pop("hbm", None)
         # hit accounting over the ORIGINAL prompt only: a preemption
         # recompute re-matching its own sealed blocks is not a hit
         if req.num_preemptions == 0:
@@ -1209,7 +1300,116 @@ class LLMEngine:
         req.seq = seq
         req.status = RequestStatus.RUNNING
         self.running.append(req)
+        if self.kvfetch is not None:
+            self.kvfetch.consumed(req.request_id)  # the sequence holds its own refs
         return req, logits
+
+    def _resurrect_tiers(self, prompt: list, matched: int, chain: int, salt: int) -> tuple:
+        """Pull spilled full blocks past the HBM match back into the cache:
+        walk the prompt's chain hashes from ``chain``, take each verified
+        block from the deep tiers (adopting blocks still resident past a
+        spilled head by refcount), and scatter the deep ones in one
+        ``_scatter_block_pages``. A corrupt entry or a miss stops the walk;
+        allocation pressure aborts it. Returns (blocks, n_tokens, chain,
+        {tier: tokens})."""
+        mgr = self.kvtier
+        bs = self.config.block_size
+        # >= 1 token stays uncached so the prefill yields next-token logits
+        limit = (len(prompt) - 1) // bs
+        start = matched // bs
+        entries: list = []  # (hash, tier | "hbm", SpilledBlock | block id)
+        h = chain
+        for i in range(start, limit):
+            blk = tuple(prompt[i * bs:(i + 1) * bs])
+            h2 = self.allocator.chain_hash(h, blk)
+            got = mgr.take_verified(h2, blk)
+            if got is None:
+                # head-first eviction leaves later blocks resident past a
+                # spilled head: adopt them instead of recomputing
+                b = self.allocator.lookup(h2)
+                if b is None:
+                    break
+                entries.append((h2, "hbm", b))
+            else:
+                entries.append((h2, got[0], got[1]))
+            h = h2
+        deep = [e for e in entries if e[1] != "hbm"]
+        if not deep:
+            # resident blocks adopted past a gap only ride a deep block
+            if entries:
+                self.allocator.free([b for _h, _t, b in entries])
+            return [], 0, chain, {}
+        try:
+            new_blocks = self.allocator.allocate(len(deep))
+        except NoFreeBlocksError:
+            # the deep entries stay spilled; adopted refs go back
+            self.allocator.free([b for _h, t, b in entries if t == "hbm"])
+            return [], 0, chain, {}
+        # the scatter changes cache membership: land a chunk in flight first
+        self._pipe_flush(deliver=True)
+        self._scatter_block_pages([sb for _h, _t, sb in deep], new_blocks)
+        tier_counts: dict[str, int] = {}
+        blocks: list = []
+        it_new = iter(new_blocks)
+        parent = chain
+        for idx, (h2, tier, payload) in enumerate(entries):
+            if tier == "hbm":
+                blocks.append(payload)  # adopted resident block, ref held
+            else:
+                b = next(it_new)
+                self.allocator.register_full_block(
+                    b, h2, parent_hash=parent, tokens=payload.tokens,
+                    n_prefix_tokens=(start + idx + 1) * bs,
+                )
+                mgr.promoted(h2, tier)
+                blocks.append(b)
+            tier_counts[tier] = tier_counts.get(tier, 0) + bs
+            parent = h2
+        for tier, n in tier_counts.items():
+            if tier != "hbm":  # adopted residents are hits, not resurrections
+                mgr.count_resurrected(tier, n)
+        return blocks, len(entries) * bs, parent, tier_counts
+
+    def _scatter_block_pages(self, spilled: list, blocks: list) -> None:
+        """Write spilled blocks' pages into whole cache ``blocks``: on the
+        card each block's K and V are copied host -> device on the engine's
+        copy stream (from pinned slab slots when the host tier held them),
+        the current stream waits for the copies, then one ``index_copy_``
+        per cache tensor scatters them IN PLACE, as ``import_handoff`` does,
+        so graphs captured before read them. The one recipe admission and
+        the prefetch tick share. h2d and scatter times go to the tier
+        manager, read once complete (the engine thread never waits)."""
+        m = self.config.model
+        bs = self.config.block_size
+        n = len(blocks)
+        L, KVH, D = m.n_layers, m.n_kv_heads, m.head_dim
+        slots = self._tensor(np.concatenate(
+            [np.arange(b * bs, (b + 1) * bs, dtype=np.int64) for b in blocks]))
+        dt = self.cache["k"].dtype
+        mgr = self.kvtier
+        if self.device.type == "cuda":
+            cur, cs = torch.cuda.current_stream(self.device), self._copies()
+            with torch.cuda.stream(cs):
+                a = mgr.mark()
+                dev = torch.empty((n, 2, L, KVH, bs, D), dtype=dt, device=self.device)
+                for i, sb in enumerate(spilled):
+                    dev[i, 0].copy_(sb.handoff.k_pages, non_blocking=True)
+                    dev[i, 1].copy_(sb.handoff.v_pages, non_blocking=True)
+                b = mgr.mark()
+            cur.wait_stream(cs)
+            dev.record_stream(cur)
+        else:
+            a = mgr.mark()
+            dev = torch.stack([torch.stack((sb.handoff.k_pages, sb.handoff.v_pages))
+                               for sb in spilled]).to(dt)
+            b = mgr.mark()
+        mgr.note_span("h2d", a, b, n)
+        a = mgr.mark()
+        for j, name in enumerate(("k", "v")):
+            src = dev[:, j].permute(1, 2, 0, 3, 4).reshape(L, KVH, n * bs, D)
+            self.cache[name].index_copy_(2, slots, src)
+        b = mgr.mark()
+        mgr.note_span("scatter", a, b, n)
 
     # -- mixed ragged batching -------------------------------------------------
 
@@ -1227,6 +1427,8 @@ class LLMEngine:
         req.status = RequestStatus.RUNNING
         self.running.append(req)
         self._mixed_prefills[req.request_id] = matched
+        if self.kvfetch is not None:
+            self.kvfetch.consumed(req.request_id)
         return req
 
     def _mixed_step(self) -> list[RequestOutput]:

@@ -16,9 +16,11 @@ at 0), and ``drop_prefix_cache(salt=...)`` drops one slot's chains.
 The allocator's handoff surface is the reference's too: the read-only
 ``probe_prefix`` (the disaggregated decode pick, ``llm/disagg``) and
 ``contains_hash`` probes, and the ``seal_listener`` / ``evict_listener`` /
-``drop_listener`` hooks, fired where the reference fires them (their
-reader there, the tiered cache ``llm/kvtier``, is not ported: ROADMAP.md
-Queue 1, C3).
+``drop_listener`` hooks, fired where the reference fires them: the tiered
+cache (``llm/kvtier``) binds them, and rebinds them to the allocator
+``LLMEngine.recover(rebuild_kv=True)`` builds. ``register_full_block``
+carries the chain metadata (parent hash, tokens, prefix length) the spill
+path and the resurrected blocks' re-registration need.
 """
 
 from __future__ import annotations

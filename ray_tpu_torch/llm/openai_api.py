@@ -204,7 +204,9 @@ class _EngineRunner:
 
     def busy(self) -> bool:
         """Work in the inbox or in the engine."""
-        return bool(self._inbox) or self.engine.has_unfinished()
+        with self._inbox_lock:
+            queued = bool(self._inbox)
+        return queued or self.engine.has_unfinished()
 
     # -- the loop thread ------------------------------------------------------
 
@@ -327,7 +329,11 @@ class _EngineRunner:
                 # the request-id counter carries over: a later submit without
                 # an id must not be named like a request re-created below
                 fresh._counter = self.engine._counter
-                self.engine = fresh
+                torn, self.engine = self.engine, fresh
+                try:
+                    torn.close()  # its tiered cache's workers, bounded joins
+                except Exception:  # noqa: BLE001
+                    pass
                 # re-create every in-flight request WITH its delivered prefix:
                 # admission prefills prompt + outputs, so the continuation
                 # extends exactly what the consumer already received
@@ -357,6 +363,7 @@ class _EngineRunner:
         self._wake.set()
         if threading.current_thread() is not self._thread:
             self._thread.join(timeout=timeout_s)
+        self.engine.close()  # the tiered cache's workers, bounded joins
 
 
 class _AsyncSink:

@@ -1144,3 +1144,179 @@ def test_disagg_on_card_matches_cpu_colocated():
         assert st["decode"][0]["num_prefill_batches"] == 0
         assert st["decode"][0]["pipeline"]["graphs"]["replays"] > 0
         assert orch._prefill[0].engine.params["embed"].data_ptr() == on_card["embed"].data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# the tiered KV cache (llm/kvtier) on the card
+# ---------------------------------------------------------------------------
+
+
+def _tier_engine(dtype, **kvtier):
+    """A small mixed-batching engine with the tiered cache (host tier only)."""
+    return _packed_engine(dtype, kvtier={"object_bytes": 0, **kvtier})
+
+
+def _chain_blocks(eng, prompt):
+    """(hash, block id) of the prompt's full blocks sealed in HBM."""
+    from ray_tpu_torch.llm.kv_cache import BlockAllocator
+
+    bs, h, out = eng.config.block_size, 0, []
+    for i in range(len(prompt) // bs):
+        h = BlockAllocator.chain_hash(h, tuple(prompt[i * bs:(i + 1) * bs]))
+        out.append((h, eng.allocator._hash_to_block.get(h)))
+    return out
+
+
+def _evict_all(eng):
+    alloc = eng.allocator
+    alloc.free(alloc.allocate(alloc.num_free))
+    assert eng.kvtier.flush_spills(60.0)
+
+
+def _block_pages(eng, b):
+    bs = eng.config.block_size
+    return (eng.cache["k"][:, :, b * bs:(b + 1) * bs].cpu(),
+            eng.cache["v"][:, :, b * bs:(b + 1) * bs].cpu())
+
+
+def test_kvtier_resurrected_pages_equal_captured_bit_for_bit():
+    """bf16: a block spilled from HBM holds the cache's pages bit for bit in
+    its pinned slab slot, and resurrected into another block the cache holds
+    them again, bit for bit (copies and an in-place scatter, no arithmetic)."""
+    _need_cuda()
+    from ray_tpu_torch.llm import SamplingParams
+
+    eng = _tier_engine(torch.bfloat16)
+    try:
+        prompt = _prompts_long()[3]
+        sp = SamplingParams(max_tokens=4, temperature=0.0, ignore_eos=True)
+        eng.generate([prompt], sp)
+        chain = _chain_blocks(eng, prompt)
+        before = {h: _block_pages(eng, b) for h, b in chain}
+        _evict_all(eng)
+        assert all(not eng.allocator.contains_hash(h) for h, _ in chain)
+        for h, (k, v) in before.items():
+            tier, sb = eng.kvtier.get(h)
+            assert tier == "host" and sb.handoff.k_pages.is_pinned()
+            assert torch.equal(sb.handoff.k_pages, k) and torch.equal(sb.handoff.v_pages, v)
+        eng.generate([prompt + [7, 8, 9]], sp)
+        st = eng.stats()
+        assert st["kv_tiers"]["resurrected_tokens"]["host"] == len(chain) * 4
+        for h, b in _chain_blocks(eng, prompt):
+            k, v = _block_pages(eng, b)
+            assert torch.equal(k, before[h][0]) and torch.equal(v, before[h][1])
+    finally:
+        eng.close()
+
+
+def test_kvtier_capture_while_spill_worker_drains_stays_valid(monkeypatch):
+    """fp32: the spill worker's gather (copies on the copy stream and an
+    event wait) is held until the engine thread is inside a mixed-step
+    graph capture, and runs there. The capture succeeds, the spilled pages
+    verify, and the engine's tokens (replays of that graph included) equal
+    the CPU engine's."""
+    _need_cuda()
+    import threading
+
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.llm.kvtier.tiers import KVTierManager
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    eng = _tier_engine(torch.float32)
+    armed, capturing, gathered = threading.Event(), threading.Event(), threading.Event()
+    errors = []
+    real_gather = KVTierManager._gather
+
+    def held_gather(self, entries):
+        if threading.current_thread().name == "kvtier-spill" and not gathered.is_set():
+            if not capturing.wait(timeout=60):
+                errors.append("no capture began")
+            try:
+                return real_gather(self, entries)
+            finally:
+                gathered.set()
+        return real_gather(self, entries)
+
+    real_program = eng._mixed_program
+
+    def program(bufs):
+        if (armed.is_set() and torch.cuda.is_current_stream_capturing()
+                and not capturing.is_set()):
+            capturing.set()
+            if not gathered.wait(timeout=20):
+                import faulthandler
+                import sys
+
+                faulthandler.dump_traceback(file=sys.__stderr__, all_threads=True)
+                errors.append("the gather did not run during the capture")
+        return real_program(bufs)
+
+    monkeypatch.setattr(KVTierManager, "_gather", held_gather)
+    eng._mixed_program = program
+    try:
+        prompts = _prompts_long()
+        warm = list(range(3, 43))  # shares no block with the prompts
+        sp = SamplingParams(max_tokens=12, temperature=0.0, ignore_eos=True)
+        first = eng.generate([warm], sp)
+        # evictions: the captures queue, and the worker holds their gather
+        # until the next capture begins
+        armed.set()
+        eng.allocator.free(eng.allocator.allocate(eng.allocator.num_free))
+        got = eng.generate(prompts, sp)  # new packed buckets: captures
+        assert not errors, errors
+        assert capturing.is_set() and gathered.is_set()
+        assert eng.kvtier.flush_spills(60.0)
+        with eng.kvtier._lock:
+            blocks = list(eng.kvtier._host.values())
+        assert blocks and all(sb.handoff.verify() for sb in blocks)
+        again = eng.generate(prompts, sp)  # replays of the graphs captured above
+        cpu_params = {k: (v.cpu() if torch.is_tensor(v) else {n: t.cpu() for n, t in v.items()})
+                      for k, v in eng.params.items()}
+        cfg = EngineConfig(model=LlamaConfig(**GRAPH_MODEL, dtype=torch.float32), num_blocks=64,
+                           block_size=4, max_num_seqs=4, max_prefill_len=64, mixed_batch=True,
+                           mixed_prefill_chunk=16)
+        cpu = LLMEngine(cfg, params=cpu_params, device="cpu")
+        assert first == cpu.generate([warm], sp)
+        want = cpu.generate(prompts, sp)
+        assert got == want and again == want
+        assert eng.stats()["mixed"]["graphs"]["replays"] > 0
+    finally:
+        eng.close()
+
+
+def test_kvtier_pinned_slab_slots_reused_without_growth():
+    """The host tier's pages live in one pinned slab allocated with the
+    engine: rounds of spills reuse its slots (LRU eviction returns them),
+    the slab does not grow, and nor does pinned memory by a block (the tier
+    pins nothing per block)."""
+    _need_cuda()
+    from ray_tpu_torch.llm import SamplingParams
+
+    eng = _tier_engine(torch.float32, host_bytes=8 * 2 * 2 * 2 * 4 * 64 * 4)
+    try:
+        slab = eng.kvtier._slab
+        assert slab.n_slots == 8 and slab.buf.is_pinned()
+        ptr = slab.buf.data_ptr()
+        sp = SamplingParams(max_tokens=4, temperature=0.0, ignore_eos=True)
+        pinned = []
+        for rnd in range(3):
+            rng = np.random.default_rng(100 + rnd)  # no prefix shared across rounds
+            for n in (9, 41, 14, 60):
+                eng.generate([rng.integers(3, 500, size=n).tolist()], sp)
+            _evict_all(eng)
+            torch.cuda.synchronize()
+            st = eng.kvtier.stats()
+            assert st["host"]["entries"] == 8 and st["slab"]["free"] == 0
+            stats = getattr(torch.cuda, "host_memory_stats", dict)()
+            pinned.append({k: v for k, v in stats.items()
+                           if "allocated_bytes" in k and k.endswith("current")})
+        st = eng.kvtier.stats()
+        assert st["slab"]["taken"] > 3 * 8 and st["slab"]["reused"] > 0
+        assert st["slab"]["misses"] == 0 and st["evicted_blocks"] > 0
+        assert slab.buf.data_ptr() == ptr
+        # no pinned allocation per block: in-use pinned bytes move by less
+        # than one block's over two rounds of 8+ spilled blocks
+        for key in pinned[0]:
+            assert abs(pinned[2][key] - pinned[0][key]) < eng.kvtier.block_nbytes, pinned
+    finally:
+        eng.close()

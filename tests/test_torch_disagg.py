@@ -312,8 +312,9 @@ def test_refusals_name_their_roadmap_items(weights, exported):
         DisaggConfig(engine=_cfg(), fabric={"pools": []})
     with pytest.raises(ValueError, match="unknown KV connector"):
         DisaggConfig(engine=_cfg(), connector="carrier-pigeon")
-    with pytest.raises(NotImplementedError, match="C3"):
-        DisaggConfig(engine={"model": FP32_TINY, "kvtier": {"host_blocks": 8}})
+    # the tiered cache is ported: an engine config with it builds
+    tiered = DisaggConfig(engine={"model": FP32_TINY, "kvtier": {}})
+    assert tiered.engine.kvtier is not None and tiered.engine.kvtier.host_bytes == 64 << 20
 
 
 # ---------------------------------------------------------------------------
