@@ -4,7 +4,7 @@
     python3 chip_smoke.py                         # one card, no arguments: every phase
     python3 chip_smoke.py --phases build,flash_kernels   # a short first check of a kernel edit
     python3 chip_smoke.py --phases build,engine,api      # the serving front end alone
-    python3 chip_smoke.py --phases build,engine,disagg   # disaggregated prefill/decode alone
+    python3 chip_smoke.py --phases build,engine,disagg   # disaggregated, inproc and device legs
     python3 chip_smoke.py --phases build,kvtier          # the tiered KV cache alone
 
 Phases, each printing one JSON line:
@@ -102,35 +102,46 @@ Phases, each printing one JSON line:
            max_queue_depth 3 sheds 429s with Retry-After while the admitted
            finish, and a drain turns a new request into a 503
   disagg   LLAMA3_8B disaggregated (the engine phase's weights, one copy
-           shared, configuration and 12 requests): a DisaggOrchestrator
-           with one prefill and one decode engine, each on its own loop
-           thread, and the in-process connector; a first pass (both
-           engines fresh, each capturing its graphs while the other works),
-           three more (steady: the median of those that captured no graph),
-           two gated passes (all 12 admitted in one step, the decode loop
-           parked until the 12 handoffs are sent, so both decode one batch
-           shape: their bf16 streams must be equal, and the first reads
-           every import back from the live cache, bit for bit) and a gated
-           pass with one handoff corrupted in flight (a CORRUPT_KV_TRANSFER
-           chaos fault at the connector's disagg.kv_transfer gate); tok/s,
-           TTFT, TPOT,
-           per handoff the export (gather, d2h, seal) and import (verify,
-           h2d, scatter) ms, bytes handed off, graphs and capture seconds
-           per engine, K3/K4 launches per engine (eager and in replays),
-           peak memory. Fails unless the first pass makes 12 transfers and
-           no re-prefill, the decode engine runs no prefill or mixed step,
-           every request has 32 tokens, each request of the first pass has
-           an llm.kv_transfer span between its prefill and decode spans and
-           its spans cover >= 90 %, every pass books one
-           llm_kv_transfer_seconds sample per handoff, every mixed step of the prefill
-           engine is a replay with K4 inside and the decode chunks replays
-           with K3 inside, a capture of one engine overlaps the other's
-           steps, the per-thread launch tallies account for every wrapper
-           launch, imports after capture leave the cache tensors in place
-           and are read by replays of graphs captured before them, the
-           corrupted handoff is re-prefilled once (its first token and the
-           11 other streams equal the clean gated pass's), and two
-           completions through LLMServer(disagg=) report "mode": "disagg"
+           shared, configuration and 12 requests), two legs alive at once,
+           each a DisaggOrchestrator with one prefill and one decode engine
+           on their own loop threads: inproc (the in-process connector:
+           pinned host pages, CRC both ways) and device (the fabric: pages
+           gathered and sealed on the card, handed to the decode engine's
+           cache device by reference, verified on the card, scattered in
+           place). Each leg's first pass (fresh engines, each capturing
+           while the other works; the kernels' counters zeroed just before
+           and read after), one more ungated inproc pass, then gated passes
+           in turns, inproc, device, inproc, device, device, inproc (all 12
+           admitted in one step, the decode loop parked until the 12
+           handoffs are sent, so one batch shape: the same bf16 bits), then
+           a gated pass on each leg with one handoff corrupted in flight
+           (CORRUPT_KV_TRANSFER at the connector's gate; on the device leg
+           CORRUPT_DEVICE_TRANSFER in the transport, which degrades the edge
+           to the RPC fallback); tok/s, TTFT, TPOT, per handoff the export
+           (pin, gather, d2h, seal) and import (verify, h2d, scatter) ms
+           and the host ms a pass, bytes handed off, the pinned allocator's
+           movement, graphs and capture seconds per engine, K3/K4 launches
+           per engine (eager and in replays), peak memory, the RPC
+           handoff's send ms. Fails unless each first pass makes 12
+           transfers and no re-prefill, the decode engine runs no prefill
+           or mixed step, every request has 32 tokens, each request of a
+           first pass has an llm.kv_transfer span between its prefill and
+           decode spans and its spans cover >= 90 %, every pass books one
+           llm_kv_transfer_seconds sample per handoff, every mixed step of
+           the prefill engine is a replay with K4 inside and the decode
+           chunks replays with K3 inside, a capture of one engine overlaps
+           the other's steps, the per-thread launch tallies account for
+           every wrapper launch, imports after capture leave the cache
+           tensors in place and read back bit for bit, and are read by
+           replays of graphs captured before them; every device-leg gated
+           stream equals the inproc one, K3/K4 launches per engine are
+           equal on both legs in capture-free passes and no device handoff
+           has a pin, d2h or h2d stage; the corrupted handoff is
+           re-prefilled once (its first token and the 11 other streams
+           equal the clean gated pass's; on the device leg the edge falls
+           back to RPC once); and two completions through
+           LLMServer(disagg=DisaggConfig(connector="device")) report "mode":
+           "disagg" over device edges
   kvtier   the tiered KV cache at LLAMA3_8B (the engine phase's weights and
            configuration, but 640 blocks, a 3 GiB pinned host tier, no
            object tier, async spill and prefetch on): returning multi-turn
@@ -158,10 +169,12 @@ Phases, each printing one JSON line:
            completions on the card = the CPU server's = LLMEngine.generate,
            and after recover(rebuild_kv=True) with graphs captured the
            streams equal the fault-free pass; and, mixed batching on and
-           off, the disaggregated path on the card and on the CPU gives the
+           off, the disaggregated path on the card and on the CPU, over the
+           in-process connector and over the device fabric, gives the
            colocated greedy tokens and the colocated streams of two seeded
            requests, and a handoff corrupted in flight on the card is
-           re-prefilled once with the clean run's tokens; and the tiered
+           re-prefilled once with the clean run's tokens (over the fabric
+           through the RPC fallback); and the tiered
            cache: a prefix spilled to the host tier and resurrected gives
            the cold prefill's tokens on the card and on the CPU, and a
            decode graph captured before the resurrection replays over the
@@ -2178,34 +2191,41 @@ def api_phase(dev, params, engine_res: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _disagg_connector(namespace: str):
-    """The disagg phase's in-process connector: it keeps each request's last
-    handoff while ``keep`` is set (for the read-back check), as handed to
-    the connector's chaos gate."""
-    from ray_tpu_torch.llm.disagg import InProcessConnector
+def _record_sends(conn) -> dict:
+    """Wrap a connector's ``send`` on the instance: while ``rec["keep"]`` is
+    set it keeps each request's last handoff in ``rec["sent"]`` (for the
+    read-back check); every send's host ms goes to ``rec["send_ms"]``."""
+    rec = {"keep": False, "sent": {}, "send_ms": {}}
+    send = conn.send
 
-    class Recording(InProcessConnector):
-        def __init__(self):
-            super().__init__(namespace)
-            self.keep, self.sent = False, {}
+    def recording(target, handoff, timeout_s=30.0):
+        if rec["keep"]:
+            rec["sent"][handoff.request_id] = handoff
+        t0 = time.perf_counter()
+        try:
+            return send(target, handoff, timeout_s)
+        finally:
+            rec["send_ms"][handoff.request_id] = (time.perf_counter() - t0) * 1e3
 
-        def send(self, target, handoff, timeout_s=30.0):
-            if self.keep:
-                self.sent[handoff.request_id] = handoff
-            super().send(target, handoff, timeout_s)
-
-    return Recording()
+    conn.send = recording
+    return rec
 
 
-def _corrupt_once(request_id: str):
+def _corrupt_once(request_id: str, device: bool = False):
     """Install a chaos schedule that corrupts the handoff of ``request_id``
-    once at the connector's gate (site ``disagg.kv_transfer``; the pages
-    bit-flipped, not re-sealed). The caller uninstalls it."""
+    once in flight (site ``disagg.kv_transfer``, not re-sealed): at a host
+    connector's gate (CORRUPT_KV_TRANSFER, the pages bit-flipped), or, with
+    ``device``, in the fabric transport (CORRUPT_DEVICE_TRANSFER, flipped on
+    the card). The caller uninstalls it."""
     from ray_tpu_torch import chaos
+    from ray_tpu_torch.chaos.schedule import CORRUPT_DEVICE_TRANSFER
 
+    if device:
+        kind, match = CORRUPT_DEVICE_TRANSFER, {"bundle_id": request_id}
+    else:
+        kind, match = chaos.CORRUPT_KV_TRANSFER, {"request_id": request_id}
     return chaos.install(chaos.FaultSchedule(0, [chaos.FaultSpec(
-        chaos.CORRUPT_KV_TRANSFER, site="disagg.kv_transfer",
-        match={"request_id": request_id}, max_fires=1)]))
+        kind, site="disagg.kv_transfer", match=match, max_fires=1)]))
 
 
 def _watch_steps(eng, windows: list, hooks: dict) -> None:
@@ -2289,7 +2309,33 @@ def _hold(pe):
     return release
 
 
-def _disagg_pass(orch, conn, prompts, sps, tag: str, gated: bool = False) -> dict:
+def _sent(orch) -> int:
+    return sum(c.num_sent for c in orch.connectors.values())
+
+
+def _xfer_samples(orch) -> int:
+    """``llm_kv_transfer_seconds`` samples of this orchestrator, every plane."""
+    from ray_tpu_torch.obs import slo
+
+    data = slo.kv_transfer_histogram().hist_data()
+    return sum(data.get((orch.model_tag, b), ([], 0.0, 0))[2] for b in orch.connectors)
+
+
+def _pinned_stats() -> dict:
+    import torch
+
+    st = torch.cuda.host_memory_stats()
+    return {k: v for k, v in st.items() if k.startswith(("allocations.", "allocated_bytes."))
+            or k in ("num_host_alloc", "num_host_free")}
+
+
+# host-clock stages of a handoff (the others are device times between events)
+HOST_STAGES = ("pin_ms", "seal_ms", "verify_ms")
+HANDOFF_STAGES = ("pin_ms", "gather_ms", "d2h_ms", "seal_ms", "verify_ms", "h2d_ms",
+                  "scatter_ms")
+
+
+def _disagg_pass(orch, prompts, sps, tag: str, gated: bool = False) -> dict:
     """Serve the 12 requests through the orchestrator. Ungated as the engine
     phase serves them: 11 at once, the last (the second on the shared
     prefix) once the first has its first token. Gated: the prefill loop is
@@ -2316,15 +2362,15 @@ def _disagg_pass(orch, conn, prompts, sps, tag: str, gated: bool = False) -> dic
     n = len(prompts)
     pe, de = orch._prefill[0], orch._decode[0]
     hand0 = len(orch.handoffs)
-    xfer = slo.kv_transfer_histogram()
-    xfer0 = xfer.hist_data().get((orch.model_tag, conn.name), ([], 0.0, 0))[2]
+    xfer0 = _xfer_samples(orch)
     traces = {}
-    sent0 = conn.num_sent
+    sent0 = _sent(orch)
     caps0 = {r: (sum(f.captures for f in _families(p.engine)),
                  sum(f.capture_s for f in _families(p.engine)))
              for r, p in (("prefill", pe), ("decode", de))}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    pinned0 = _pinned_stats()
     holds = (_hold(pe), _hold(de)) if gated else None
     t0 = time.perf_counter()
     t_submit = {}
@@ -2342,9 +2388,9 @@ def _disagg_pass(orch, conn, prompts, sps, tag: str, gated: bool = False) -> dic
         if gated:
             holds[0].set()
             deadline = time.time() + 300
-            while conn.num_sent - sent0 < n:
+            while _sent(orch) - sent0 < n:
                 if time.time() > deadline:
-                    raise AssertionError(f"disagg: {conn.num_sent - sent0} of {n} handoffs sent")
+                    raise AssertionError(f"disagg: {_sent(orch) - sent0} of {n} handoffs sent")
                 time.sleep(0.002)
             holds[1].set()
         while len(finals) < n:
@@ -2365,12 +2411,16 @@ def _disagg_pass(orch, conn, prompts, sps, tag: str, gated: bool = False) -> dic
     for f in futs:
         f.result()
     torch.cuda.synchronize()
+    pinned = _pinned_stats()
     hand = list(orch.handoffs)[hand0:]
     # one llm_kv_transfer_seconds sample per imported handoff
-    n_xfer = xfer.hist_data().get((orch.model_tag, conn.name), ([], 0.0, 0))[2] - xfer0
+    n_xfer = _xfer_samples(orch) - xfer0
     if n_xfer != len(hand):
         raise AssertionError(f"disagg: {n_xfer} kv-transfer samples for {len(hand)} handoffs")
-    stages = ("pin_ms", "gather_ms", "d2h_ms", "seal_ms", "verify_ms", "h2d_ms", "scatter_ms")
+    stages = HANDOFF_STAGES
+    backends = {}
+    for h in hand:
+        backends[h["backend"]] = backends.get(h["backend"], 0) + 1
     graphs = {}
     for r, p in (("prefill", pe), ("decode", de)):
         c0, s0 = caps0[r]
@@ -2384,6 +2434,14 @@ def _disagg_pass(orch, conn, prompts, sps, tag: str, gated: bool = False) -> dic
         "mean_tpot_s": sum((last[r] - first[r]) / max(1, len(finals[r]) - 1)
                            for r in finals) / n,
         "handoffs": len(hand), "bytes_handed_off": sum(h["bytes"] for h in hand),
+        "handoff_backends": backends,
+        "handoff_host_ms": sum(h.get(s, 0.0) for h in hand for s in HOST_STAGES),
+        "handoff_stage_ms_total": {s: sum(h.get(s, 0.0) for h in hand) for s in stages},
+        "pinned_delta": {k: pinned.get(k, 0) - pinned0.get(k, 0) for k in pinned},
+        # device-edge handoffs that went through host memory (pinned pages,
+        # a copy either way): 0 on the device path
+        "staged_device_handoffs": sum(h["backend"] == "device" and any(
+            k in h for k in ("pin_ms", "d2h_ms", "h2d_ms")) for h in hand),
         "handoff_ms": {s: {"mean": sum(h[s] for h in hand) / len(hand),
                            "min": min(h[s] for h in hand), "max": max(h[s] for h in hand)}
                        for s in stages if all(s in h for h in hand)} if hand else {},
@@ -2395,8 +2453,8 @@ def _disagg_pass(orch, conn, prompts, sps, tag: str, gated: bool = False) -> dic
 
 def _readback(eng, sent: dict, out: dict):
     """On the decode loop, before the first step after the imports: every
-    imported request's K/V in the live cache equals its handoff's pages,
-    bit for bit."""
+    imported request's K/V in the live cache equals its handoff's pages
+    (host or device), bit for bit."""
     import torch
 
     def check():
@@ -2405,23 +2463,114 @@ def _readback(eng, sent: dict, out: dict):
             req = eng.requests[rid]
             slots = torch.as_tensor(req.seq.slots_for_range(0, h.num_kv_tokens),
                                     device=eng.device)
-            same += all(torch.equal(eng.cache[n].index_select(2, slots).cpu(), p)
+            same += all(torch.equal(eng.cache[n].index_select(2, slots).to(p.device), p)
                         for n, p in (("k", h.k_pages), ("v", h.v_pages)))
         out["requests"], out["bits_equal"] = len(sent), same
 
     return check
 
 
+def _check_first_pass(orch, first: dict, launches: dict, model, what: str) -> dict:
+    """The first pass's checks, on either leg: 12 handoffs, no re-prefill,
+    no prefill on the decode engine, every mixed step a replay, the paged
+    kernel in decode replays, each kernel in its own pool, the spans."""
+    from ray_tpu_torch import obs
+
+    finals = first.pop("finals")
+    first["traces"] = _check_traces(obs.get_recorder(), first.pop("traces"), f"{what} first pass",
+                                    need=TRACE_NEED | {"llm.kv_transfer"},
+                                    one_of={"engine.decode_chunk"})
+    st = orch.stats()
+    pre_st, dec_st = st["prefill"][0], st["decode"][0]
+    _check_served(orch._decode[0].engine, finals, model, 12, 32)
+    if st["transfer"]["kv_transfers"] != 12 or st["transfer"]["reprefills"] != 0:
+        raise AssertionError(f"{what}: {st['transfer']}")
+    if dec_st["num_prefill_batches"] != 0 or dec_st.get("mixed", {}).get("dispatches", 0):
+        raise AssertionError(f"{what}: the decode engine ran a prefill or a mixed step")
+    _check_packed_replays(pre_st["mixed"]["graphs"], pre_st["mixed"]["dispatches"],
+                          f"{what} prefill engine: mixed steps")
+    graphs = dec_st["pipeline"]["graphs"]
+    if graphs["replays"] <= 0 or launches["decode"]["paged_attention"]["in_replays"] <= 0:
+        raise AssertionError(f"{what}: no decode chunk replay with the paged kernel: {graphs}")
+    if launches["decode"]["ragged_attention"]["device"] or \
+            launches["prefill"]["paged_attention"]["device"]:
+        raise AssertionError(f"{what}: a kernel ran in the wrong pool: {launches}")
+    return finals
+
+
+def _first_pass(orch, prompts, sps, tag: str, what: str) -> tuple:
+    """The leg's first pass with the kernels' counters zeroed just before it
+    and read just after: (pass result, launches per engine, totals)."""
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from ray_tpu_torch.ops.ragged import ragged_attention_cuda
+
+    pe, de = orch._prefill[0], orch._decode[0]
+    paged_attention_cuda.launches = 0
+    ragged_attention_cuda.launches = 0
+    marks = {p.role: _pool_marks(p) for p in (pe, de)}
+    first = _disagg_pass(orch, prompts, sps, tag)
+    launches = {p.role: _pool_launches(marks[p.role], _pool_marks(p)) for p in (pe, de)}
+    total = {"paged_attention": paged_attention_cuda.launches,
+             "ragged_attention": ragged_attention_cuda.launches}
+    tallied = {n: sum(launches[r][n]["eager"] for r in launches) for n in total}
+    # every wrapper launch of the pass is booked to one engine's thread
+    captured = {n: sum(_pool_marks(p)[n]["captured"] - marks[p.role][n]["captured"]
+                       for p in (pe, de)) for n in total}
+    if {n: tallied[n] + captured[n] for n in total} != total:
+        raise AssertionError(f"{what}: per-thread launch tallies {tallied} + captured "
+                             f"{captured} != the wrappers' counts {total}")
+    return first, launches, total
+
+
+def _weights_shared(orch, params) -> None:
+    import torch
+
+    flat = [(k, v) for k, v in params.items() if torch.is_tensor(v)]
+    flat += [(f"{k}.{n}", t) for k, v in params.items() if not torch.is_tensor(v)
+             for n, t in v.items()]
+    for p in orch._prefill + orch._decode:
+        got = p.engine.params
+        for name, t in flat:
+            a = got[name] if "." not in name else got[name.split(".")[0]][name.split(".")[1]]
+            if a.data_ptr() != t.data_ptr():
+                raise AssertionError(f"disagg: {p.role} engine holds a copy of {name}")
+
+
+def _leg_summary(passes: list) -> dict:
+    """Per gated pass of one leg: tok/s, TTFT, TPOT, the handoffs' host ms and
+    stage ms, peak memory and the pinned allocator's movement."""
+    keys = ("output_tok_per_s", "mean_ttft_s", "mean_tpot_s", "wall_s", "handoff_host_ms",
+            "peak_mem_gb")
+    out = {k: [p[k] for p in passes] for k in keys}
+    out["handoff_ms"] = [p["handoff_ms"] for p in passes]
+    out["pinned_delta"] = [p["pinned_delta"] for p in passes]
+    out["handoff_backends"] = [p["handoff_backends"] for p in passes]
+    out["graphs_captured"] = [sum(g["captured"] for g in p["graphs"].values()) for p in passes]
+    return out
+
+
 def disagg_phase(dev, params, engine_res: dict) -> dict:
-    """LLAMA3_8B disaggregated: one DisaggOrchestrator, one prefill and one
-    decode engine (each ENGINE_KW, on its own loop thread, sharing the
-    engine phase's weights), the in-process connector; the engine phase's
-    12 requests: a first pass (both engines capture while the other works),
-    three more (steady: the median of those that captured no graph), two
-    gated passes (one batch shape: the bf16 streams equal; the first reads
-    every import back from the live cache) and a gated pass with one
-    handoff corrupted in flight (re-prefilled once); then two completions
-    through LLMServer(disagg=)."""
+    """LLAMA3_8B disaggregated, two legs on the same weights and the engine
+    phase's 12 requests, each one DisaggOrchestrator with one prefill and
+    one decode engine (ENGINE_KW, each on its own loop thread):
+
+     * inproc: the in-process connector (pinned host pages, CRC both ways);
+       a first pass (both engines capture while the other works) and one
+       more ungated pass;
+     * device: the fabric (connector="device"): pages exported as device
+       tensors sealed on the card, handed over by reference to the decode
+       engine's cache device, verified on the card and scattered in place;
+       a first pass with the kernels' counters zeroed just before it.
+
+    Then gated passes (one batch shape, so the same bf16 bits) in turns,
+    inproc, device, inproc, device, device, inproc: the device streams equal
+    the inproc ones, K3/K4 launches per engine equal the inproc leg's in
+    capture-free passes, no device handoff goes through host memory, and
+    the imports are read back from the live caches. Then a gated pass on
+    each leg with one handoff corrupted in flight: inproc re-prefills it;
+    device degrades the edge to RPC (``to_host()``, pickled over loopback
+    TCP, CRC'd) and re-prefills it once. Then two completions through
+    LLMServer(disagg=DisaggConfig(connector="device"))."""
     import asyncio
     import gc
 
@@ -2430,193 +2579,196 @@ def disagg_phase(dev, params, engine_res: dict) -> dict:
     from ray_tpu_torch.llm import EngineConfig, LLMConfig, LLMServer
     from ray_tpu_torch.llm.disagg import DisaggConfig, DisaggOrchestrator
     from ray_tpu_torch.models.llama import LLAMA3_8B
-    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
-    from ray_tpu_torch.ops.ragged import ragged_attention_cuda
 
     t_phase = time.perf_counter()
     model = LLAMA3_8B
     prompts, sps = _engine_traffic(model)
-    conn = _disagg_connector("chip-disagg")
-    t0 = time.perf_counter()
-    orch = DisaggOrchestrator(
-        DisaggConfig(engine=EngineConfig(model=model, **ENGINE_KW), num_prefill=1,
-                     num_decode=1, connector="inproc"),
-        params=params, model_tag="chip-disagg", connector=conn, device=dev)
+    cfg = EngineConfig(model=model, **ENGINE_KW)
     res = {"phase": "disagg", "model": "LLAMA3_8B", "dtype": "bfloat16",
            "layers": model.n_layers, "d_model": model.d_model, "requests": 12,
-           "prompt_tokens": int(sum(map(len, prompts))), "output_tokens": 12 * 32,
-           "init_s": time.perf_counter() - t0}
+           "prompt_tokens": int(sum(map(len, prompts))), "output_tokens": 12 * 32}
+    orchs, recs, windows, hooks = {}, {}, {}, {}
     try:
-        pe, de = orch._prefill[0], orch._decode[0]
-        flat = [(k, v) for k, v in params.items() if torch.is_tensor(v)]
-        flat += [(f"{k}.{n}", t) for k, v in params.items() if not torch.is_tensor(v)
-                 for n, t in v.items()]
-        for p in (pe, de):
-            got = p.engine.params
-            for name, t in flat:
-                a = got[name] if "." not in name else got[name.split(".")[0]][name.split(".")[1]]
-                if a.data_ptr() != t.data_ptr():
-                    raise AssertionError(f"disagg: {p.role} engine holds a copy of {name}")
+        for leg in ("inproc", "device"):
+            t0 = time.perf_counter()
+            o = orchs[leg] = DisaggOrchestrator(
+                DisaggConfig(engine=cfg, num_prefill=1, num_decode=1, connector=leg),
+                params=params, model_tag=f"chip-disagg-{leg}", device=dev)
+            res[f"init_s_{leg}"] = time.perf_counter() - t0
+            _weights_shared(o, params)
+            recs[leg] = _record_sends(o.connector)
+            windows[leg] = {"prefill": [], "decode": []}
+            hooks[leg] = {"prefill": {}, "decode": {}}
+            for p in o._prefill + o._decode:
+                _watch_steps(p.engine, windows[leg][p.role], hooks[leg][p.role])
         res["weights_shared"] = True
-        cache_ptrs = {n: t.data_ptr() for n, t in de.engine.cache.items()}
-        windows = {"prefill": [], "decode": []}
-        hooks = {"prefill": {}, "decode": {}}
-        for p in (pe, de):
-            _watch_steps(p.engine, windows[p.role], hooks[p.role])
+        recs["rpc"] = _record_sends(orchs["device"].connectors["rpc"])
+        cache_ptrs = {leg: {n: t.data_ptr() for n, t in o._decode[0].engine.cache.items()}
+                      for leg, o in orchs.items()}
+        if orchs["device"]._decode[0].engine.kv_cache_device() != dev:
+            raise AssertionError("disagg: the device endpoint is not the decode cache's device")
 
-        # the first pass: the kernels' counters zeroed just before it
-        paged_attention_cuda.launches = 0
-        ragged_attention_cuda.launches = 0
-        marks = {p.role: _pool_marks(p) for p in (pe, de)}
-        first = _disagg_pass(orch, conn, prompts, sps, "d")
-        launches = {p.role: _pool_launches(marks[p.role], _pool_marks(p)) for p in (pe, de)}
-        total = {n: paged_attention_cuda.launches if n == "paged_attention"
-                 else ragged_attention_cuda.launches for n in ("paged_attention",
-                                                               "ragged_attention")}
-        tallied = {n: sum(launches[r][n]["eager"] for r in launches) for n in total}
-        # every wrapper launch of the pass is booked to one engine's thread
-        captured = {n: sum(_pool_marks(p)[n]["captured"] - marks[p.role][n]["captured"]
-                           for p in (pe, de)) for n in total}
-        if {n: tallied[n] + captured[n] for n in total} != total:
-            raise AssertionError(f"disagg: per-thread launch tallies {tallied} + captured "
-                                 f"{captured} != the wrappers' counts {total}")
-        finals = first.pop("finals")
-        from ray_tpu_torch import obs
-
-        first["traces"] = _check_traces(obs.get_recorder(), first.pop("traces"),
-                                        "disagg first pass",
-                                        need=TRACE_NEED | {"llm.kv_transfer"},
-                                        one_of={"engine.decode_chunk"})
-        st = orch.stats()
-        pre_st, dec_st = st["prefill"][0], st["decode"][0]
-        _check_served(de.engine, finals, model, 12, 32)
-        if st["transfer"]["kv_transfers"] != 12 or st["transfer"]["reprefills"] != 0:
-            raise AssertionError(f"disagg: {st['transfer']}")
-        if dec_st["num_prefill_batches"] != 0 or dec_st.get("mixed", {}).get("dispatches", 0):
-            raise AssertionError("disagg: the decode engine ran a prefill or a mixed step")
-        _check_packed_replays(pre_st["mixed"]["graphs"], pre_st["mixed"]["dispatches"],
-                              "disagg prefill engine: mixed steps")
-        graphs = dec_st["pipeline"]["graphs"]
-        if graphs["replays"] <= 0 or launches["decode"]["paged_attention"]["in_replays"] <= 0:
-            raise AssertionError(f"disagg: no decode chunk replay with the paged kernel: {graphs}")
-        if launches["decode"]["ragged_attention"]["device"] or \
-                launches["prefill"]["paged_attention"]["device"]:
-            raise AssertionError(f"disagg: a kernel ran in the wrong pool: {launches}")
-        overlap = _capture_overlap(windows)
-        if not any(v["capturing_steps"] for v in overlap.values()):
-            raise AssertionError(f"disagg: no capture overlapped the other engine's work: "
-                                 f"{overlap}")
+        # each leg's first pass (the counters zeroed just before, read after)
         first_tokens = engine_res["first_pass_tokens"]
-        res["first"] = {**first, "kernel_launches": launches, "capture_overlap": overlap,
-                        "greedy_streams_equal_engine_phase": sum(
-                            finals[f"d{i}"] == first_tokens[f"r{i}"] for i in range(10))}
-        res["kernel_launches"] = {n: sum(launches[r][n]["device"] for r in launches)
-                                  for n in total}
+        finals = {}
+        for leg, tag in (("inproc", "d"), ("device", "e")):
+            first, launches, total = _first_pass(orchs[leg], prompts, sps, tag, f"disagg {leg}")
+            finals[leg] = _check_first_pass(orchs[leg], first, launches, model, f"disagg {leg}")
+            overlap = _capture_overlap(windows[leg])
+            if not any(v["capturing_steps"] for v in overlap.values()):
+                raise AssertionError(f"disagg {leg}: no capture overlapped the other engine's "
+                                     f"work: {overlap}")
+            res[f"first_{leg}"] = {
+                **first, "kernel_launches": launches, "capture_overlap": overlap,
+                "greedy_streams_equal_engine_phase": sum(
+                    finals[leg][f"{tag}{i}"] == first_tokens[f"r{i}"] for i in range(10))}
+            res[f"kernel_launches_{leg}"] = {n: sum(launches[r][n]["device"] for r in launches)
+                                             for n in total}
+        if res["first_device"]["handoff_backends"] != {"device": 12} or \
+                res["first_device"]["staged_device_handoffs"]:
+            raise AssertionError(f"disagg device: handoffs {res['first_device']}")
 
-        # three more passes (the decode engine's batch shapes follow the
-        # handoffs' timing, so a later pass may still capture a bucket)
-        passes, steady = [], []
-        for k in range(3):
+        # one more ungated inproc pass (not a steady reading: the decode
+        # engine meets new buckets in every ungated pass)
+        for p in orchs["inproc"]._prefill + orchs["inproc"]._decode:
+            p.call(p.engine.allocator.drop_prefix_cache)
+        r = _disagg_pass(orchs["inproc"], prompts, sps, "s")
+        f = r.pop("finals")
+        r.pop("traces")
+        r["greedy_streams_equal_first_pass"] = sum(f[f"s{i}"] == finals["inproc"][f"d{i}"]
+                                                   for i in range(10))
+        res["ungated_inproc"] = r
+
+        # gated passes in turns: the first of each leg captures the 12-row
+        # batch's graphs; the second reads its imports back from the cache
+        gated = {"inproc": [], "device": []}
+        reuse = {}
+        for leg in ("inproc", "device", "inproc", "device", "device", "inproc"):
+            o = orchs[leg]
+            pe, de = o._prefill[0], o._decode[0]
             for p in (pe, de):
                 p.call(p.engine.allocator.drop_prefix_cache)
-            r = _disagg_pass(orch, conn, prompts, sps, f"s{k}")
-            f = r.pop("finals")
-            r.pop("traces")
-            r["greedy_streams_equal_first_pass"] = sum(f[f"s{k}{i}"] == finals[f"d{i}"]
-                                                       for i in range(10))
-            passes.append(r)
-            if not any(g["captured"] for g in r["graphs"].values()):
-                steady.append(r)
-        res["passes"] = passes
-        res["steady_from"] = f"{len(steady)} capture-free of {len(passes)}"
-        if steady:
-            steady.sort(key=lambda r: r["output_tok_per_s"])
-            res["steady"] = steady[len(steady) // 2]
-
-        # gated passes (the first captures the 12-row batch's graphs): the
-        # second one's imports land after every graph it replays was captured
-        fams = _families(de.engine)
-        gated, back = [], {}
-        for k in range(2):
-            for p in (pe, de):
-                p.call(p.engine.allocator.drop_prefix_cache)
+            k = len(gated[leg])
             if k == 1:
-                keys0 = [set(f._graphs) for f in fams]
-                replays0 = [dict(f.replays_by_key) for f in fams]
-                conn.keep, conn.sent = True, {}
-                hooks["decode"]["before_step"] = _readback(de.engine, conn.sent, back)
-            gated.append(_disagg_pass(orch, conn, prompts, sps, "g", gated=True))
-        conn.keep, conn.sent = False, {}
-        for g in gated:
+                back = {}
+                fams = _families(de.engine)
+                reuse[leg] = (fams, [set(f._graphs) for f in fams],
+                              [dict(f.replays_by_key) for f in fams], back)
+                recs[leg]["keep"], recs[leg]["sent"] = True, {}
+                hooks[leg]["decode"]["before_step"] = _readback(de.engine, recs[leg]["sent"], back)
+            marks = {p.role: _pool_marks(p) for p in (pe, de)}
+            g = _disagg_pass(o, prompts, sps, "g", gated=True)
+            g["kernel_launches"] = {p.role: _pool_launches(marks[p.role], _pool_marks(p))
+                                    for p in (pe, de)}
             g.pop("traces")
-        reused = sum(f.replays_by_key[key] - r0.get(key, 0)
-                     for f, keys, r0 in zip(fams, keys0, replays0) for key in keys)
-        same_ptrs = {n: t.data_ptr() for n, t in de.engine.cache.items()} == cache_ptrs
-        equal = sum(gated[0]["finals"][f"g{i}"] == gated[1]["finals"][f"g{i}"]
-                    for i in range(12))
-        res["gated"] = {"readback": back, "replays_of_graphs_captured_before": reused,
-                        "graphs_captured": [sum(g["graphs"][r]["captured"] for r in g["graphs"])
-                                            for g in gated],
-                        "cache_tensors_unchanged": same_ptrs, "streams_equal": f"{equal}/12",
-                        "tok_per_s": [g["output_tok_per_s"] for g in gated]}
-        if back.get("bits_equal") != 12 or back.get("requests") != 12:
-            raise AssertionError(f"disagg: imported K/V read back from the live cache: {back}")
-        if not same_ptrs or reused <= 0 or equal != 12:
-            raise AssertionError(f"disagg: imports after capture: {res['gated']}")
+            recs[leg]["keep"], recs[leg]["sent"] = False, {}
+            gated[leg].append(g)
+        summary = {}
+        for leg in ("inproc", "device"):
+            fams, keys0, replays0, back = reuse[leg]
+            reused = sum(f.replays_by_key[key] - r0.get(key, 0)
+                         for f, keys, r0 in zip(fams, keys0, replays0) for key in keys)
+            same_ptrs = {n: t.data_ptr() for n, t in
+                         orchs[leg]._decode[0].engine.cache.items()} == cache_ptrs[leg]
+            g = gated[leg]
+            equal = sum(g[1]["finals"][f"g{i}"] == g[2]["finals"][f"g{i}"] for i in range(12))
+            summary[leg] = {"readback": back, "replays_of_graphs_captured_before": reused,
+                            "cache_tensors_unchanged": same_ptrs,
+                            "streams_equal_within_leg": f"{equal}/12", **_leg_summary(g)}
+            if back.get("bits_equal") != 12 or back.get("requests") != 12:
+                raise AssertionError(f"disagg {leg}: imported K/V read back: {back}")
+            if not same_ptrs or reused <= 0 or equal != 12:
+                raise AssertionError(f"disagg {leg}: imports after capture: {summary[leg]}")
+        # the device leg against the inproc leg, pass for pass
+        dev_equal = [sum(d["finals"][f"g{i}"] == p["finals"][f"g{i}"] for i in range(12))
+                     for d, p in zip(gated["device"], gated["inproc"])]
+        free = [j for j in range(3) if not summary["device"]["graphs_captured"][j]
+                and not summary["inproc"]["graphs_captured"][j]]
+        launches_equal = [gated["device"][j]["kernel_launches"]
+                          == gated["inproc"][j]["kernel_launches"] for j in free]
+        staged = [g["staged_device_handoffs"] for g in gated["device"]]
+        summary["device_vs_inproc"] = {
+            "streams_equal": [f"{e}/12" for e in dev_equal],
+            "capture_free_pairs": free, "kernel_launches_equal": launches_equal,
+            "kernel_launches": {leg: gated[leg][free[-1]]["kernel_launches"] if free else None
+                                for leg in gated},
+            "staged_device_handoffs": staged}
+        res["gated"] = summary
+        if dev_equal != [12, 12, 12] or not free or not all(launches_equal) or any(staged) or \
+                any(b != {"device": 12} for b in summary["device"]["handoff_backends"]):
+            raise AssertionError(f"disagg: device leg against inproc: {summary['device_vs_inproc']}")
 
-        # a handoff corrupted in flight: verify fails, one re-prefill; the
+        # a handoff corrupted in flight on each leg: re-prefilled once; the
         # 11 others keep their batch shapes (the corrupted request is the
         # last exported, and not the one that sets the block-table width)
         victim = "g11"
-        for p in (pe, de):
-            p.call(p.engine.allocator.drop_prefix_cache)
-        n_re, n_fail = orch.num_reprefills, orch.num_transfer_failures
         from ray_tpu_torch import chaos
 
-        sched = _corrupt_once(victim)
-        try:
-            bad = _disagg_pass(orch, conn, prompts, sps, "g", gated=True)
-        finally:
-            chaos.uninstall()
-        bad.pop("traces")
-        clean = gated[1]["finals"]
-        others = sum(bad["finals"][f"g{i}"] == clean[f"g{i}"] for i in range(11))
-        res["corrupted"] = {
-            "request": victim, "corrupted_sends": len(sched.log), "via": "chaos gate",
-            "reprefills": orch.num_reprefills - n_re,
-            "transfer_failures": orch.num_transfer_failures - n_fail,
-            "tokens": len(bad["finals"][victim]),
-            "first_token_equal_clean": bad["finals"][victim][:1] == clean[victim][:1],
-            "stream_equal_clean": bad["finals"][victim] == clean[victim],
-            "other_streams_equal_clean": f"{others}/11",
-        }
-        c = res["corrupted"]
-        if (c["corrupted_sends"], c["reprefills"], c["transfer_failures"], c["tokens"]) != \
-                (1, 1, 1, 32) or not c["first_token_equal_clean"] or others != 11:
-            raise AssertionError(f"disagg: corrupted handoff: {c}")
-        st = orch.stats()
-        res["graphs"] = {p.role: {"captured": sum(f.captures for f in _families(p.engine)),
-                                  "capture_s": sum(f.capture_s for f in _families(p.engine)),
-                                  "replays": sum(f.replays for f in _families(p.engine)),
-                                  "buckets": [str(k) for f in _families(p.engine)
-                                              for k in f.capture_s_by_key]}
-                         for p in (pe, de)}
-        res["transfer"] = st["transfer"]
-        _check_packed_replays(st["prefill"][0]["mixed"]["graphs"],
-                              st["prefill"][0]["mixed"]["dispatches"],
-                              "disagg prefill engine: mixed steps, every pass")
+        res["corrupted"] = {}
+        for leg in ("inproc", "device"):
+            o = orchs[leg]
+            for p in o._prefill + o._decode:
+                p.call(p.engine.allocator.drop_prefix_cache)
+            n_re, n_fail = o.num_reprefills, o.num_transfer_failures
+            hand0 = len(o.handoffs)
+            sched = _corrupt_once(victim, device=leg == "device")
+            try:
+                bad = _disagg_pass(o, prompts, sps, "g", gated=True)
+            finally:
+                chaos.uninstall()
+            bad.pop("traces")
+            clean = gated[leg][-1]["finals"]
+            others = sum(bad["finals"][f"g{i}"] == clean[f"g{i}"] for i in range(11))
+            c = res["corrupted"][leg] = {
+                "request": victim, "corrupted_sends": len(sched.log),
+                "via": sched.log[0].kind if sched.log else None,
+                "reprefills": o.num_reprefills - n_re,
+                "transfer_failures": o.num_transfer_failures - n_fail,
+                "tokens": len(bad["finals"][victim]),
+                "first_token_equal_clean": bad["finals"][victim][:1] == clean[victim][:1],
+                "stream_equal_clean": bad["finals"][victim] == clean[victim],
+                "other_streams_equal_clean": f"{others}/11",
+                "handoff_backends": bad["handoff_backends"], "tok_per_s": bad["output_tok_per_s"],
+            }
+            if (c["corrupted_sends"], c["reprefills"], c["transfer_failures"], c["tokens"]) != \
+                    (1, 1, 1, 32) or not c["first_token_equal_clean"] or others != 11:
+                raise AssertionError(f"disagg {leg}: corrupted handoff: {c}")
+            if leg == "device":
+                st = o.stats()
+                rpc = [h for h in list(o.handoffs)[hand0:] if h["backend"] == "rpc"]
+                c["fabric"] = {k: v for k, v in st["fabric"].items() if k != "topology"}
+                c["rpc_handoff"] = {**{s: rpc[0][s] for s in HANDOFF_STAGES if s in rpc[0]},
+                                    "bytes": rpc[0]["bytes"],
+                                    "send_ms": recs["rpc"]["send_ms"].get(victim)} if rpc else None
+                if st["fabric"]["fallbacks"] != 1 or len(rpc) != 1 or \
+                        bad["handoff_backends"] != {"device": 11, "rpc": 1} or \
+                        st["fabric"]["edges"][0]["backend"] != "rpc":
+                    raise AssertionError(f"disagg device: the fallback to RPC: {c}")
+        for leg, o in orchs.items():
+            st = o.stats()
+            res[f"graphs_{leg}"] = {
+                p.role: {"captured": sum(f.captures for f in _families(p.engine)),
+                         "capture_s": sum(f.capture_s for f in _families(p.engine)),
+                         "replays": sum(f.replays for f in _families(p.engine))}
+                for p in o._prefill + o._decode}
+            res[f"transfer_{leg}"] = st["transfer"]
+            _check_packed_replays(st["prefill"][0]["mixed"]["graphs"],
+                                  st["prefill"][0]["mixed"]["dispatches"],
+                                  f"disagg {leg} prefill engine: mixed steps, every pass")
     finally:
-        orch.shutdown()
-    del orch, pe, de
+        for o in orchs.values():
+            o.shutdown()
+    del orchs
     gc.collect()
     torch.cuda.empty_cache()
 
-    # two completions through the OpenAI front end, disaggregated
+    # two completions through the OpenAI front end, over the device fabric
     bodies, _chats, _streams = _api_traffic()
-    cfg = EngineConfig(model="llama3-8b", **ENGINE_KW)
-    server = LLMServer(LLMConfig(model_id="llama3-8b", engine=cfg, params=params,
-                                 tokenizer=IdTextTokenizer(cfg.model.vocab_size),
-                                 device=str(dev), disagg={"num_prefill": 1, "num_decode": 1}))
+    acfg = EngineConfig(model="llama3-8b", **ENGINE_KW)
+    server = LLMServer(LLMConfig(model_id="llama3-8b", engine=acfg, params=params,
+                                 tokenizer=IdTextTokenizer(acfg.model.vocab_size),
+                                 device=str(dev), disagg={"num_prefill": 1, "num_decode": 1,
+                                                          "connector": "device"}))
     try:
         async def go():
             outs = await asyncio.gather(*[server(ApiRequest("POST", "/v1/completions", b))
@@ -2629,13 +2781,16 @@ def disagg_phase(dev, params, engine_res: dict) -> dict:
     n_out = [o["usage"]["completion_tokens"] for o in outs]
     res["api"] = {"completion_tokens": n_out, "mode": stats.get("mode"),
                   "kv_transfers": stats["transfer"]["kv_transfers"],
+                  "fabric_backends": stats.get("fabric", {}).get("backends"),
                   "decode_prefill_batches": stats["decode"][0]["num_prefill_batches"]}
     if stats.get("mode") != "disagg" or stats["transfer"]["kv_transfers"] != 2 or \
+            res["api"]["fabric_backends"] != {"device": 2} or \
             any(not (0 < n <= 32) for n in n_out):
         raise AssertionError(f"disagg: LLMServer(disagg=): {res['api']}")
     del server
     gc.collect()
     torch.cuda.empty_cache()
+    res["kernel_launches"] = res["kernel_launches_inproc"]
     res["phase_s"] = time.perf_counter() - t_phase
     emit(res)
     return res
@@ -3022,10 +3177,12 @@ def _parity_kvtier(dev, model, params_cpu, params_gpu) -> dict:
 
 def _parity_disagg(dev, model, params_cpu, params_gpu, prompts, sp, mixed, colocated) -> dict:
     """fp32, the parity model, disaggregated (one prefill and one decode
-    engine): greedy tokens on the card and on the CPU equal the colocated
-    engine's; two seeded requests equal the colocated engine's streams of
-    the same request ids, on each device; on the card, a handoff corrupted
-    in flight is re-prefilled once and its tokens equal the clean run's."""
+    engine), over the in-process connector and over the device fabric:
+    greedy tokens on the card and on the CPU equal the colocated engine's;
+    two seeded requests equal the colocated engine's streams of the same
+    request ids, on each device; on the card, a handoff corrupted in flight
+    is re-prefilled once and its tokens equal the clean run's (on the device
+    leg the corrupt device transfer degrades the edge to RPC)."""
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
     from ray_tpu_torch.llm.disagg import DisaggConfig, DisaggOrchestrator
 
@@ -3035,9 +3192,9 @@ def _parity_disagg(dev, model, params_cpu, params_gpu, prompts, sp, mixed, coloc
                              ignore_eos=True) for i in range(2)]
     res = {}
 
-    def run(params, device):
-        orch = DisaggOrchestrator(DisaggConfig(engine=EngineConfig(**cfg)), params=params,
-                                  device=device, model_tag="parity-disagg")
+    def run(params, device, connector):
+        orch = DisaggOrchestrator(DisaggConfig(engine=EngineConfig(**cfg), connector=connector),
+                                  params=params, device=device, model_tag="parity-disagg")
         try:
             greedy = orch.generate(prompts, sp, timeout_s=300)
             subs = [orch.submit(prompts[i], seeded[i], request_id=f"seeded{i}")
@@ -3057,35 +3214,48 @@ def _parity_disagg(dev, model, params_cpu, params_gpu, prompts, sp, mixed, coloc
             raise AssertionError(f"parity disagg: {st['transfer']}")
         return greedy, outs, st
 
-    for where, params in (("cuda", params_gpu), ("cpu", params_cpu)):
-        device = dev if where == "cuda" else "cpu"
-        greedy, outs, st = run(params, device)
-        eng = LLMEngine(EngineConfig(**cfg), params=params, device=device)
-        for i in range(2):
-            eng.add_request(prompts[i], seeded[i], request_id=f"seeded{i}")
-        want = {}
-        while eng.has_unfinished():
-            for o in eng.step():
-                if o.finished:
-                    want[o.request_id] = o.output_token_ids
-        res[where] = {"greedy_equal_colocated": greedy == colocated,
-                      "seeded_equal_colocated": outs == [want["seeded0"], want["seeded1"]],
-                      "reprefills": st["transfer"]["reprefills"]}
-        if where == "cuda":
-            from ray_tpu_torch import chaos
+    want = {}
+    for connector in ("inproc", "device"):
+        for where, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            device = dev if where == "cuda" else "cpu"
+            greedy, outs, st = run(params, device, connector)
+            if where not in want:
+                eng = LLMEngine(EngineConfig(**cfg), params=params, device=device)
+                for i in range(2):
+                    eng.add_request(prompts[i], seeded[i], request_id=f"seeded{i}")
+                got = {}
+                while eng.has_unfinished():
+                    for o in eng.step():
+                        if o.finished:
+                            got[o.request_id] = o.output_token_ids
+                want[where] = [got["seeded0"], got["seeded1"]]
+            r = res[f"{connector}_{where}"] = {
+                "greedy_equal_colocated": greedy == colocated,
+                "seeded_equal_colocated": outs == want[where],
+                "reprefills": st["transfer"]["reprefills"],
+                "backends": st["fabric"]["backends"]}
+            if r["backends"] != {connector: len(prompts) + 2}:
+                raise AssertionError(f"parity disagg {connector} {where}: {st['fabric']}")
+            if where == "cuda":
+                from ray_tpu_torch import chaos
 
-            sched = _corrupt_once("dreq-2")
-            try:
-                bad, _, st = run(params, device)
-            finally:
-                chaos.uninstall()
-            res["cuda"]["corrupted"] = {"equal_clean": bad == greedy,
-                                        "reprefills": st["transfer"]["reprefills"],
-                                        "corrupted_sends": len(sched.log)}
+                sched = _corrupt_once("dreq-2", device=connector == "device")
+                try:
+                    bad, _, st = run(params, device, connector)
+                finally:
+                    chaos.uninstall()
+                r["corrupted"] = {"equal_clean": bad == greedy,
+                                  "reprefills": st["transfer"]["reprefills"],
+                                  "corrupted_sends": len(sched.log),
+                                  "fallbacks": st["fabric"]["fallbacks"]}
     ok = all(r["greedy_equal_colocated"] and r["seeded_equal_colocated"] and not r["reprefills"]
              for r in res.values())
-    c = res["cuda"]["corrupted"]
-    if not ok or not c["equal_clean"] or (c["reprefills"], c["corrupted_sends"]) != (1, 1):
+    for connector in ("inproc", "device"):
+        c = res[f"{connector}_cuda"]["corrupted"]
+        if not c["equal_clean"] or (c["reprefills"], c["corrupted_sends"]) != (1, 1) or \
+                c["fallbacks"] != (connector == "device"):
+            ok = False
+    if not ok:
         raise AssertionError(f"parity disagg (mixed {mixed}): {res}")
     return res
 
@@ -3615,6 +3785,7 @@ def main(argv=None) -> int:
     params, params_s = (params_8b(dev) if {"engine", "spec", "api", "disagg", "kvtier"}
                         & set(phases) else (None, 0.0))
     lora_launches, api_launches, disagg_launches, replayed = {}, {}, {}, {}
+    disagg_device_launches = {}
     kvtier_launches = {}
     if "engine" in phases:
         engine_res = engine_phase(dev, params, params_s)
@@ -3625,7 +3796,10 @@ def main(argv=None) -> int:
     if "api" in phases:
         api_launches = api_phase(dev, params, engine_res)["kernel_launches"]
     if "disagg" in phases:
-        disagg_launches = disagg_phase(dev, params, engine_res)["kernel_launches"]
+        disagg_res = disagg_phase(dev, params, engine_res)
+        disagg_launches = disagg_res["kernel_launches"]
+        disagg_device_launches = disagg_res["kernel_launches_device"]
+        del disagg_res
     if "engine" in phases:
         del engine_res
     if "kvtier" in phases:
@@ -3655,6 +3829,8 @@ def main(argv=None) -> int:
             **({"launches_api_phase": api_launches[name]} if name in api_launches else {}),
             **({"launches_disagg_phase": disagg_launches[name]}
                if name in disagg_launches else {}),
+            **({"launches_disagg_device_leg": disagg_device_launches[name]}
+               if name in disagg_device_launches else {}),
             **({"launches_kvtier_phase": kvtier_launches[name]}
                if name in kvtier_launches else {}),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],

@@ -24,10 +24,15 @@ import time
 from typing import Optional
 
 from ray_tpu_torch.chaos.schedule import (  # noqa: F401 — the kinds the hook sites read
+    CORRUPT_DEVICE_TRANSFER,
+    CORRUPT_FRAME,
     CORRUPT_KV_TRANSFER,
     DELAY_RPC,
+    DROP_DEVICE_TRANSFER,
     DROP_KV_TRANSFER,
+    DROP_RPC,
     KILL_WORKER,
+    PARTIAL_PARTITION,
     PREEMPT_ENGINE,
     Fault,
     FaultSchedule,

@@ -1,0 +1,51 @@
+"""ray_tpu_torch.fabric: the device-direct tensor transfer plane and the
+pool topology (counterpart of ``ray_tpu/fabric``).
+
+ * **transport**: ``send_arrays`` / ``recv_arrays``: named device tensors
+   move between registered device endpoints by ``tensor.to(device)`` (by
+   reference on one card), sealed with a checksum reduced on the device,
+   so pages never cross to the host for integrity.
+ * **device_connector**: ``DeviceKVConnector``, the third ``KVConnector``
+   backend: prefill -> decode KV handoffs as device-tensor bundles, with
+   the host-path connectors' checksum and timeout failure modes.
+ * **topology / pool**: role-tagged pools pinned to slices, which pool
+   pairs share a device mesh, and per-edge transport selection (device
+   where meshes are shared, RPC elsewhere, a fault degrades the edge to
+   its RPC fallback). ``build_fabric`` (placement groups) waits for the
+   cluster runtime (ROADMAP.md, Queue 1, B8).
+
+Clients: the ``DisaggOrchestrator`` (per-edge device or RPC KV transfer)
+and the fetch plane's ``DeviceFetchClient``. Weight publishing over
+``send_arrays`` (``train/weight_sync.py``) is not ported yet (ROADMAP.md,
+Queue 1, C4).
+"""
+
+from ray_tpu_torch.fabric.device_connector import DeviceKVConnector
+from ray_tpu_torch.fabric.pool import (
+    FabricPlan,
+    SlicePoolSpec,
+    build_fabric,
+    build_topology,
+    slice_resource,
+)
+from ray_tpu_torch.fabric.topology import FabricTopology
+from ray_tpu_torch.fabric.transport import (
+    ArrayBundle,
+    DeviceTransport,
+    FabricTransferError,
+    device_checksum,
+)
+
+__all__ = [
+    "ArrayBundle",
+    "DeviceKVConnector",
+    "DeviceTransport",
+    "FabricPlan",
+    "FabricTopology",
+    "FabricTransferError",
+    "SlicePoolSpec",
+    "build_fabric",
+    "build_topology",
+    "device_checksum",
+    "slice_resource",
+]

@@ -39,8 +39,22 @@ prefix-aware picks see the host and object tiers, and with
 ``fetch_cost_routing`` an engine holding nothing scores ``fetch_weight``
 times the best holder, since its prefetch worker can pull the prefix.
 
-Not ported, and refused by ``DisaggConfig``: the cluster-RPC and device
-connectors (ROADMAP.md Queue 1, C5/B8 and C1) and the fabric topology (C1).
+The transfer plane is chosen per (prefill engine, decode engine) edge
+(``ray_tpu_torch/fabric``): the topology (``DisaggConfig.fabric``, a
+``FabricTopology`` or its dict; by default one shared slice when the
+primary connector is ``"device"``, distinct slices otherwise) says which
+pools share a device mesh. A device edge exports the pages as device
+tensors sealed on the device (``export_request(keep_on_device=True)``),
+ships them by reference through ``DeviceKVConnector`` to an endpoint at the
+decode engine's ``kv_cache_device()``, and the decode engine verifies them
+on the device and scatters them in place: no handoff byte is staged
+through host memory. Under a device primary an RPC connector stays warm as
+the fallback plane: a device-transfer fault (dropped, or caught corrupt by
+the device checksum) degrades that one edge to RPC (``to_host()``, pickled
+over loopback TCP, CRC'd), counted once, and the request re-prefills under
+the budget; the pool-level topology is marked only when no device edge is
+left. ``stats()["fabric"]`` shows the edges, the transfers by backend, the
+fallbacks and the topology, as the reference's does.
 
 Observability, as the reference's: each engine's ``model_tag`` is
 ``<model_tag>-prefill<i>`` / ``-decode<i>``; an imported handoff records an
@@ -119,6 +133,12 @@ class DisaggConfig:
     # scores fetch_weight x the best holder (it pulls the prefix over the
     # fetch plane), so a holder past the slack spreads instead
     fetch_cost_routing: bool = True
+    # the fabric topology (fabric.FabricTopology or its dict): which slice
+    # each pool is pinned to and which pool pairs share a device mesh. The
+    # orchestrator consults it per (prefill -> decode) edge: device-direct
+    # where meshes are shared, RPC elsewhere, a device fault degrades that
+    # edge to RPC under the re-prefill budget. None with connector="device"
+    # assumes one shared slice (one card, or one peer-to-peer domain).
     fabric: Any = None
 
     def __post_init__(self):
@@ -126,14 +146,9 @@ class DisaggConfig:
             self.engine = EngineConfig(**self.engine)
         if self.num_prefill < 1 or self.num_decode < 1:
             raise ValueError("num_prefill and num_decode must be >= 1")
-        if self.connector not in _INPROC:
-            make_connector(self.connector)  # "rpc" / "device" raise NotImplementedError
-            raise ValueError(f"unknown KV connector {self.connector!r}")
-        if self.fabric is not None:
-            raise NotImplementedError(
-                "DisaggConfig.fabric: the multi-slice device fabric is not ported to "
-                "ray_tpu_torch yet (ROADMAP.md, Queue 1, C1)"
-            )
+        if self.connector not in _INPROC + ("rpc", "device"):
+            raise ValueError(f"unknown KV connector {self.connector!r}; one of: inproc, rpc, "
+                             "device")
 
 
 class _PoolEngine:
@@ -256,9 +271,8 @@ class DisaggOrchestrator:
         # a namespace of its own: two orchestrators with one model_tag in a
         # process never take each other's handoffs off the global queues
         self._ns = f"{model_tag}-{uuid.uuid4().hex[:8]}"
-        self.connector = connector if connector is not None else InProcessConnector(self._ns)
-        self._target_ids = [f"{model_tag}-decode{i}" for i in range(config.num_decode)]
-        self._targets = [self.connector.register_target(t) for t in self._target_ids]
+        self._lock = threading.Lock()
+        self._init_fabric(config, connector)
         # the fetch plane: every pool engine meets on one prefix index and
         # fetch registry of this orchestrator
         self._fetch_enabled = False
@@ -276,7 +290,6 @@ class DisaggOrchestrator:
                 pe.engine.kvfetch.attach(LocalFetchClient(self._registry))
             self._fetch_enabled = config.fetch_cost_routing
 
-        self._lock = threading.Lock()
         # orchestrator-minted ids: every engine counts its own "req-N"
         self._counter = itertools.count()
         self._queues: dict[str, Any] = {}
@@ -302,6 +315,77 @@ class DisaggOrchestrator:
                 pe.thread = t
             t.start()
             self._threads.append(t)
+
+    def _init_fabric(self, config: DisaggConfig, connector: Optional[KVConnector]) -> None:
+        """The topology, the transfer planes, each edge's backend and each
+        plane's targets."""
+        from ray_tpu_torch.fabric.topology import FabricTopology
+
+        # the EFFECTIVE primary plane: an injected connector outranks
+        # config.connector (which may sit at its "inproc" default), and the
+        # degenerate topology keys on it too, or an injected device plane
+        # would route every edge over the RPC fallback
+        self._primary = connector.name if connector is not None else (
+            "inproc" if config.connector in _INPROC else config.connector)
+        topo = config.fabric
+        if isinstance(topo, dict):
+            topo = FabricTopology.from_dict(topo)
+        if topo is None:
+            # a device primary with no map assumes one shared slice; the host
+            # planes get distinct slices, so the map says "no shared mesh"
+            topo = FabricTopology()
+            topo.add_pool("prefill", "prefill", "slice0", config.num_prefill)
+            topo.add_pool("decode", "decode",
+                          "slice0" if self._primary == "device" else "slice1", config.num_decode)
+        self.topology = topo
+        self._prefill_pool = topo.pool_of_role("prefill") or "prefill"
+        self._decode_pool = topo.pool_of_role("decode") or "decode"
+        self.connectors: dict[str, KVConnector] = {
+            self._primary: connector if connector is not None
+            else self._build_connector(self._primary)}
+        if self._primary == "device":
+            # the RPC fallback stays warm: a faulted device edge degrades to
+            # it instead of retrying a broken device path
+            self.connectors.setdefault("rpc", self._build_connector("rpc"))
+            pool_edge = topo.edge_backend(self._prefill_pool, self._decode_pool)
+            # an override may name a plane not built yet (an explicit
+            # "inproc" edge): build it, or that edge's sends would fail
+            if pool_edge not in self.connectors:
+                self.connectors[pool_edge] = self._build_connector(pool_edge)
+        else:
+            pool_edge = self._primary
+        # the primary plane, as stats() and the tests address it
+        self.connector = self.connectors[self._primary]
+        # (prefill engine, decode engine) -> backend; device edges exist only
+        # under a device primary whose topology shares the mesh, and each
+        # degrades on its own
+        self._edge_backend: dict[tuple, str] = {
+            (p.index, d.index): pool_edge for p in self._prefill for d in self._decode}
+        self.num_fallbacks = 0
+        self.transfers_by_backend: dict[str, int] = {}
+        self._target_ids = [f"{self.model_tag}-decode{i}" for i in range(config.num_decode)]
+        self._targets: dict[str, list] = {}
+        for name, conn in self.connectors.items():
+            if name == "device":
+                # the endpoint is the decode engine's own cache device, so the
+                # transport's move is the final hop (a no-op on one card)
+                self._targets[name] = [
+                    conn.register_target(t, device=d.engine.kv_cache_device())
+                    for t, d in zip(self._target_ids, self._decode)]
+            else:
+                self._targets[name] = [conn.register_target(t) for t in self._target_ids]
+        self._update_fabric_gauges()
+
+    def _build_connector(self, kind: str) -> KVConnector:
+        if kind == "inproc":
+            return InProcessConnector(namespace=self._ns)
+        if kind == "device":
+            from ray_tpu_torch.fabric.device_connector import DeviceKVConnector
+            from ray_tpu_torch.fabric.transport import DeviceTransport
+
+            devices = [d.engine.kv_cache_device() for d in self._decode]
+            return DeviceKVConnector(transport=DeviceTransport(namespace=self._ns, devices=devices))
+        return make_connector(kind)
 
     # -- public API -----------------------------------------------------------
 
@@ -412,19 +496,33 @@ class DisaggOrchestrator:
 
     def stats(self) -> dict:
         """Each engine's stats (read on its loop thread, between two steps),
-        the transfer plane's counts and the pools' prefix cache."""
+        the transfer planes' counts (``connector`` names the primary, the
+        totals span every plane), the fabric's edges, and the pools' prefix
+        cache."""
         pre = [p.call(p.engine.stats) for p in self._prefill]
         dec = [d.call(d.engine.stats) for d in self._decode]
         hit = sum(s["prefix_cache"]["hit_tokens"] for s in pre + dec)
         lookup = sum(s["prefix_cache"]["lookup_tokens"] for s in pre + dec)
+        xfer = self.connector.stats()
+        if len(self.connectors) > 1:
+            snaps = [c.stats() for c in self.connectors.values()]
+            for field in ("num_sent", "num_received", "num_dropped", "bytes_sent"):
+                xfer[field] = sum(s.get(field, 0) for s in snaps)
         with self._lock:
             transfer = {
-                **self.connector.stats(),
+                **xfer,
                 "kv_transfers": self.num_transfers,
                 "reprefills": self.num_reprefills,
                 "transfer_failures": self.num_transfer_failures,
             }
             done = list(self.handoffs)
+            fabric = {
+                "edges": [{"src": f"prefill{s}", "dst": f"decode{d}", "backend": b}
+                          for (s, d), b in sorted(self._edge_backend.items())],
+                "backends": dict(self.transfers_by_backend),
+                "fallbacks": self.num_fallbacks,
+            }
+        fabric["topology"] = self.topology.to_dict()
         stages = ("pin_ms", "gather_ms", "d2h_ms", "seal_ms", "verify_ms", "h2d_ms",
                   "scatter_ms")
         transfer["imported"] = len(done)
@@ -435,6 +533,7 @@ class DisaggOrchestrator:
             "prefill": pre,
             "decode": dec,
             "transfer": transfer,
+            "fabric": fabric,
             "prefix_cache": {
                 "hit_tokens": hit,
                 "lookup_tokens": lookup,
@@ -450,7 +549,8 @@ class DisaggOrchestrator:
         for t in self._threads:
             if t is not threading.current_thread():
                 t.join(timeout=timeout_s)
-        self.connector.close()
+        for conn in self.connectors.values():
+            conn.close()
         for pe in self._prefill + self._decode:
             pe.engine.close()  # the tier workers, bounded joins
             if self._registry is not None:
@@ -492,6 +592,11 @@ class DisaggOrchestrator:
                     pe.wake.clear()
                     continue
                 outputs, handoffs, err = [], [], None
+                # device-resident export when any edge out of this engine is
+                # device-direct (an RPC edge picked later calls to_host())
+                with self._lock:
+                    export_dev = any(self._edge_backend.get((pe.index, d.index)) == "device"
+                                     for d in self._decode)
                 try:
                     outputs = eng.step()
                     # a prompt complete after this step is exported before it
@@ -501,7 +606,7 @@ class DisaggOrchestrator:
                     for req in list(eng.running):
                         if req.request_id in eng._mixed_prefills:
                             continue
-                        h = eng.export_request(req.request_id)
+                        h = eng.export_request(req.request_id, keep_on_device=export_dev)
                         h.src_engine = pe.index
                         handoffs.append(h)
                 except Exception as e:  # noqa: BLE001 — re-home in-flight work
@@ -646,23 +751,75 @@ class DisaggOrchestrator:
     def _transfer(self, handoff: KVHandoff) -> None:
         idx = self._pick_decode(handoff)
         de = self._decode[idx]
+        src = handoff.src_engine if handoff.src_engine is not None else 0
         with self._lock:
+            backend = self._edge_backend.get((src, idx), self._primary)
             de.in_transit += 1
         try:
-            self.connector.send(self._targets[idx], handoff,
-                                timeout_s=self.config.transfer_timeout_s)
+            if backend != "device":
+                # a host edge (or a degraded device edge): the pickling
+                # planes take CPU pages, CRC-sealed
+                handoff = handoff.to_host()
+            self.connectors[backend].send(self._targets[backend][idx], handoff,
+                                          timeout_s=self.config.transfer_timeout_s)
         except Exception as e:
             with self._lock:
                 de.in_transit -= 1
             if not isinstance(e, KVTransferError):
                 raise
-            self._transfer_failed(handoff, e)
+            self._transfer_failed(handoff, e, backend=backend, edge=(src, idx))
             return
         with self._lock:
             self.num_transfers += 1
+            self.transfers_by_backend[backend] = self.transfers_by_backend.get(backend, 0) + 1
 
-    def _transfer_failed(self, handoff: KVHandoff, exc: BaseException) -> None:
-        self._obs_transfer_event(handoff, error=str(exc))
+    def _fallback_edge(self, edge: tuple, reason: str) -> None:
+        """Degrade one faulted device edge to its RPC fallback (counted once
+        per edge); later transfers on it, this request's re-prefill
+        included, ride the wire."""
+        src, dst = edge
+        with self._lock:
+            if self._edge_backend.get((src, dst)) != "device":
+                return
+            self._edge_backend[(src, dst)] = "rpc"
+            self.num_fallbacks += 1
+            # the pool-level topology degrades only when NO engine edge
+            # between the pools still rides the device plane; otherwise its
+            # edges would contradict the per-engine edge list
+            pool_degraded = all(b != "device" for b in self._edge_backend.values())
+        if pool_degraded:
+            self.topology.mark_fallback(self._prefill_pool, self._decode_pool, reason)
+        logger.warning("fabric edge prefill%d->decode%d degraded to rpc (%s)", src, dst,
+                       reason[:120])
+        try:
+            from ray_tpu_torch.fabric import metrics as fabric_metrics
+
+            fabric_metrics.transfer_fallbacks_counter().inc(
+                1, tags={"model": self.model_tag, "edge": f"prefill{src}->decode{dst}"})
+        except Exception:  # noqa: BLE001 — observability never breaks serving
+            pass
+        self._update_fabric_gauges()
+
+    def _update_fabric_gauges(self) -> None:
+        try:
+            from ray_tpu_torch.fabric import metrics as fabric_metrics
+
+            g = fabric_metrics.edges_active_gauge()
+            with self._lock:
+                counts: dict[str, int] = {}
+                for b in self._edge_backend.values():
+                    counts[b] = counts.get(b, 0) + 1
+            for b in ("device", "rpc", "inproc"):
+                if counts.get(b) or b == self._primary:
+                    g.set(counts.get(b, 0), tags={"model": self.model_tag, "backend": b})
+        except Exception:  # noqa: BLE001
+            pass
+
+    def _transfer_failed(self, handoff: KVHandoff, exc: BaseException,
+                         backend: Optional[str] = None, edge: Optional[tuple] = None) -> None:
+        self._obs_transfer_event(handoff, error=str(exc), backend=backend)
+        if backend == "device" and edge is not None:
+            self._fallback_edge(edge, reason=f"{type(exc).__name__}: {exc}")
         with self._lock:
             self.num_transfer_failures += 1
             rec = self._inflight.get(handoff.request_id)
@@ -723,31 +880,37 @@ class DisaggOrchestrator:
 
     def _decode_loop(self, de: _PoolEngine) -> None:
         target_id = self._target_ids[de.index]
-        pending: list = []  # (handoff, deadline)
+        pending: list = []  # (handoff, deadline, the backend that delivered it)
         consec_failures = 0
+        conns = list(self.connectors.items())
         try:
             while not self._stop:
                 de.drain()
                 eng = de.engine
                 busy = eng.has_unfinished()
-                # bounded receive (poll fast while decoding, park briefly
-                # idle), then every handoff already here: a burst joins the
-                # batch at one step boundary, one pipeline flush for all
-                timeout = 0.001 if (busy or pending) else 0.05
-                while (h := self.connector.recv(target_id, timeout_s=timeout)) is not None:
-                    timeout = 0.0
-                    t0 = time.perf_counter()
-                    ok = h.verify()
-                    h.timings["verify_ms"] = (time.perf_counter() - t0) * 1e3
-                    if ok:
-                        pending.append((h, time.time() + self.config.transfer_timeout_s))
-                        continue
-                    with self._lock:
-                        de.in_transit -= 1
-                    self._transfer_failed(h, KVTransferError(
-                        f"handoff {h.request_id!r} failed its checksum on {target_id} "
-                        "(corrupt in flight)"
-                    ))
+                # bounded receive across every plane (poll fast while
+                # decoding, park briefly idle), then every handoff already
+                # here: a burst joins the batch at one step boundary, one
+                # pipeline flush for all. A device handoff verifies on the
+                # device: two reductions and two 4-byte reads
+                timeout = (0.001 if (busy or pending) else 0.05) / len(conns)
+                for backend, conn in conns:
+                    while (h := conn.recv(target_id, timeout_s=timeout)) is not None:
+                        timeout = 0.0
+                        t0 = time.perf_counter()
+                        ok = h.verify()
+                        h.timings["verify_ms"] = (time.perf_counter() - t0) * 1e3
+                        if ok:
+                            pending.append((h, time.time() + self.config.transfer_timeout_s,
+                                            backend))
+                            continue
+                        with self._lock:
+                            de.in_transit -= 1
+                        edge = (h.src_engine, de.index) if h.src_engine is not None else None
+                        self._transfer_failed(h, KVTransferError(
+                            f"handoff {h.request_id!r} failed its checksum on {target_id} "
+                            "(corrupt in flight)"
+                        ), backend=backend, edge=edge)
                 if pending:
                     pending = self._try_imports(de, pending)
                 if not busy:
@@ -796,7 +959,7 @@ class DisaggOrchestrator:
         retries until decode frees blocks, bounded by the transfer
         deadline; then the request re-prefills."""
         still = []
-        for h, deadline in pending:
+        for h, deadline, backend in pending:
             with self._lock:
                 live = h.request_id in self._inflight
             if not live:
@@ -808,59 +971,61 @@ class DisaggOrchestrator:
                 de.engine.import_handoff(h)
             except NoFreeBlocksError:
                 if time.time() < deadline:
-                    still.append((h, deadline))
+                    still.append((h, deadline, backend))
                     continue
                 with self._lock:
                     de.in_transit -= 1
                 self._transfer_failed(h, KVTransferError(
                     f"decode engine {de.index} had no KV room for {h.request_id!r} "
                     "within the transfer deadline"
-                ))
+                ), backend=backend)
                 continue
             except Exception as e:  # noqa: BLE001 — a bad handoff
                 with self._lock:
                     de.in_transit -= 1
-                self._transfer_failed(h, e)
+                self._transfer_failed(h, e, backend=backend)
                 continue
             with self._lock:
                 de.in_transit -= 1
                 self.handoffs.append({"request_id": h.request_id, "decode_engine": de.index,
-                                      "kv_tokens": h.num_kv_tokens, "bytes": h.nbytes,
-                                      **h.timings})
-            self._obs_transfer_span(h, de.index, t_import0, time.time())
+                                      "backend": backend, "kv_tokens": h.num_kv_tokens,
+                                      "bytes": h.nbytes, **h.timings})
+            self._obs_transfer_span(h, de.index, t_import0, time.time(), backend=backend)
         return still
 
     # -- observability ----------------------------------------------------------
 
     def _obs_transfer_span(self, h: KVHandoff, decode_index: int,
-                           t_import0: float, t_done: float) -> None:
+                           t_import0: float, t_done: float, backend: Optional[str] = None) -> None:
         """``llm.kv_transfer``: prefill-span end -> import complete, between
-        ``engine.prefill`` and the first decode round."""
+        ``engine.prefill`` and the first decode round, labelled by the plane
+        that carried it."""
+        backend = backend or self._primary
         try:
             obs.get_recorder().record(
                 "llm.kv_transfer", min(h.t_export, t_done), t_done,
                 ctx=TraceContext.from_dict(h.trace),
                 attrs={
                     "request_id": h.request_id,
-                    "backend": self.connector.name,
+                    "backend": backend,
                     "decode_engine": decode_index,
                     "kv_tokens": h.num_kv_tokens,
                     "bytes": h.nbytes,
                     "import_ms": round((t_done - t_import0) * 1e3, 3),
                 },
             )
-            slo.record_kv_transfer(self.model_tag, self.connector.name,
+            slo.record_kv_transfer(self.model_tag, backend,
                                    seconds=max(0.0, t_done - h.t_export), nbytes=h.nbytes)
         except Exception:  # noqa: BLE001 — tracing must not break serving
             pass
 
-    def _obs_transfer_event(self, h: KVHandoff, error: str) -> None:
+    def _obs_transfer_event(self, h: KVHandoff, error: str, backend: Optional[str] = None) -> None:
         try:
             now = time.time()
             obs.get_recorder().record(
                 "llm.kv_transfer_failed", now, now, ctx=TraceContext.from_dict(h.trace),
                 attrs={"request_id": h.request_id, "error": error[:200],
-                       "backend": self.connector.name},
+                       "backend": backend or self._primary},
                 status="error",
             )
         except Exception:  # noqa: BLE001

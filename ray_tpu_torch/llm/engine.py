@@ -30,8 +30,7 @@ peek_prefix_tokens, ``llm/disagg``); ``EngineConfig.model`` takes a
 registry name (``models/registry.py``). Not ported yet, and refused by
 ``EngineConfig`` with NotImplementedError so no caller silently gets a
 different engine: tensor-parallel meshes and the profiling hooks
-(ROADMAP.md, Queue 1); ``export_request(keep_on_device=True)`` raises
-likewise (the device fabric, C1).
+(ROADMAP.md, Queue 1).
 
 Observability, as the reference's: every request carries a trace
 (``obs/``) whose lifecycle spans tile arrival -> finish (queue_wait,
@@ -981,21 +980,25 @@ class LLMEngine:
             self._copy_stream = torch.cuda.Stream(self.device)
         return self._copy_stream
 
+    def kv_cache_device(self) -> torch.device:
+        """The device this engine's paged KV cache lives on: the fabric
+        endpoint of device-direct imports (registering the cache's own
+        device makes the transfer's final hop a no-op)."""
+        return self.cache["k"].device
+
     def export_request(self, request_id: str, keep_on_device: bool = False):
         """Export a RUNNING request as a sealed KVHandoff and drop local
         ownership: its blocks are released (full prompt blocks stay in this
         engine's prefix cache, so a re-prefill after a lost transfer hits
         them). The pages are gathered on the device in one index_select per
-        cache tensor, on the current stream, and copied into pinned host
-        memory on the engine's copy stream; the handoff's ``timings`` split
-        the export into pin (allocating the host pages), gather, d2h and
-        seal (on the CPU: gather and seal)."""
-        if keep_on_device:
-            raise NotImplementedError(
-                "export_request(keep_on_device=True): the device-resident KV handoff "
-                "(the fabric's device path) is not ported to ray_tpu_torch yet "
-                "(ROADMAP.md, Queue 1, C1)"
-            )
+        cache tensor, on the current stream. On the card they are copied
+        into pinned host memory on the engine's copy stream and CRC-sealed;
+        with ``keep_on_device`` they stay device tensors, sealed on the
+        device (``seal(device=True)``: two reductions and two 4-byte reads,
+        no pinned pages, no copy to the host; ``handoff.to_host()`` if an
+        RPC edge carries it after all). The handoff's ``timings`` split the
+        export into pin (allocating the host pages), gather, d2h and seal
+        (on the CPU, or on the device path: gather and seal)."""
         # the pages must hold every position the host has booked: land the
         # pipelined chunk in flight first
         self._pipe_flush(deliver=True)
@@ -1017,9 +1020,9 @@ class LLMEngine:
         c = self.config
         n_kv = req.num_tokens - 1
         slots = self._tensor(np.asarray(req.seq.slots_for_range(0, n_kv), np.int64))
-        cuda = self.device.type == "cuda"
+        stage_host = self.device.type == "cuda" and not keep_on_device
         timings = {}
-        if cuda:
+        if stage_host:
             t0 = time.perf_counter()
             shape = (c.model.n_layers, c.model.n_kv_heads, n_kv, c.model.head_dim)
             hk = torch.empty(shape, dtype=self.cache["k"].dtype, pin_memory=True)
@@ -1030,7 +1033,7 @@ class LLMEngine:
         k = self.cache["k"].index_select(2, slots)
         v = self.cache["v"].index_select(2, slots)
         stages.stage("gather_ms", s0)
-        if cuda:
+        if stage_host:
             cs = self._copies()
             cs.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(cs):
@@ -1069,7 +1072,7 @@ class LLMEngine:
             else None,
         )
         t0 = time.perf_counter()
-        handoff.seal()
+        handoff.seal(device=keep_on_device)
         timings["seal_ms"] = (time.perf_counter() - t0) * 1e3
         handoff.timings = timings
         # drop local ownership; sealed full blocks stay in the prefix cache
@@ -1090,12 +1093,14 @@ class LLMEngine:
         hold it now, and ValueError on a model mismatch, a request id
         already live here, or pages that disagree with the header.
 
-        The pages are copied to the device on the engine's copy stream and
-        scattered with index_copy_ into the cache tensors IN PLACE, on the
-        current stream (the one the graph replays run on): every captured
-        decode, mixed and verify graph reads the cache by address, so it is
-        never rebound. Adds h2d (on the card) and scatter to the handoff's
-        ``timings``."""
+        Host pages are copied to the device on the engine's copy stream;
+        pages already on the cache's device (the fabric's device handoff,
+        verified on the device where it was received) are used as they are,
+        with no copy. Either way they are scattered with index_copy_ into
+        the cache tensors IN PLACE, on the current stream (the one the graph
+        replays run on): every captured decode, mixed and verify graph reads
+        the cache by address, so it is never rebound. Adds h2d (host pages
+        on the card) and scatter to the handoff's ``timings``."""
         # joining the decode batch is a membership change: land the chunk in
         # flight so the import sees settled state
         self._pipe_flush(deliver=True)
@@ -1137,7 +1142,16 @@ class LLMEngine:
         slots = self._tensor(np.asarray(seq.slots_for_range(0, n_kv), np.int64))
         dt = self.cache["k"].dtype
         stages = _Stages(self.device)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and handoff.k_pages.device == self.device:
+            # a device handoff: its seal's 4-byte read completed the writes
+            # of the pages before they were sent. Recording this stream on
+            # them keeps the allocator from handing their block to the
+            # stream that made them while the scatter below still reads it
+            cur = torch.cuda.current_stream(self.device)
+            k, v = handoff.k_pages.to(dt), handoff.v_pages.to(dt)
+            k.record_stream(cur)
+            v.record_stream(cur)
+        elif self.device.type == "cuda":
             cur, cs = torch.cuda.current_stream(self.device), self._copies()
             with torch.cuda.stream(cs):
                 s0 = stages.start()

@@ -2,10 +2,9 @@
 ``ray_tpu/llm/kvfetch``).
 
  * the fetch plane (``plane.py``): a spilled ``SpilledBlock`` is a sealed
-   ``KVHandoff``, so another same-weights engine can PULL it; the
-   in-process ``LocalFetchClient`` is ported, the device client waits for
-   C1 and the RPC route for C5/B8 (ROADMAP.md Queue 1), each raising
-   ``NotImplementedError`` naming it;
+   ``KVHandoff``, so another same-weights engine can PULL it: in process
+   (``LocalFetchClient``), over the device fabric (``DeviceFetchClient``)
+   or over RPC frames (``RpcFetchClient`` / ``RpcFetchServer``);
  * prefetch-at-admission (``manager.KVFetchManager``): a bounded worker
    verifies, deserializes and fetches a queued request's prefix while it
    waits; the engine thread scatters it before the request's admission.

@@ -1147,6 +1147,162 @@ def test_disagg_on_card_matches_cpu_colocated():
 
 
 # ---------------------------------------------------------------------------
+# the device fabric (fabric/) on the card
+# ---------------------------------------------------------------------------
+
+
+def test_device_checksum_on_card_equals_cpu():
+    """The sum reduced on the card equals the CPU's for the same bytes (the
+    CPU's is held against the reference's by tests/test_torch_fabric.py),
+    every lane width, the empty tensor, and a tensor past one slice of
+    widened lanes."""
+    _need_cuda()
+    from ray_tpu_torch.fabric.transport import _SLICE, ArrayBundle, device_checksum
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, 5, 7)) * 100.0
+    cases = [torch.from_numpy(x.astype(d)) for d in ("float32", "float16", "int32", "int8",
+                                                     "uint8")]
+    cases += [torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16), torch.empty(0),
+              torch.from_numpy(rng.standard_normal(_SLICE + 12345).astype(np.float32))
+              .to(torch.bfloat16)]
+    for t in cases:
+        assert device_checksum(t.cuda()) == device_checksum(t), t.dtype
+    pages = {"k_pages": cases[5].cuda(), "v_pages": cases[0].cuda()}
+    assert ArrayBundle("b", pages).seal().checksum == ArrayBundle(
+        "b", {n: a.cpu() for n, a in pages.items()}).seal().checksum
+
+
+def test_corrupted_device_bundle_fails_verify_on_card():
+    """CORRUPT_DEVICE_TRANSFER through the transport on the card: the
+    received handoff fails its device verify, the sender's pages are intact
+    and still verify."""
+    _need_cuda()
+    from ray_tpu_torch import chaos
+    from ray_tpu_torch.chaos.schedule import CORRUPT_DEVICE_TRANSFER
+    from ray_tpu_torch.fabric import DeviceKVConnector
+
+    pre = _packed_engine(torch.bfloat16)
+    pre.add_request(_prompts_long()[3], None, request_id="c")
+    while "c" in pre._mixed_prefills or not pre.requests["c"].output_token_ids:
+        pre.step()
+    h = pre.export_request("c", keep_on_device=True)
+    assert h.k_pages.is_cuda and h.checksum_kind == "device_u32" and h.verify()
+    before = h.k_pages.clone()
+    conn = DeviceKVConnector(namespace="t-card-corrupt")
+    chaos.install(chaos.FaultSchedule(7, [chaos.FaultSpec(CORRUPT_DEVICE_TRANSFER,
+                                                          site="disagg.kv_transfer",
+                                                          max_fires=1)]))
+    try:
+        conn.send(conn.register_target("d0", device=pre.kv_cache_device()), h)
+        got = conn.recv("d0", timeout_s=5.0)
+    finally:
+        chaos.uninstall()
+        conn.close()
+    assert got.k_pages.is_cuda and got.k_pages.data_ptr() != h.k_pages.data_ptr()
+    assert not got.verify()
+    assert h.verify() and torch.equal(h.k_pages, before)
+
+
+def test_device_export_import_replays_over_its_pages():
+    """fp32, mixed batching on the card: a decode engine serves a first pass
+    (graphs captured), then twice imports DEVICE handoffs of the same
+    prompts (exported with keep_on_device: device pages, sealed on the
+    card, no pinned pages, no copy either way). The imports write the cache
+    in place, the second round captures nothing and replays graphs captured
+    before its imports, and every stream equals a colocated engine's."""
+    _need_cuda()
+    from ray_tpu_torch.llm import SamplingParams
+    from ray_tpu_torch.llm.pipeline import ChunkController, PipelineStats
+
+    prompts = _prompts_long()
+    want = [t for t, _ in _serve_tokens(_packed_engine(torch.float32), prompts, [None] * 4)]
+    dec = _packed_engine(torch.float32)
+    dec._pipe_ctl, dec._pipe_stats = ChunkController(initial=8, target_ratio=0.0), PipelineStats()
+    assert [t for t, _ in _serve_tokens(dec, prompts, [None] * 4)] == want
+    fams = (dec._graphs, dec._mixed_graphs)
+    ptrs = {n: t.data_ptr() for n, t in dec.cache.items()}
+    pre = _packed_engine(torch.float32)
+    for rnd in range(2):
+        captures0 = sum(f.captures for f in fams)
+        keys0 = [set(f._graphs) for f in fams]
+        replays0 = [dict(f.replays_by_key) for f in fams]
+        handoffs = []
+        for i, p in enumerate(prompts):
+            rid = f"d{rnd}-{i}"
+            pre.add_request(p, SamplingParams(max_tokens=12, temperature=0.0, ignore_eos=True),
+                            request_id=rid)
+            while rid in pre._mixed_prefills or not pre.requests[rid].output_token_ids:
+                pre.step()
+            handoffs.append(pre.export_request(rid, keep_on_device=True))
+        for h in handoffs:
+            assert h.k_pages.is_cuda and not h.k_pages.is_pinned()
+            assert h.checksum_kind == "device_u32" and h.verify()
+            dec.import_handoff(h)
+            assert set(h.timings) == {"gather_ms", "seal_ms", "scatter_ms"}
+        assert {n: t.data_ptr() for n, t in dec.cache.items()} == ptrs
+        got = {}
+        while dec.has_unfinished():
+            for o in dec.step():
+                if o.finished:
+                    got[o.request_id] = o.output_token_ids
+        assert [got[f"d{rnd}-{i}"] for i in range(4)] == want
+        if rnd == 1:
+            assert sum(f.captures for f in fams) == captures0
+            assert sum(f.replays_by_key[k] - r0.get(k, 0)
+                       for f, keys, r0 in zip(fams, keys0, replays0) for k in keys) > 0
+    assert dec.stats()["num_kv_imports"] == 8
+
+
+def test_device_disagg_on_card_matches_cpu_and_falls_back():
+    """The orchestrator on the card over the device connector (fp32): the
+    CPU colocated engine's greedy tokens with every transfer on the device
+    plane; with one CORRUPT_DEVICE_TRANSFER the edge degrades to RPC, the
+    request re-prefills once and the tokens are the same."""
+    _need_cuda()
+    from ray_tpu_torch import chaos
+    from ray_tpu_torch.chaos.schedule import CORRUPT_DEVICE_TRANSFER
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.llm.disagg import DisaggConfig, DisaggOrchestrator
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = LlamaConfig(**GRAPH_MODEL, dtype=torch.float32)
+    params = init_params(model, torch.Generator().manual_seed(0), device="cpu")
+    on_card = {k: (v.cuda() if torch.is_tensor(v) else {n: t.cuda() for n, t in v.items()})
+               for k, v in params.items()}
+    prompts = _prompts_long()
+    sp = SamplingParams(max_tokens=12, temperature=0.0, ignore_eos=True)
+    cfg = EngineConfig(model=model, num_blocks=64, block_size=4, max_num_seqs=4,
+                       max_prefill_len=64, mixed_batch=True, mixed_prefill_chunk=16)
+    want = LLMEngine(cfg, params=params, device="cpu").generate(prompts, sp)
+    for fault in (False, True):
+        if fault:
+            chaos.install(chaos.FaultSchedule(7, [chaos.FaultSpec(
+                CORRUPT_DEVICE_TRANSFER, site="disagg.kv_transfer", max_fires=1)]))
+        orch = DisaggOrchestrator(DisaggConfig(engine=cfg, connector="device"), params=on_card,
+                                  device="cuda")
+        try:
+            got = orch.generate(prompts[:1], sp, timeout_s=120)
+            got += orch.generate(prompts[1:], sp, timeout_s=120)
+            st = orch.stats()
+            done = list(orch.handoffs)
+        finally:
+            orch.shutdown()
+            chaos.uninstall()
+        assert got == want
+        assert st["decode"][0]["num_prefill_batches"] == 0
+        if not fault:
+            assert st["fabric"]["backends"] == {"device": 4} and st["fabric"]["fallbacks"] == 0
+            assert all(h["backend"] == "device" and "h2d_ms" not in h and "pin_ms" not in h
+                       for h in done)
+        else:
+            assert st["fabric"]["fallbacks"] == 1 and st["transfer"]["reprefills"] == 1
+            assert st["fabric"]["backends"] == {"device": 1, "rpc": 4}
+            assert all(h["backend"] == "rpc" for h in done)
+
+
+# ---------------------------------------------------------------------------
 # the tiered KV cache (llm/kvtier) on the card
 # ---------------------------------------------------------------------------
 

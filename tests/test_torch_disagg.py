@@ -39,6 +39,14 @@ from ray_tpu.models import llama as jllama
 from ray_tpu.obs import slo as jslo
 from ray_tpu.serve.proxy import Request as HttpRequest
 from ray_tpu_torch import chaos, obs
+from ray_tpu_torch.fabric import (
+    DeviceKVConnector,
+    DeviceTransport,
+    FabricTopology,
+    FabricTransferError,
+    SlicePoolSpec,
+    build_fabric,
+)
 from ray_tpu_torch.llm import ByteTokenizer, EngineConfig, LLMConfig, LLMEngine, LLMServer
 from ray_tpu_torch.llm import SamplingParams
 from ray_tpu_torch.llm import kv_cache as tkv
@@ -48,6 +56,7 @@ from ray_tpu_torch.llm.disagg import (
     InProcessConnector,
     KVHandoff,
     KVTransferError,
+    RpcKVConnector,
     make_connector,
 )
 from ray_tpu_torch.llm.disagg.connector import _corrupt_handoff
@@ -290,26 +299,39 @@ def test_reference_handoff_continues_on_the_port(weights, prompts):
 
 
 def test_refusals_name_their_roadmap_items(weights, exported):
+    """What the device fabric (C1) lifted now works as the reference's does;
+    what still waits raises NotImplementedError naming its ROADMAP item."""
     _jh, _pre, _outs, _req, h = exported
-    with pytest.raises(NotImplementedError, match="C1"):
-        h.seal(device=True)
-    with pytest.raises(NotImplementedError, match="C1"):
-        h.to_host()
-    with pytest.raises(NotImplementedError, match="C1"):
-        dataclasses.replace(h, checksum_kind="device_u32").verify()
+    # the device seal, its verify and to_host (on a copy: the fixture stays)
+    dev = dataclasses.replace(h, timings={}).seal(device=True)
+    assert dev.checksum_kind == "device_u32" and dev.verify()
+    assert h.checksum_kind == "crc32" and h.verify()
+    assert not dataclasses.replace(h, checksum_kind="device_u32").verify()
+    host = dev.to_host()
+    assert host.checksum_kind == "crc32" and host.checksum == h.checksum and host.verify()
+    assert h.to_host() is h  # already a host handoff
     eng = _port(weights)
+    assert eng.kv_cache_device() == torch.device("cpu")
     eng.add_request([1, 2, 3], _greedy(), request_id="k")
     eng.step()
-    with pytest.raises(NotImplementedError, match="C1"):
-        eng.export_request("k", keep_on_device=True)
-    with pytest.raises(NotImplementedError, match="C5/B8"):
-        make_connector("rpc")
-    with pytest.raises(NotImplementedError, match="C1"):
-        make_connector("device")
-    with pytest.raises(NotImplementedError, match="C5/B8"):
-        DisaggConfig(engine=_cfg(), connector="rpc")
-    with pytest.raises(NotImplementedError, match="C1"):
-        DisaggConfig(engine=_cfg(), fabric={"pools": []})
+    kd = eng.export_request("k", keep_on_device=True)
+    assert kd.checksum_kind == "device_u32" and kd.verify()
+    assert set(kd.timings) == {"gather_ms", "seal_ms"}
+    rpc = make_connector("rpc")
+    assert isinstance(rpc, RpcKVConnector)
+    rpc.close()
+    conn = make_connector("device", transport=DeviceTransport("t-refusals", devices=["cpu"]))
+    assert isinstance(conn, DeviceKVConnector) and conn.name == "device"
+    conn.close()
+    # the transport never falls back to the CPU on its own
+    with pytest.raises(FabricTransferError, match="no CUDA devices"):
+        DeviceTransport("t-refusals-none")
+    assert DisaggConfig(engine=_cfg(), connector="rpc").connector == "rpc"
+    topo = FabricTopology().add_pool("prefill", "prefill", "s0").add_pool("decode", "decode", "s0")
+    cfg = DisaggConfig(engine=_cfg(), connector="device", fabric=topo.to_dict())
+    assert FabricTopology.from_dict(cfg.fabric).edge_backend("prefill", "decode") == "device"
+    with pytest.raises(NotImplementedError, match="B8"):
+        build_fabric([SlicePoolSpec("prefill", "prefill", "s0")])
     with pytest.raises(ValueError, match="unknown KV connector"):
         DisaggConfig(engine=_cfg(), connector="carrier-pigeon")
     # the tiered cache is ported: an engine config with it builds
@@ -670,7 +692,10 @@ def test_llm_server_disagg(weights, prompts):
         ref_text, ref_stats = asyncio.run(go(ref))
         assert got == want == ref_text
         assert stats["mode"] == "disagg"
-        assert set(stats) == set(ref_stats) - {"fabric"}
+        assert set(stats) == set(ref_stats)
+        assert set(stats["fabric"]) == set(ref_stats["fabric"])
+        assert stats["fabric"]["edges"] == ref_stats["fabric"]["edges"]
+        assert stats["fabric"]["backends"] == ref_stats["fabric"]["backends"] == {"inproc": 2}
         assert stats["transfer"]["kv_transfers"] == 2
         assert len(stats["prefill"]) == 1 and len(stats["decode"]) == 1
         assert stats["decode"][0]["num_prefill_batches"] == 0

@@ -45,7 +45,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
 def test_port_imports_without_jax_triton_or_gpu():
     """Every module of the port imports with jax, optax, ray_tpu and triton
     blocked, and the plain path runs pipelined and speculative decoding,
-    disaggregated serving and a train step on the CPU."""
+    disaggregated serving (in-process and over the device fabric) and a
+    train step on the CPU."""
     code = """
 import sys
 for name in ("jax", "jaxlib", "optax", "ray_tpu", "triton"):
@@ -61,6 +62,8 @@ import ray_tpu_torch.models.registry, ray_tpu_torch.obs, ray_tpu_torch.util.metr
 import ray_tpu_torch.llm.admission, ray_tpu_torch.llm.openai_api, ray_tpu_torch.llm.batch
 import ray_tpu_torch.llm.disagg, ray_tpu_torch.llm.disagg.orchestrator
 import ray_tpu_torch.chaos, ray_tpu_torch.obs.slo, ray_tpu_torch.obs.telemetry
+import ray_tpu_torch.fabric, ray_tpu_torch.cluster.rpc, ray_tpu_torch.util.backoff
+import ray_tpu_torch.llm.kvfetch.plane
 import dataclasses, torch
 from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
 from ray_tpu_torch.models import llama
@@ -83,6 +86,13 @@ orch = DisaggOrchestrator(DisaggConfig(engine=EngineConfig(
     model=LLAMA_TINY, num_blocks=32, block_size=4, max_num_seqs=2, max_prefill_len=32)),
     device="cpu")
 assert len(orch.generate([[5, 6, 7]], SamplingParams(max_tokens=3, temperature=0.0))[0]) == 3
+orch.shutdown()
+from ray_tpu_torch.fabric import DeviceKVConnector, DeviceTransport
+orch = DisaggOrchestrator(DisaggConfig(engine=EngineConfig(
+    model=LLAMA_TINY, num_blocks=32, block_size=4, max_num_seqs=2, max_prefill_len=32),
+    connector="device"), device="cpu")
+assert len(orch.generate([[5, 6, 7]], SamplingParams(max_tokens=3, temperature=0.0))[0]) == 3
+assert orch.stats()["fabric"]["backends"] == {"device": 1}
 orch.shutdown()
 cfg = dataclasses.replace(LLAMA_TINY, attention_impl="flash", remat=True)
 state = TrainState.create(llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),

@@ -3,7 +3,7 @@ ray_tpu_torch (``llm/kvfetch``, ``llm/kvtier/tiers.py``) held against
 ray_tpu.llm.kvfetch on the CPU.
 
 Mirrors ``tests/test_llm_kvfetch.py`` with the ``local`` backend (the device
-client waits for C1, the RPC plane for C5/B8: both refuse by name), on
+and RPC backends are held in ``tests/test_torch_rpc.py``), on
 LLAMA_TINY in fp32 with the reference's configuration: cross-engine
 identity (greedy tokens and fetch counts equal the reference pair's),
 adoption and re-indexing, prefetch = sync, an abort storm that leaks
@@ -449,16 +449,26 @@ def test_orchestrator_wires_fetch_plane_and_spreads_like_reference(weights):
 
 
 def test_device_and_rpc_fetch_clients_refused_by_name():
-    with pytest.raises(NotImplementedError, match="C1"):
-        make_fetch_client("device", registry=LocalFetchRegistry())
-    with pytest.raises(NotImplementedError, match="C5/B8"):
-        make_fetch_client("rpc")
-    with pytest.raises(NotImplementedError, match="C1"):
-        DeviceFetchClient(LocalFetchRegistry())
-    with pytest.raises(NotImplementedError, match="C5/B8"):
-        RpcFetchClient()
-    with pytest.raises(NotImplementedError, match="C5/B8"):
-        RpcFetchServer()
+    """The device and RPC fetch clients (C1) build as the reference's do; the
+    GCS-backed prefix index still waits for the cluster runtime (B8)."""
+    from ray_tpu_torch.fabric import DeviceTransport
+    from ray_tpu_torch.llm.kvtier import GcsPrefixIndex
+
+    dev = make_fetch_client("device", registry=LocalFetchRegistry(),
+                            transport=DeviceTransport("t-kvf-make", devices=["cpu"]))
+    assert isinstance(dev, DeviceFetchClient) and dev.stats()["backend"] == "device"
+    dev.close()
+    rpc = make_fetch_client("rpc")
+    assert isinstance(rpc, RpcFetchClient) and rpc.stats()["backend"] == "rpc"
+    rpc.close()
+    srv = RpcFetchServer()
+    try:
+        host, port = srv.address
+        assert host == "127.0.0.1" and port > 0
+    finally:
+        srv.stop()
+    with pytest.raises(NotImplementedError, match="B8"):
+        GcsPrefixIndex()
     with pytest.raises(ValueError, match="unknown fetch backend"):
         make_fetch_client("carrier-pigeon")
     assert isinstance(make_fetch_client("local", registry=LocalFetchRegistry()), LocalFetchClient)

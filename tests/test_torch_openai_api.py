@@ -292,11 +292,13 @@ def test_refusals():
     kw = {"target_queue_wait_s": 0.5, "min_queue_depth": 3, "window_s": 5.0}
     assert dataclasses.asdict(AdmissionConfig(**kw)) == dataclasses.asdict(JAdmissionConfig(**kw))
     assert dataclasses.asdict(AdmissionConfig()) == dataclasses.asdict(JAdmissionConfig())
-    # disaggregated serving is ported (llm/disagg); its unported transfer
-    # planes are refused by name
+    # disaggregated serving is ported (llm/disagg) with the reference's
+    # transfer planes: in-process, RPC frames and the device fabric
     assert LLMConfig(disagg={"num_prefill": 1}).disagg.num_prefill == 1
-    with pytest.raises(NotImplementedError, match="C5/B8"):
-        LLMConfig(disagg={"connector": "rpc"})
+    for kind in ("rpc", "device"):
+        assert LLMConfig(disagg={"connector": kind}).disagg.connector == kind
+    with pytest.raises(ValueError, match="unknown KV connector"):
+        LLMConfig(disagg={"connector": "carrier-pigeon"})
 
 
 # ---------------------------------------------------------------------------
