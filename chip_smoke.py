@@ -6,6 +6,8 @@
     python3 chip_smoke.py --phases build,engine,api      # the serving front end alone
     python3 chip_smoke.py --phases build,engine,disagg   # disaggregated, inproc and device legs
     python3 chip_smoke.py --phases build,kvtier          # the tiered KV cache alone
+    python3 chip_smoke.py --phases build,fleet           # the canary ladder at LLAMA3_8B
+    python3 chip_smoke.py --phases build,train,publish   # train -> publish -> serve
 
 Phases, each printing one JSON line:
 
@@ -188,6 +190,27 @@ Phases, each printing one JSON line:
            greedy spec == non-spec tokens on the parity model (vocabulary
            cut to 256, prompts holding every id, so prompt lookup always
            drafts), both drafters, and prompt lookup under adapters
+  fleet    the multi-tenant fleet at LLAMA3_8B (bf16, full width): a
+           FleetManager of 2 replicas (r0 serves the smoke's weights, r1 a
+           clone), 1 024 blocks of 16 and max_num_seqs 8 each, max_loras 2
+           (rank 8, wq and wv), tenants gold (priority 2, weight 3) and
+           batch (priority 0, weight 1) over a queue budget of 64 (batch
+           holds 16 in flight), the engine phase's prompts: a
+           noisy neighbour (24 batch threads flood, alone for 8 s, then
+           while gold sends 4:
+           gold's TTFT and SLO grade, batch requests shed, priority
+           preemptions); a base canary (every leaf x 1.01) graded on 8
+           greedy gold requests (their shapes captured in a pass before)
+           and promoted; a second one rolled back to the
+           retained v1; an adapter canary whose swap keeps the other
+           adapter's prefix hits; a seeded PREEMPT_ENGINE mid-canary. Fails
+           unless gold is served while batch is shed and preempted, every
+           promote and rollback is bit for bit on distinct storages with
+           equal greedy tokens, the adapter swap drops only its own chains,
+           no request is lost, and K3/K4 launch in replays. Reports publish
+           ms by stage (seal, verify, the in-place write), each apply's ms,
+           promote and rollback wall time, K3/K4 launches per replica (eager
+           and in replays) and peak memory
   train    LLAMA_400M at full width and depth (bf16 compute, fp32 params,
            remat "dots", flash attention, AdamW lr 3e-4 wd 1e-4), B 8,
            S 1024, one fixed batch (numpy seed 0), with bench.py's gates:
@@ -196,6 +219,21 @@ Phases, each printing one JSON line:
            flash counters are zeroed just before the steps and read just
            after; then one step under torch.profiler (it fails if a flash
            kernel launched but its kernel-name group reads no time)
+  publish  train -> publish -> serve at LLAMA_400M: an engine (bf16, the
+           engine phase's batching, 1 024 blocks, chunks held at 8) serves
+           the engine phase's 12 requests (graphs captured), the train
+           phase's state takes 3 AdamW steps (K1/K2 counted), a snapshot of
+           its fp32 params is published as v1 over a DeviceTransport
+           endpoint on the engine's device and written into the engine's
+           bf16 tensors between two passes. Fails unless the tensors keep
+           their addresses and hold the snapshot cast to bf16, no pre-swap
+           block is a prefix hit, weight_version is 1, the second pass's
+           greedy tokens equal a fresh engine's on the snapshot bit for bit,
+           it captures nothing for the first pass's buckets and K3/K4 run in
+           its replays, a publish of the live params followed by a step is
+           refused (and the engine's bytes unchanged), and a cold start
+           through publish_latest is bitwise identical. Reports the seal,
+           verify and write ms, the snapshot clone's ms and peak memory
   train_parity  a small fp32 model trained 5 steps on the card and on
            the CPU from the same params and batch: losses, grad norms and
            params within the bands stated at PARITY_*
@@ -220,6 +258,7 @@ before printing anything. Imports nothing of JAX or of ray_tpu.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import subprocess
@@ -3522,10 +3561,11 @@ def _host_state() -> dict:
             "gc_tracked_objects": len(gc.get_objects())}
 
 
-def train_phase(dev) -> dict:
+def train_phase(dev, keep_state: bool = False) -> dict:
     """LLAMA_400M at full width and depth (bf16 compute, fp32 params, remat
     "dots", flash attention) trained on one fixed batch, with bench.py's
-    gates (bench.py:122-178)."""
+    gates (bench.py:122-178). With ``keep_state`` the result carries
+    ``"trained"``: (state, step, batch, config), for the publish phase."""
     import dataclasses
     import math
 
@@ -3601,6 +3641,8 @@ def train_phase(dev) -> dict:
     }
     emit(res)
     emit(_profile_train(step, state, batch))
+    if keep_state:
+        res["trained"] = (state, step, batch, cfg)
     del state, params
     torch.cuda.empty_cache()
     return res
@@ -3710,9 +3752,562 @@ def train_parity_phase(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# weight publishing (publish) and the multi-tenant fleet (fleet)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _weight_stages():
+    """Time the weight plane's stages while the block runs, by wrapping the
+    classes' methods (restored after): each weight bundle's seal and verify
+    (host ms; each ends in a 4-byte read per leaf, so the reduction is done)
+    and each ``LLMEngine.write_params`` (device-complete: synchronized
+    before and after). Yields {"seal_ms": [...], "verify_ms": [...],
+    "write_ms": [...]}."""
+    import torch
+
+    from ray_tpu_torch.fabric.transport import ArrayBundle
+    from ray_tpu_torch.llm.engine import LLMEngine
+
+    acc = {"seal_ms": [], "verify_ms": [], "write_ms": []}
+    seal, verify, write = ArrayBundle.seal, ArrayBundle.verify, LLMEngine.write_params
+
+    def timed(fn, key, sync=False, only_weights=False):
+        def wrapper(self, *a, **k):
+            if only_weights and not self.bundle_id.startswith("weights-"):
+                return fn(self, *a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            acc[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    ArrayBundle.seal = timed(seal, "seal_ms", only_weights=True)
+    ArrayBundle.verify = timed(verify, "verify_ms", only_weights=True)
+    LLMEngine.write_params = timed(write, "write_ms", sync=True)
+    try:
+        yield acc
+    finally:
+        ArrayBundle.seal, ArrayBundle.verify, LLMEngine.write_params = seal, verify, write
+
+
+def _stage_summary(acc: dict) -> dict:
+    return {k: {"n": len(v), "ms": v} for k, v in acc.items()}
+
+
+def _pin_chunks(eng) -> None:
+    """Hold the pipelined decode's chunk length at 8 (no step-up on host
+    timing), so two passes of the same requests decode the same chunks."""
+    from ray_tpu_torch.llm.pipeline import ChunkController, PipelineStats
+
+    eng._pipe_ctl, eng._pipe_stats = ChunkController(initial=8, target_ratio=0.0), PipelineStats()
+
+
+def _graph_keys(eng) -> dict:
+    """Captures so far per graph family and key."""
+    return {name: {str(k): len(v) for k, v in fam.capture_s_by_key.items()}
+            for name, fam in (("decode", eng._graphs), ("mixed", eng._mixed_graphs),
+                              ("verify", eng._verify_graphs))}
+
+
+PUBLISH_BLOCKS = 1024
+
+
+def publish_phase(dev, trained) -> dict:
+    """Train -> publish -> serve at LLAMA_400M: an engine serves the engine
+    phase's 12 requests (its graphs captured), the trainer takes 3 more
+    AdamW steps, a snapshot of its params is published as v1 and applied
+    between two passes; the second pass must equal a fresh engine on the
+    snapshot bit for bit, replaying the first pass's graphs. Then the
+    aliasing guard and a cold start."""
+    import torch
+
+    from ray_tpu_torch.autoscale import cold_start_engine, params_bitwise_equal
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.models.llama import sorted_leaves
+    from ray_tpu_torch.ops.flash import flash_bwd_cuda, flash_fwd_cuda
+    from ray_tpu_torch.train.weight_sync import WeightPublisher, WeightSubscriber, snapshot
+
+    t_phase = time.perf_counter()
+    state, step, batch, tcfg = trained
+    model = dataclasses.replace(tcfg, dtype=torch.bfloat16)
+    cfg = EngineConfig(model=model, **{**ENGINE_KW, "num_blocks": PUBLISH_BLOCKS})
+    prompts, sps = _engine_traffic(model)
+    greedy = [i for i, sp in enumerate(sps) if sp.greedy]
+    res = {"phase": "publish", "model": "LLAMA_400M", "dtype": "bfloat16",
+           "param_dtype": "float32", "num_blocks": PUBLISH_BLOCKS, "requests": len(prompts)}
+    torch.cuda.reset_peak_memory_stats()
+    eng = LLMEngine(cfg, seed=1, device=dev)  # v0: random weights
+    _pin_chunks(eng)
+    first, reqs, wall, _ = _serve(eng, prompts, sps, "a")
+    _check_served(eng, first, model, len(prompts), 32)
+    keys_a = _graph_keys(eng)
+    res["first_pass"] = {"wall_s": wall, "graphs": keys_a,
+                         "prefix_hit_tokens": eng.stats()["prefix_cache"]["hit_tokens"]}
+
+    # 3 AdamW steps of the train phase's state, the flash counters zeroed
+    flash_fwd_cuda.launches = flash_bwd_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    res["train"] = {"steps": 3, "wall_s": time.perf_counter() - t0, "loss": loss,
+                    "flash_launches": {"flash_fwd": flash_fwd_cuda.launches,
+                                       "flash_bwd": flash_bwd_cuda.launches}}
+    launches = dict(res["train"]["flash_launches"])
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"publish: the train steps launched no flash kernel: {launches}")
+
+    with _weight_stages() as stages:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = snapshot(state.params)  # fp32, the learner's own copy
+        torch.cuda.synchronize()
+        snapshot_ms = (time.perf_counter() - t0) * 1e3
+        pub = WeightPublisher(namespace="chip-publish")
+        target = pub.register_rollout("publish/e0", device=eng.kv_cache_device())
+        sub = WeightSubscriber(pub.transport, "publish/e0")
+        ptrs = [t.data_ptr() for t in sorted_leaves(eng.params)]
+        before_peek = [eng.peek_prefix_tokens(p) for p in prompts]
+        t0 = time.perf_counter()
+        version = pub.publish(snap, [target])
+        publish_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        applied = sub.apply_to_engine(eng)
+        torch.cuda.synchronize()
+        apply_ms = (time.perf_counter() - t0) * 1e3
+    if applied != version or version != 1 or eng.stats()["weight_version"] != 1:
+        raise AssertionError(f"publish: applied {applied} of v{version}")
+    if [t.data_ptr() for t in sorted_leaves(eng.params)] != ptrs:
+        raise AssertionError("publish: the apply rebound the engine's weights")
+    if not params_bitwise_equal(snap, eng.params):
+        raise AssertionError("publish: the engine's bytes differ from the snapshot cast to bf16")
+    after_peek = [eng.peek_prefix_tokens(p) for p in prompts]
+    if any(after_peek):
+        raise AssertionError(f"publish: pre-swap blocks still hit after the swap: {after_peek}")
+    nbytes = sum(t.numel() * t.element_size() for t in sorted_leaves(snap))
+    res["weights"] = {
+        "bytes_published": nbytes, "leaves": len(ptrs), "version": version,
+        "snapshot_clone_ms": snapshot_ms, "publish_ms": publish_ms, "apply_ms": apply_ms,
+        "stages": _stage_summary(stages), "data_ptrs_unchanged": True,
+        "prefix_tokens_before_swap": before_peek, "prefix_tokens_after_swap": after_peek,
+    }
+    if not before_peek[11]:
+        raise AssertionError("publish: request 11's prefix was not cached before the swap")
+
+    # the same pass on the swapped engine: the first pass's graphs replayed
+    marks, replayed = _launch_marks(eng), _replayed_marks(eng)
+    swapped, reqs, wall, _ = _serve(eng, prompts, sps, "p")
+    pass_launches = _launch_counts(eng, marks)
+    in_replays = {n: v - replayed[n] for n, v in _replayed_marks(eng).items()}
+    keys_p = _graph_keys(eng)
+    recaptured = {fam: {k: keys_p[fam][k] - n for k, n in keys.items() if keys_p[fam][k] != n}
+                  for fam, keys in keys_a.items()}
+    new_keys = {fam: [k for k in keys_p[fam] if k not in keys_a[fam]] for fam in keys_p}
+    fresh = LLMEngine(cfg, params=snap, device=dev)
+    _pin_chunks(fresh)
+    want, _, fresh_wall, _ = _serve(fresh, prompts, sps, "p")
+    del fresh
+    same = [swapped[f"p{i}"] == want[f"p{i}"] for i in range(len(prompts))]
+    res["second_pass"] = {
+        "wall_s": wall, "fresh_engine_wall_s": fresh_wall,
+        "greedy_streams_equal_fresh_engine": f"{sum(same[i] for i in greedy)}/{len(greedy)}",
+        "all_streams_equal_fresh_engine": f"{sum(same)}/{len(same)}",
+        "kernel_launches": pass_launches, "kernel_launches_in_replays": in_replays,
+        "recaptured_first_pass_keys": recaptured, "new_graph_keys": new_keys,
+        "streams_differ_from_v0": sum(swapped[f"p{i}"] != first[f"a{i}"] for i in greedy),
+    }
+    launches.update(pass_launches)
+    if not all(same[i] for i in greedy):
+        emit(res)
+        raise AssertionError("publish: the swapped engine's greedy tokens differ from a fresh "
+                             "engine's on the snapshot")
+    if any(recaptured.values()) or min(in_replays.values()) <= 0:
+        emit(res)
+        raise AssertionError(f"publish: recaptured {recaptured}, replays {in_replays}")
+
+    # the aliasing guard: the live params published, then a step writes them
+    guard = WeightPublisher(namespace="chip-publish-live")
+    try:
+        gt = guard.register_rollout("live/e0", device=eng.kv_cache_device())
+        gsub = WeightSubscriber(guard.transport, "live/e0")
+        guard.publish(state.params, [gt])
+        fwd0, bwd0 = flash_fwd_cuda.launches, flash_bwd_cuda.launches
+        state, _ = step(state, batch)
+        launches["flash_fwd"] += flash_fwd_cuda.launches - fwd0
+        launches["flash_bwd"] += flash_bwd_cuda.launches - bwd0
+        refused = gsub.apply_to_engine(eng)
+        res["aliasing_guard"] = {"applied": refused, **gsub.stats(),
+                                 "engine_still_equals_snapshot": params_bitwise_equal(
+                                     snap, eng.params)}
+    finally:
+        guard.close()
+    if refused is not None or gsub.num_mutated_dropped != 1 or \
+            not res["aliasing_guard"]["engine_still_equals_snapshot"]:
+        emit(res)
+        raise AssertionError(f"publish: the aliasing guard did not refuse: {res['aliasing_guard']}")
+
+    # cold start: a new engine from nothing, through publish_latest
+    cold, report = cold_start_engine(lambda: LLMEngine(cfg, seed=2, device=dev), pub,
+                                     "publish/cold", pool="decode", reference_params=snap)
+    _pin_chunks(cold)
+    cold_out, _, _, _ = _serve(cold, prompts, sps, "p")
+    res["cold_start"] = {**dataclasses.asdict(report),
+                         "greedy_streams_equal_fresh_engine":
+                             f"{sum(cold_out[f'p{i}'] == want[f'p{i}'] for i in greedy)}"
+                             f"/{len(greedy)}"}
+    if not report.bitwise_identical or report.weight_version != 1:
+        raise AssertionError(f"publish: cold start {report}")
+    pub.close()
+    del cold, eng, snap, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    res["kernel_launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+FLEET_BLOCKS = 1024
+FLEET_KW = dict(max_loras=2, lora_rank=8, lora_targets=("wq", "wv"))
+FLEET_SEQS = 8            # max_num_seqs per replica
+# the tenants' admission budget: batch (weight 1 of 4) holds up to 16 requests
+# in flight, enough to fill both replicas' 8 sequences, so a gold arrival
+# must preempt; 24 flood threads exceed it, so batch is also shed
+FLEET_QUEUE_BUDGET = 64
+FLEET_FLOOD_THREADS = 24
+FLEET_FLOOD_WARM_S = 8.0  # flood alone before gold's graded requests
+
+
+def _fleet_spec():
+    from ray_tpu_torch.fleet import AdapterSpec, FleetSpec, ModelSpec, TenantSpec
+
+    return FleetSpec(
+        models=(ModelSpec("llama3-8b", replicas=2,
+                          adapters=(AdapterSpec("styleA", rank=8), AdapterSpec("styleB", rank=8))),),
+        tenants=(TenantSpec("gold", priority=2, weight=3.0),
+                 TenantSpec("batch", priority=0, weight=1.0)),
+        total_queue_budget=FLEET_QUEUE_BUDGET,
+    )
+
+
+def _scaled(params, factor: float) -> dict:
+    """Every leaf x factor, in the leaf's dtype (a new tree on the card)."""
+    return {k: (_scaled(v, factor) if isinstance(v, dict) else v * factor)
+            for k, v in params.items()}
+
+
+def _replica_marks(r) -> dict:
+    """``_pool_marks`` of a fleet replica (its runner's ``call`` runs on its
+    loop thread)."""
+    import types
+
+    return _pool_marks(types.SimpleNamespace(call=r.runner.call, engine=r.engine))
+
+
+def _gold_pass(mgr, prompts, sp, tag: str, model_ref: str = "llama3-8b") -> list:
+    """Submit every prompt as gold at once and collect them all."""
+    tickets = [mgr.submit("gold", model_ref, p, sp, request_id=f"{tag}{i}")
+               for i, p in enumerate(prompts)]
+    return [list(mgr.collect(t, timeout_s=600).output_token_ids) for t in tickets]
+
+
+def _on_replica(r, prompt, sp, rid, lora_id=None):
+    """One request served on one replica (through its runner)."""
+    _rid, q = r.runner.submit(prompt, sp, request_id=rid, lora_id=lora_id)
+    while True:
+        out = q.get(timeout=600)
+        if isinstance(out, BaseException) or out is None:
+            raise AssertionError(f"fleet: request {rid} on {r.tag} failed: {out!r}")
+        if out.finished:
+            return list(out.output_token_ids)
+
+
+def fleet_phase(dev, params) -> dict:
+    """The canary ladder at LLAMA3_8B: a FleetManager of two replicas (r0
+    on the smoke's weights, r1 on a clone), two tenants, two adapters: a
+    noisy neighbour, a base canary promoted, a second one rolled back, an
+    adapter canary with a scoped drop, and a seeded PREEMPT_ENGINE mid
+    canary; every gate bit for bit on distinct storages."""
+    import concurrent.futures
+    import threading
+
+    import torch
+
+    from ray_tpu_torch import chaos
+    from ray_tpu_torch.fleet import (
+        FleetAdmissionRejected,
+        FleetManager,
+        bitwise_equal,
+        local_slo_histograms,
+        shares_storage,
+    )
+    from ray_tpu_torch.llm import EngineConfig, SamplingParams
+    from ray_tpu_torch.llm.engine import preemption_counter
+    from ray_tpu_torch.models.llama import LLAMA3_8B, sorted_leaves
+    from ray_tpu_torch.obs.telemetry import SLOThresholds, evaluate_slo
+
+    t_phase = time.perf_counter()
+    model = LLAMA3_8B
+    cfg = EngineConfig(model=model, **{**ENGINE_KW, "num_blocks": FLEET_BLOCKS,
+                                       "max_num_seqs": FLEET_SEQS}, **FLEET_KW)
+    prompts, _sps = _engine_traffic(model)
+    greedy = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
+    thresholds = SLOThresholds()  # green: p95 TTFT <= 2 s, TPOT <= 0.2 s, queue wait <= 1 s
+    res = {"phase": "fleet", "model": "LLAMA3_8B", "dtype": "bfloat16", "replicas": 2,
+           "num_blocks": FLEET_BLOCKS, "max_num_seqs": FLEET_SEQS, **FLEET_KW,
+           "thresholds": thresholds.to_dict()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    peaks = {}
+    t0 = time.perf_counter()
+    mgr = FleetManager(_fleet_spec(), engine_config=cfg, params={"llama3-8b": params}, seed=0,
+                       thresholds=thresholds, device=dev)
+    torch.cuda.synchronize()
+    res["spawn_s"] = time.perf_counter() - t0
+    lost = 0
+    try:
+        r0, r1 = mgr.replicas("llama3-8b")
+        if r0.engine.params["embed"] is not params["embed"] or \
+                shares_storage(r0.engine.params, r1.engine.params):
+            raise AssertionError("fleet: r0 must hold the given weights and r1 a clone")
+        for r in (r0, r1):  # both replicas decode the same chunks for one request
+            r.runner.call(lambda e=r.engine: _pin_chunks(e))
+
+        def alone(r, prompt, rid, lora_id=None):
+            """One greedy request on one replica from an empty prefix cache,
+            so two replicas (or two versions) serve it with the same shapes."""
+            r.runner.call(r.engine.drop_prefix_cache)
+            return _on_replica(r, prompt, greedy, rid, lora_id=lora_id)
+        marks0 = {r.tag: _replica_marks(r) for r in (r0, r1)}
+        plane = mgr.weights
+        apply_ms: list = []
+        apply_base = plane._apply_base
+
+        def timed_apply(replica):
+            t = time.perf_counter()
+            try:
+                return apply_base(replica)
+            finally:
+                torch.cuda.synchronize()
+                apply_ms.append((time.perf_counter() - t) * 1e3)
+
+        plane._apply_base = timed_apply
+        with _weight_stages() as stages:
+            # a. noisy neighbour: batch floods while gold sends
+            _gold_pass(mgr, prompts[:2], greedy, "warm")  # captures on both replicas
+            stop, shed, flood_done = threading.Event(), [0], [0]
+
+            def flood(i):
+                j = i
+                while not stop.is_set():
+                    p = prompts[j % len(prompts)]
+                    j += FLEET_FLOOD_THREADS
+                    try:
+                        t = mgr.submit("batch", "llama3-8b", p, SamplingParams(
+                            max_tokens=64, temperature=0.0, ignore_eos=True))
+                    except FleetAdmissionRejected:
+                        shed[0] += 1
+                        time.sleep(0.02)
+                        continue
+                    mgr.collect(t, timeout_s=600)  # a failure shows in batch_completed
+                    flood_done[0] += 1
+
+            threads = [threading.Thread(target=flood, args=(i,), name=f"flood-{i}")
+                       for i in range(FLEET_FLOOD_THREADS)]
+            for th in threads:
+                th.start()
+            # the flood fills both replicas' batches and captures its first
+            # buckets; gold is graded on what follows
+            time.sleep(FLEET_FLOOD_WARM_S)
+            baseline = local_slo_histograms()
+            pre0 = {k: v for k, v in preemption_counter().series().items()}
+            gold_ttft, gold_tokens = [], 0
+            try:
+                for i in range(4):
+                    t = time.perf_counter()
+                    ticket = mgr.submit("gold", "llama3-8b", prompts[2 + i], greedy,
+                                        request_id=f"nn{i}")
+                    first = ticket.queue.get(timeout=600)
+                    gold_ttft.append(time.perf_counter() - t)
+                    out = mgr.collect(ticket, timeout_s=600)
+                    gold_tokens += len(out.output_token_ids)
+                    if first is None or isinstance(first, BaseException):
+                        raise AssertionError(f"fleet: gold request failed: {first!r}")
+            finally:
+                stop.set()
+                for th in threads:
+                    th.join(timeout=600)
+            grades = evaluate_slo(local_slo_histograms(baseline=baseline), thresholds)
+            pre = {"/".join(k): v - pre0.get(k, 0) for k, v in preemption_counter().series().items()
+                   if k[2] == "priority" and v - pre0.get(k, 0) > 0}
+            gold_grade = grades["model_tags"].get("tenant:gold", {})
+            res["noisy_neighbor"] = {
+                "gold_ttft_s": gold_ttft, "gold_tokens": gold_tokens,
+                "gold_grade": gold_grade.get("grade"),
+                "gold_slo": {s: gold_grade.get(s) for s in ("ttft", "tpot", "queue_wait")},
+                "batch_shed": shed[0], "batch_completed": flood_done[0],
+                "priority_preemptions": pre,
+            }
+            peaks["noisy_neighbor_gb"] = torch.cuda.max_memory_allocated() / 2**30
+            if gold_tokens != 4 * 32 or shed[0] < 1 or not any("batch" in k for k in pre):
+                emit(res)
+                raise AssertionError(f"fleet: noisy neighbour {res['noisy_neighbor']}")
+
+            # b. base canary, promoted; the graded pass's shapes captured first
+            _gold_pass(mgr, prompts[:8], greedy, "cw")
+            cand1 = _scaled(r0.engine.params, 1.01)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            info = plane.begin_canary("llama3-8b", params=cand1)
+            torch.cuda.synchronize()
+            begin_s = time.perf_counter() - t
+            canary = next(r for r in (r0, r1) if r.tag == info["replica"])
+            graded = _gold_pass(mgr, prompts[:8], greedy, "cb")
+            grade = plane.canary_grade()
+            peaks["canary_gb"] = torch.cuda.max_memory_allocated() / 2**30
+            t = time.perf_counter()
+            promoted = plane.promote()
+            torch.cuda.synchronize()
+            promote_s = time.perf_counter() - t
+            gate_b = {r.tag: bitwise_equal(r.engine.params, cand1) for r in (r0, r1)}
+            distinct_b = not shares_storage(r0.engine.params, r1.engine.params)
+            toks_b = {r.tag: alone(r, prompts[3], f"pb-{r.tag}") for r in (r0, r1)}
+            res["canary_promote"] = {
+                "info": info, "begin_s": begin_s, "canary_grade": grade["grade"],
+                "canary_slo": {s: (grade["detail"] or {}).get(s) for s in
+                               ("ttft", "tpot", "queue_wait")},
+                "graded_requests": len(graded), "promote_s": promote_s, "outcome": promoted,
+                "bitwise_equal_candidate": gate_b, "distinct_storages": distinct_b,
+                "greedy_tokens_equal_across_replicas": toks_b[r0.tag] == toks_b[r1.tag],
+            }
+            if not (all(gate_b.values()) and distinct_b and toks_b[r0.tag] == toks_b[r1.tag]):
+                emit(res)
+                raise AssertionError(f"fleet: promote {res['canary_promote']}")
+
+            # c. a second candidate, rolled back to the retained v1
+            cand2 = _scaled(r0.engine.params, 1.01)
+            info = plane.begin_canary("llama3-8b", params=cand2)
+            canary = next(r for r in (r0, r1) if r.tag == info["replica"])
+            on_canary = alone(canary, prompts[3], "c2")
+            peaks["rollback_gb"] = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rolled = plane.rollback()
+            torch.cuda.synchronize()
+            rollback_s = time.perf_counter() - t
+            back = alone(canary, prompts[3], "cb2")
+            res["canary_rollback"] = {
+                "info": info, "rollback_s": rollback_s, "outcome": rolled,
+                "canary_equals_v1": bitwise_equal(canary.engine.params, cand1),
+                "distinct_from_v1": not shares_storage(canary.engine.params, cand1),
+                "candidate_changed_tokens": on_canary != toks_b[r0.tag],
+                "tokens_equal_r0": back == toks_b[r0.tag],
+            }
+            if not (res["canary_rollback"]["canary_equals_v1"] and back == toks_b[r0.tag]):
+                emit(res)
+                raise AssertionError(f"fleet: rollback {res['canary_rollback']}")
+
+            # d. adapter canary: the swap drops only the swapped adapter's chains
+            lid_prompt = prompts[4]
+            for aid, seed in (("styleA", 1), ("styleB", 2)):
+                mgr.register_adapter("llama3-8b", aid, lora_adapter(model, seed, ("wq", "wv"), 8))
+            canary = r1  # the newest replica takes every canary
+            for aid in ("styleA", "styleB"):
+                mgr.ensure_adapter(canary, aid)
+            # v1 from an empty cache (the rollback's stream starts from one
+            # too); then styleB's chains, so both adapters' prefixes are hot
+            v1_tokens = alone(canary, lid_prompt, "d-v1", lora_id="styleA")
+            _on_replica(canary, lid_prompt, greedy, "d-styleB", lora_id="styleB")
+            probe = lambda aid: canary.runner.call(  # noqa: E731
+                lambda: canary.engine.peek_prefix_tokens(lid_prompt, lora_id=aid))
+            before = {aid: probe(aid) for aid in ("styleA", "styleB")}
+            info = plane.begin_canary("llama3-8b", adapter_id="styleA",
+                                      payload=lora_adapter(model, 9, ("wq", "wv"), 8))
+            if info["replica"] != canary.tag:
+                raise AssertionError(f"fleet: the adapter canary went to {info['replica']}")
+            after = {aid: probe(aid) for aid in ("styleA", "styleB")}
+            v2_tokens = _on_replica(canary, lid_prompt, greedy, "d-v2", lora_id="styleA")
+            rolled_a = plane.rollback()
+            back_a = _on_replica(canary, lid_prompt, greedy, "d-back", lora_id="styleA")
+            res["adapter_canary"] = {
+                "info": info, "prefix_tokens_before_swap": before,
+                "prefix_tokens_after_swap": after, "outcome": rolled_a,
+                "v2_changed_tokens": v2_tokens != v1_tokens, "rollback_tokens_equal_v1":
+                    back_a == v1_tokens,
+            }
+            if not (before["styleB"] > 0 and after["styleB"] == before["styleB"]
+                    and after["styleA"] == 0 and back_a == v1_tokens):
+                emit(res)
+                raise AssertionError(f"fleet: adapter canary {res['adapter_canary']}")
+
+            # e. PREEMPT_ENGINE mid-canary: nothing lost, the promote bitwise
+            info = plane.begin_canary("llama3-8b", params=cand2)
+            sched = chaos.install(chaos.FaultSchedule(13, [chaos.FaultSpec(
+                chaos.PREEMPT_ENGINE, site="llm.engine.step", start_after=6, every_n=25,
+                max_fires=2)]))
+            rec0 = sum(r.runner.num_recoveries for r in (r0, r1))
+            try:
+                def one(i):
+                    t = mgr.submit("gold", "llama3-8b", prompts[i], greedy, request_id=f"e{i}")
+                    return mgr.collect(t, timeout_s=600)
+
+                with concurrent.futures.ThreadPoolExecutor(8) as ex:
+                    outs = list(ex.map(one, range(8)))
+                fired = sched.fired_kinds()
+            finally:
+                chaos.uninstall()
+            lost = sum(not (o.finished and len(o.output_token_ids) == 32) for o in outs)
+            promoted_e = plane.promote()
+            res["preempt_mid_canary"] = {
+                "info": info, "fired": fired, "requests": len(outs), "requests_lost": lost,
+                "recoveries": sum(r.runner.num_recoveries for r in (r0, r1)) - rec0,
+                "outcome": promoted_e,
+                "bitwise_equal_candidate": {r.tag: bitwise_equal(r.engine.params, cand2)
+                                            for r in (r0, r1)},
+                "distinct_storages": not shares_storage(r0.engine.params, r1.engine.params),
+            }
+            if lost or chaos.PREEMPT_ENGINE not in fired or \
+                    not all(res["preempt_mid_canary"]["bitwise_equal_candidate"].values()):
+                emit(res)
+                raise AssertionError(f"fleet: preempt mid-canary {res['preempt_mid_canary']}")
+        res["weights"] = {"apply_ms": apply_ms, "stages": _stage_summary(stages),
+                          "bytes_a_publish": sum(t.numel() * t.element_size()
+                                                 for t in sorted_leaves(cand1)),
+                          "timeline": plane.timeline}
+        marks1 = {r.tag: _replica_marks(r) for r in (r0, r1)}
+        per = {tag: _pool_launches(marks0[tag], marks1[tag]) for tag in marks0}
+        res["kernel_launches_by_replica"] = per
+        res["kernel_launches"] = {n: sum(per[t][n]["device"] for t in per)
+                                  for n in ("paged_attention", "ragged_attention")}
+        res["kernel_launches_in_replays"] = {n: sum(per[t][n]["in_replays"] for t in per)
+                                             for n in ("paged_attention", "ragged_attention")}
+        res["stats"] = mgr.stats()
+        if min(res["kernel_launches_in_replays"].values()) <= 0:
+            raise AssertionError(f"fleet: no K3/K4 launch in replays: {per}")
+    finally:
+        mgr.close()
+    peaks["phase_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    res["peak_mem_gb"] = peaks
+    res["requests_lost"] = lost
+    del mgr, cand1, cand2
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "api", "disagg", "kvtier",
-          "parity", "spec", "train", "train_parity")
+          "parity", "spec", "fleet", "train", "publish", "train_parity")
 
 SOURCES = {
     "paged_attention": ("ray_tpu_torch/ops/csrc/paged_attention.cu",
@@ -3757,6 +4352,8 @@ def main(argv=None) -> int:
         ap.error(f"unknown phases {sorted(unknown)}")
     if {"lora", "api", "disagg"} & set(phases) and "engine" not in phases:
         ap.error("the lora, api and disagg phases read the engine phase's results: add engine")
+    if "publish" in phases and "train" not in phases:
+        ap.error("the publish phase trains on from the train phase's state: add train")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU only",
               file=sys.stderr)
@@ -3782,11 +4379,11 @@ def main(argv=None) -> int:
         timings.update(kernels_phase(dev))
     if "flash_kernels" in phases:
         timings.update(flash_kernels_phase(dev))
-    params, params_s = (params_8b(dev) if {"engine", "spec", "api", "disagg", "kvtier"}
+    params, params_s = (params_8b(dev) if {"engine", "spec", "api", "disagg", "kvtier", "fleet"}
                         & set(phases) else (None, 0.0))
     lora_launches, api_launches, disagg_launches, replayed = {}, {}, {}, {}
     disagg_device_launches = {}
-    kvtier_launches = {}
+    kvtier_launches, fleet_launches, publish_launches = {}, {}, {}
     if "engine" in phases:
         engine_res = engine_phase(dev, params, params_s)
         launches.update(engine_res["kernel_launches"])
@@ -3808,10 +4405,15 @@ def main(argv=None) -> int:
         parity_phase(dev)
     if "spec" in phases:
         spec_phase(dev, params)
+    if "fleet" in phases:  # the last reader of the 8B weights: r0 serves them
+        fleet_launches = fleet_phase(dev, params)["kernel_launches"]
     del params  # the 8B weights go before training
     torch.cuda.empty_cache()
     if "train" in phases:
-        launches.update(train_phase(dev)["kernel_launches"])
+        train_res = train_phase(dev, keep_state="publish" in phases)
+        launches.update(train_res["kernel_launches"])
+    if "publish" in phases:
+        publish_launches = publish_phase(dev, train_res.pop("trained"))["kernel_launches"]
     if "train_parity" in phases:
         train_parity_phase(dev)
     if set(phases) != set(PHASES):
@@ -3833,6 +4435,8 @@ def main(argv=None) -> int:
                if name in disagg_device_launches else {}),
             **({"launches_kvtier_phase": kvtier_launches[name]}
                if name in kvtier_launches else {}),
+            "launches_publish_phase": publish_launches[name],
+            "launches_fleet_phase": fleet_launches.get(name, 0),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
             "library_ms": bf["library_ms"], "dtype": "bfloat16", "shape": bf["shape"],

@@ -15,11 +15,11 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["chaos", "cluster", "core", "fabric", "llm", "models", "nn", "obs", "ops",
-           "resolve_device", "train", "util"]
+__all__ = ["autoscale", "chaos", "cluster", "core", "fabric", "fleet", "llm", "models", "nn",
+           "obs", "ops", "resolve_device", "train", "util"]
 
-_SUBPACKAGES = ("chaos", "cluster", "core", "fabric", "llm", "models", "nn", "obs", "ops", "train",
-                "util")
+_SUBPACKAGES = ("autoscale", "chaos", "cluster", "core", "fabric", "fleet", "llm", "models", "nn",
+                "obs", "ops", "train", "util")
 
 
 def resolve_device(device) -> "torch.device":  # noqa: F821

@@ -14,10 +14,9 @@ pool topology (counterpart of ``ray_tpu/fabric``).
    its RPC fallback). ``build_fabric`` (placement groups) waits for the
    cluster runtime (ROADMAP.md, Queue 1, B8).
 
-Clients: the ``DisaggOrchestrator`` (per-edge device or RPC KV transfer)
-and the fetch plane's ``DeviceFetchClient``. Weight publishing over
-``send_arrays`` (``train/weight_sync.py``) is not ported yet (ROADMAP.md,
-Queue 1, C4).
+Clients: the ``DisaggOrchestrator`` (per-edge device or RPC KV transfer),
+the fetch plane's ``DeviceFetchClient``, and weight publishing
+(``train/weight_sync.py``, the fleet's ``FleetWeightPlane``).
 """
 
 from ray_tpu_torch.fabric.device_connector import DeviceKVConnector

@@ -68,11 +68,14 @@ class AdmissionController:
     """Per-LLMServer admission decisions; thread-safe, observability-fed."""
 
     def __init__(self, config: Optional[AdmissionConfig] = None,
-                 model_tag: str = "engine"):
+                 model_tag: str = "engine", tenant: str = ""):
         from collections import deque
 
         self.config = config or AdmissionConfig()
         self.model_tag = model_tag
+        # a fleet's per-tenant controller labels its shed counters with the
+        # tenant; a single-tenant server leaves it empty
+        self.tenant = tenant
         self.draining = False
         self._lock = threading.Lock()
         # (t, cum_sum, cum_count) snapshots of the queue_wait histogram,
@@ -203,9 +206,7 @@ class AdmissionController:
     def _count(self, code: str) -> None:
         try:
             rejected_counter().inc(
-                # the reference's schema; tenant stays empty until the
-                # fleet is ported
-                tags={"model": self.model_tag, "code": code, "tenant": ""}
+                tags={"model": self.model_tag, "code": code, "tenant": self.tenant}
             )
         except Exception:  # noqa: BLE001
             pass

@@ -427,6 +427,9 @@ class LLMEngine:
         # the SLO and metric label (llm_ttft_seconds{model=...}); the serving
         # front end sets it to its model_id
         self.model_tag = "engine"
+        # the version of the last weight publish applied (train/weight_sync.py):
+        # 0 until a subscriber writes new weights; stats() reports it
+        self.weight_version = 0
         self.prefix_hit_tokens = 0
         self.prefix_lookup_tokens = 0
         # hit tokens by serving tier: hbm resident, host / object resurrected
@@ -602,6 +605,39 @@ class LLMEngine:
             return None
         self.remove_lora(candidates[0])
         return candidates[0]
+
+    # -- weight swap (train/weight_sync.py, fleet/weights.py) -------------------
+
+    def write_params(self, leaves: list) -> None:
+        """Write a full set of weights into the engine's own tensors, in
+        place: ``leaves`` in ``llama.sorted_leaves`` order, any float dtype
+        (each is cast to the engine's in the copy). The tensors are never
+        rebound, so every captured graph, which reads them by address,
+        replays the new weights. The copies run on the current stream, the
+        one the chunks and replays run on, so they are ordered after any
+        chunk in flight; call between two steps. Every leaf's count, shape
+        and dtype class is checked before the first copy, so a mismatch
+        raises with nothing written."""
+        dst = llama.sorted_leaves(self.params)
+        if len(leaves) != len(dst):
+            raise ValueError(f"{len(leaves)} weight leaves for an engine of {len(dst)}")
+        for i, (d, s) in enumerate(zip(dst, leaves)):
+            if tuple(s.shape) != tuple(d.shape) or s.is_floating_point() != d.is_floating_point():
+                raise ValueError(
+                    f"weight leaf {i}: {tuple(s.shape)} {s.dtype} does not fit the engine's "
+                    f"{tuple(d.shape)} {d.dtype}"
+                )
+        with torch.no_grad():
+            for d, s in zip(dst, leaves):
+                d.copy_(s)
+
+    def drop_prefix_cache(self, salt: Optional[int] = None) -> None:
+        """Invalidate the prefix cache in every tier: the allocator's reuse
+        pool, and through its drop listener the host and object tiers and
+        this engine's prefix-index rows. ``salt`` scopes the drop to one
+        adapter's chains. The entry point of a weight swap: dropping HBM
+        alone would let a deeper tier serve K/V of the old weights."""
+        self.allocator.drop_prefix_cache(salt=salt)
 
     def _lora_slot(self, lora_id) -> int:
         if lora_id is None:
@@ -911,6 +947,7 @@ class LLMEngine:
             "total_blocks": self.config.num_blocks,
             "num_prefill_batches": self.num_prefill_batches,
             "num_preemptions": self.num_preemptions,
+            "weight_version": self.weight_version,
             "prefix_cache": {
                 "hit_tokens": self.prefix_hit_tokens,
                 "lookup_tokens": self.prefix_lookup_tokens,

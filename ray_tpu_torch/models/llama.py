@@ -229,6 +229,18 @@ def cast_params(params: Params, dtype: torch.dtype) -> Params:
             for k, v in params.items()}
 
 
+def sorted_leaves(params: Mapping) -> list:
+    """The leaves of a params tree with every dict's keys sorted: the order
+    of ``jax.tree_util.tree_leaves`` on the reference's tree, so leaf i of
+    one package's params is leaf i of the other's (the weight plane's wire
+    order). ``train.step.param_leaves`` keeps insertion order instead."""
+    out: list = []
+    for k in sorted(params):
+        v = params[k]
+        out.extend(sorted_leaves(v) if isinstance(v, Mapping) else [v])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # training forward and loss (reference: ray_tpu/models/llama.py:155-341)
 # ---------------------------------------------------------------------------

@@ -1476,3 +1476,200 @@ def test_kvtier_pinned_slab_slots_reused_without_growth():
             assert abs(pinned[2][key] - pinned[0][key]) < eng.kvtier.block_nbytes, pinned
     finally:
         eng.close()
+
+
+# ---------------------------------------------------------------------------
+# weight publishing and the fleet (train/weight_sync.py, fleet/weights.py)
+# ---------------------------------------------------------------------------
+
+
+def _graph_params(dtype, seed):
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return init_params(LlamaConfig(**GRAPH_MODEL, dtype=dtype), gen, "cuda", dtype=dtype)
+
+
+def _publish_once(params, eng, ns):
+    from ray_tpu_torch.train.weight_sync import WeightPublisher, WeightSubscriber
+
+    pub = WeightPublisher(namespace=ns)
+    try:
+        tgt = pub.register_rollout("e0", device=eng.kv_cache_device())
+        sub = WeightSubscriber(pub.transport, "e0")
+        pub.publish(params, [tgt])
+        return sub, sub.apply_to_engine(eng)
+    finally:
+        pub.close()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graph_captured_before_publish_replays_new_weights(dtype):
+    """A mixed-batching engine serves a first pass (its decode and mixed
+    graphs captured), then takes a publish: the weights are written into
+    the same tensors (every data_ptr unchanged), the second pass captures
+    nothing for the buckets it reuses, replays them, and its greedy tokens
+    equal a fresh engine's on the published weights."""
+    _need_cuda()
+    from ray_tpu_torch.llm.pipeline import ChunkController, PipelineStats
+    from ray_tpu_torch.models.llama import sorted_leaves
+
+    prompts = _prompts_long()
+    new = _graph_params(dtype, 5)
+    want = [t for t, _ in _serve_tokens(_packed_engine(dtype, params=new), prompts,
+                                        [None] * 4)]
+    eng = _packed_engine(dtype, params=_graph_params(dtype, 3))
+    eng._pipe_ctl, eng._pipe_stats = ChunkController(initial=8, target_ratio=0.0), PipelineStats()
+    before = [t for t, _ in _serve_tokens(eng, prompts, [None] * 4)]
+    assert before != want
+    fams = (eng._graphs, eng._mixed_graphs)
+    keys0 = [set(f._graphs) for f in fams]
+    replays0 = [dict(f.replays_by_key) for f in fams]
+    ptrs = [t.data_ptr() for t in sorted_leaves(eng.params)]
+    sub, applied = _publish_once(new, eng, "cuda-graph-publish")
+    assert applied == 1 and eng.stats()["weight_version"] == 1
+    assert [t.data_ptr() for t in sorted_leaves(eng.params)] == ptrs
+    assert all(torch.equal(a, b) for a, b in zip(sorted_leaves(eng.params), sorted_leaves(new)))
+    assert [t for t, _ in _serve_tokens(eng, prompts, [None] * 4)] == want
+    reused = sum(f.replays_by_key[k] - r0.get(k, 0)
+                 for f, keys, r0 in zip(fams, keys0, replays0) for k in keys)
+    assert reused > 0
+
+
+def test_fp32_publish_to_bf16_engine_is_cast_in_the_copy():
+    """fp32 learner params published to a bf16 engine: the engine keeps its
+    bf16 tensors (same addresses) and holds exactly src.to(bfloat16)."""
+    _need_cuda()
+    from ray_tpu_torch.autoscale import params_bitwise_equal
+    from ray_tpu_torch.models.llama import sorted_leaves
+
+    eng = _packed_engine(torch.bfloat16, params=_graph_params(torch.bfloat16, 3))
+    src = _graph_params(torch.float32, 5)
+    ptrs = [t.data_ptr() for t in sorted_leaves(eng.params)]
+    assert _publish_once(src, eng, "cuda-cast")[1] == 1
+    got = sorted_leaves(eng.params)
+    assert [t.data_ptr() for t in got] == ptrs and all(t.dtype == torch.bfloat16 for t in got)
+    assert all(torch.equal(a, b.to(torch.bfloat16)) for a, b in zip(got, sorted_leaves(src)))
+    assert params_bitwise_equal(src, eng.params)
+
+
+def test_same_device_send_aliases_and_a_mutated_alias_is_refused():
+    """On one card the transport delivers the sender's own tensors (same
+    data_ptr); a leaf written after the send makes the subscriber refuse
+    the bundle, counted, with the engine's bytes unchanged."""
+    _need_cuda()
+    from ray_tpu_torch.fabric import DeviceTransport
+    from ray_tpu_torch.models.llama import sorted_leaves
+    from ray_tpu_torch.train.weight_sync import WeightPublisher, WeightSubscriber
+
+    t = DeviceTransport(namespace="cuda-alias")
+    try:
+        tgt = t.register_endpoint("e0", device="cuda")
+        a = torch.arange(16, dtype=torch.float32, device="cuda")
+        t.send_arrays(tgt, {"a": a})
+        assert t.recv_arrays("e0", timeout_s=1.0).arrays["a"].data_ptr() == a.data_ptr()
+    finally:
+        t.close()
+    eng = _packed_engine(torch.float32, params=_graph_params(torch.float32, 3))
+    before = [x.clone() for x in sorted_leaves(eng.params)]
+    live = _graph_params(torch.float32, 5)
+    pub = WeightPublisher(namespace="cuda-alias-pub")
+    try:
+        tgt = pub.register_rollout("e0", device=eng.kv_cache_device())
+        sub = WeightSubscriber(pub.transport, "e0")
+        pub.publish(live, [tgt])
+        live["embed"].mul_(2.0)  # the learner writes after the send
+        assert sub.apply_to_engine(eng) is None and sub.num_mutated_dropped == 1
+        assert all(torch.equal(x, y) for x, y in zip(sorted_leaves(eng.params), before))
+    finally:
+        pub.close()
+
+
+def test_learner_write_during_the_copy_on_card_raises():
+    """A learner write queued on its own stream while the apply's copies are
+    queued on the engine's: the subscriber waits for its copies, sees the
+    write and raises, counted, reporting no new version; a snapshot then
+    applies bit for bit at the same addresses."""
+    _need_cuda()
+    from ray_tpu_torch.autoscale import params_bitwise_equal
+    from ray_tpu_torch.models.llama import sorted_leaves
+    from ray_tpu_torch.train.weight_sync import (
+        WeightPublisher,
+        WeightSubscriber,
+        WeightSyncError,
+        snapshot,
+    )
+
+    eng = _packed_engine(torch.float32, params=_graph_params(torch.float32, 3))
+    ptrs = [x.data_ptr() for x in sorted_leaves(eng.params)]
+    live = _graph_params(torch.float32, 5)
+    learner = torch.cuda.Stream()
+    write = eng.write_params
+
+    def write_racing_learner(leaves):
+        write(leaves)
+        with torch.cuda.stream(learner):
+            live["embed"].mul_(2.0)
+
+    pub = WeightPublisher(namespace="cuda-race-pub")
+    try:
+        tgt = pub.register_rollout("e0", device=eng.kv_cache_device())
+        sub = WeightSubscriber(pub.transport, "e0")
+        pub.publish(live, [tgt])
+        eng.write_params = write_racing_learner
+        with pytest.raises(WeightSyncError, match="while it was copied"):
+            sub.apply_to_engine(eng)
+        del eng.write_params
+        learner.synchronize()
+        assert sub.num_mutated_dropped == 1 and sub.version == 0 and eng.weight_version == 0
+        snap = snapshot(live)
+        pub.publish(snap, [tgt])
+        assert sub.apply_to_engine(eng) == 2 and params_bitwise_equal(snap, eng.params)
+        assert [x.data_ptr() for x in sorted_leaves(eng.params)] == ptrs
+    finally:
+        pub.close()
+
+
+def test_fleet_replicas_own_storages_and_promote_is_bitwise():
+    """bf16 fleet of two replicas on the card: the second replica's weights
+    are a clone (no storage shared), a canary writes in place, and promote
+    leaves both replicas bit for bit the candidate on distinct storages,
+    serving identical greedy tokens."""
+    _need_cuda()
+    from ray_tpu_torch.fleet import (
+        FleetManager,
+        FleetSpec,
+        ModelSpec,
+        TenantSpec,
+        bitwise_equal,
+        shares_storage,
+    )
+    from ray_tpu_torch.llm import EngineConfig, SamplingParams
+    from ray_tpu_torch.models.llama import LlamaConfig, sorted_leaves
+
+    params = _graph_params(torch.bfloat16, 3)
+    cfg = EngineConfig(model=LlamaConfig(**GRAPH_MODEL, dtype=torch.bfloat16), num_blocks=64,
+                       block_size=4, max_num_seqs=4, max_prefill_len=64, mixed_batch=True,
+                       mixed_prefill_chunk=16)
+    spec = FleetSpec(models=(ModelSpec("m", replicas=2),),
+                     tenants=(TenantSpec("gold", priority=2, weight=3.0),))
+    mgr = FleetManager(spec, engine_config=cfg, params={"m": params}, seed=0)
+    try:
+        r0, r1 = mgr.replicas("m")
+        assert not shares_storage(r0.engine.params, r1.engine.params)
+        ptrs = [[t.data_ptr() for t in sorted_leaves(r.engine.params)] for r in (r0, r1)]
+        new = {k: ({kk: vv * 1.01 for kk, vv in v.items()} if isinstance(v, dict) else v * 1.01)
+               for k, v in params.items()}
+        mgr.weights.begin_canary("m", params=new)
+        assert bitwise_equal(r1.engine.params, new) and not bitwise_equal(r0.engine.params, new)
+        assert mgr.weights.promote()["outcome"] == "promoted"
+        assert all(bitwise_equal(r.engine.params, new) for r in (r0, r1))
+        assert not shares_storage(r0.engine.params, r1.engine.params)
+        assert [[t.data_ptr() for t in sorted_leaves(r.engine.params)] for r in (r0, r1)] == ptrs
+        sp = SamplingParams(max_tokens=8, temperature=0.0, ignore_eos=True)
+        outs = {r.tag: r.runner.call(lambda e=r.engine: e.generate(_prompts4(), sp))
+                for r in (r0, r1)}
+        assert outs[r0.tag] == outs[r1.tag]
+    finally:
+        mgr.close()

@@ -64,6 +64,7 @@ import ray_tpu_torch.llm.disagg, ray_tpu_torch.llm.disagg.orchestrator
 import ray_tpu_torch.chaos, ray_tpu_torch.obs.slo, ray_tpu_torch.obs.telemetry
 import ray_tpu_torch.fabric, ray_tpu_torch.cluster.rpc, ray_tpu_torch.util.backoff
 import ray_tpu_torch.llm.kvfetch.plane
+import ray_tpu_torch.train.weight_sync, ray_tpu_torch.autoscale, ray_tpu_torch.fleet
 import dataclasses, torch
 from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
 from ray_tpu_torch.models import llama

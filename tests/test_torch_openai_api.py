@@ -153,9 +153,9 @@ def test_stats_keys_equal_reference(servers):
     _both(servers, "POST", "/v1/completions", {"prompt": "s", "max_tokens": 4,
                                                "temperature": 0.0})
     ref, got = _both(servers, "GET", "/v1/stats")
-    # the port reports its preemptions (recoveries bump them); the reference's
-    # weight_version comes with weight publishing (ROADMAP C4)
-    assert set(got) == set(ref) - {"weight_version"} | {"num_preemptions"}
+    # the port reports its preemptions (recoveries bump them)
+    assert set(got) == set(ref) | {"num_preemptions"}
+    assert got["weight_version"] == ref["weight_version"] == 0
     assert set(got["admission"]) == set(ref["admission"])
     assert set(got["telemetry"]) == set(ref["telemetry"])
     assert set(got["prefix_cache"]) == set(ref["prefix_cache"])
