@@ -4,6 +4,7 @@
     python3 chip_smoke.py                         # one card, no arguments: every phase
     python3 chip_smoke.py --phases build,flash_kernels   # a short first check of a kernel edit
     python3 chip_smoke.py --phases build,engine,api      # the serving front end alone
+    python3 chip_smoke.py --phases build,engine,api,serve  # ... and through a Serve deployment
     python3 chip_smoke.py --phases build,engine,disagg   # disaggregated, inproc and device legs
     python3 chip_smoke.py --phases build,kvtier          # the tiered KV cache alone
     python3 chip_smoke.py --phases build,fleet           # the canary ladder at LLAMA3_8B
@@ -103,6 +104,32 @@ Phases, each printing one JSON line:
            (2 recoveries; every position delivered once), a burst of 24 at
            max_queue_depth 3 sheds 429s with Retry-After while the admitted
            finish, and a drain turns a new request into a 503
+  serve    LLAMA3_8B through a Serve deployment: ray_tpu_torch.init(),
+           serve.start on a free loopback port, build_openai_app over the
+           api phase's configuration and weights (one replica; its engine
+           built on the replica's actor thread, its loop on its own
+           thread). The api traffic, the completions and chats over HTTP
+           (stdlib proxy -> handle -> router -> replica -> LLMServer) and
+           the 2 streams through the app handle's generate_stream, each
+           request on its own client thread: a first pass (the kernels'
+           launches counted over it as in the api phase) and two more, then
+           the replica's LLMServer driven directly (the api phase's pass)
+           and through Serve in turns, S D D S S D after a direct warm-up
+           pass, on the same engine; steady: the median of the Serve
+           passes after the first that captured no graph; client tok/s,
+           engine TTFT and the streams' client TTFT beside the api phase's
+           and the direct passes'; the first pass's peak memory beside the api phase's,
+           /v1/models' round trip over HTTP and through the handle,
+           server_init_s. Fails unless every completion has its 32 tokens
+           or a stop, /v1/models names llama3-8b at 8192, /-/healthz
+           answers and an unknown route is a 404, the replica engine's
+           weights are the caller's tensors (same data_ptr), a greedy
+           completion sent alone over HTTP has the text of the same
+           completion sent alone through the handle, 24 completions over
+           HTTP at max_queue_depth 3 (the engine loop parked) give 21 429s
+           with Retry-After and 3 completions, and after serve.shutdown()
+           the engine loop has exited and the card's allocated memory fell
+           by at least the KV cache's bytes
   disagg   LLAMA3_8B disaggregated (the engine phase's weights, one copy
            shared, configuration and 12 requests), two legs alive at once,
            each a DisaggOrchestrator with one prefill and one decode engine
@@ -2226,6 +2253,359 @@ def api_phase(dev, params, engine_res: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# serve
+# ---------------------------------------------------------------------------
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(method: str, url: str, body=None, timeout: float = 300.0) -> tuple:
+    """(status, headers, body bytes) of one request over loopback; an HTTP
+    error status is a result, not an exception."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"} if data else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _replica_server():
+    """The LLMServer inside the serve phase's one replica: the in-process
+    runtime's actors are threads of this process, so its object is here."""
+    from ray_tpu_torch.core import runtime as rt
+
+    servers = [a.instance._callable for a in rt.get_runtime().gcs.list_actors()
+               if type(a.instance).__name__ == "Replica" and a.instance._callable is not None]
+    if len(servers) != 1:
+        raise AssertionError(f"serve: {len(servers)} LLMServer replicas, not 1")
+    return servers[0]
+
+
+def _serve_pass(base: str, handle, server, recorded: dict, bodies, chats, streams) -> dict:
+    """One pass of the api traffic through Serve, every request on its own
+    client thread, all started together: the completions and chats over
+    HTTP (proxy -> handle -> router -> replica -> LLMServer), the streams
+    through the app handle's ``generate_stream``. Client wall and tok/s
+    (every output token the engine made for the pass / wall; also the 12
+    completions' alone), engine TTFT, the streams' client TTFT."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    recorded.clear()
+    server.runner.call(lambda: server.engine.allocator.drop_prefix_cache())
+    t0 = 0.0
+
+    def post(path, body):
+        st, _, raw = _http("POST", base + path, body)
+        if st != 200:
+            raise AssertionError(f"serve: {path} answered {st}: {raw[:300]!r}")
+        return json.loads(raw)
+
+    def stream(prompt):
+        first, deltas = None, []
+        gen = handle.options(method_name="generate_stream", stream=True).remote(
+            prompt, max_tokens=32, temperature=0.0)
+        for d in gen:
+            if first is None:
+                first = time.perf_counter() - t0
+            deltas.append(d)
+        return first, "".join(deltas)
+
+    n = len(bodies) + len(chats) + len(streams)
+    torch.cuda.synchronize()
+    with ThreadPoolExecutor(n) as pool:
+        t0 = time.perf_counter()
+        futs = ([pool.submit(post, "/v1/completions", b) for b in bodies]
+                + [pool.submit(post, "/v1/chat/completions", b) for b in chats]
+                + [pool.submit(stream, p) for p in streams])
+        outs = [f.result() for f in futs]
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    completions, chat_outs, stream_outs = (outs[:len(bodies)],
+                                           outs[len(bodies):len(bodies) + len(chats)],
+                                           outs[len(bodies) + len(chats):])
+    for o in completions + chat_outs:
+        if o["choices"][0]["finish_reason"] not in ("length", "stop"):
+            raise AssertionError(f"serve: finish_reason {o['choices'][0]['finish_reason']!r}")
+    for o in completions:
+        k, reason = o["usage"]["completion_tokens"], o["choices"][0]["finish_reason"]
+        if not (k == 32 or reason == "stop"):
+            raise AssertionError(f"serve: {k} tokens, finish {reason!r}, not 32 or a stop")
+    if any(first is None for first, _ in stream_outs):
+        raise AssertionError("serve: a handle stream yielded no delta")
+    if len(recorded) != n:
+        raise AssertionError(f"serve: {len(recorded)} engine requests for {n} sent")
+    tokens = sum(len(r.output_token_ids) for r in recorded.values())
+    cmpl_tokens = sum(o["usage"]["completion_tokens"] for o in completions)
+    finishes = [o["choices"][0]["finish_reason"] for o in completions + chat_outs]
+    return {
+        "wall_s": wall, "output_tokens": tokens, "output_tok_per_s": tokens / wall,
+        "completions_output_tok_per_s": cmpl_tokens / wall,
+        "mean_ttft_s": float(np.mean([r.t_first_token - r.arrival for r in recorded.values()])),
+        "stream_ttft_s": [first for first, _ in stream_outs],
+        "finish_reasons": {k: finishes.count(k) for k in sorted(set(finishes))},
+    }
+
+
+def _serve_burst(base: str, server, bodies) -> dict:
+    """24 completions over HTTP at max_queue_depth 3, with the engine loop
+    parked on a posted call so no submit is taken: the admission
+    reservations admit 3, the other 21 come back 429 with Retry-After;
+    then the loop goes on and the 3 finish."""
+    import concurrent.futures
+    import threading
+
+    from ray_tpu_torch.llm.admission import AdmissionConfig, AdmissionController
+
+    saved = server.admission
+    server.admission = AdmissionController(AdmissionConfig(max_queue_depth=3),
+                                           model_tag="llama3-8b")
+    gate, parked = threading.Event(), concurrent.futures.Future()
+    server.runner._post(("call", parked, lambda: gate.wait(120)))
+    try:
+        with concurrent.futures.ThreadPoolExecutor(24) as pool:
+            futs = [pool.submit(_http, "POST", base + "/v1/completions",
+                                {"prompt": b["prompt"], "max_tokens": 8, "temperature": 0.0})
+                    for b in (bodies * 2)[:24]]
+            deadline = time.time() + 120
+            while sum(f.done() for f in futs) < 21 and time.time() < deadline:
+                time.sleep(0.01)
+            shed_before_release = sum(f.done() for f in futs)
+            gate.set()
+            outs = [f.result() for f in futs]
+    finally:
+        gate.set()
+        server.admission = saved
+    parked.result(timeout=60)
+    shed = [(h, json.loads(raw)) for st, h, raw in outs if st == 429]
+    admitted = [json.loads(raw) for st, _, raw in outs if st == 200]
+    if len(shed) != 21 or len(admitted) != 3 or shed_before_release != 21:
+        raise AssertionError(f"serve burst: {len(shed)} shed, {len(admitted)} admitted, "
+                             f"{shed_before_release} answered before the loop went on: "
+                             f"{[st for st, _, _ in outs]}")
+    for h, payload in shed:
+        if not h.get("Retry-After") or payload["error"]["code"] != 429:
+            raise AssertionError(f"serve burst: a 429 without Retry-After: {h}, {payload}")
+    for o in admitted:
+        if o["usage"]["completion_tokens"] != 8 and o["choices"][0]["finish_reason"] != "stop":
+            raise AssertionError(f"serve burst: an admitted request did not finish: {o}")
+    return {"requests": 24, "max_queue_depth": 3, "admitted": len(admitted),
+            "shed_429": len(shed), "retry_after_header": shed[0][0]["Retry-After"]}
+
+
+def serve_phase(dev, params, api_res: dict) -> dict:
+    """LLAMA3_8B served through a Serve deployment: the in-process runtime
+    (``ray_tpu_torch.init``), ``serve.start`` on a free loopback port and
+    ``build_openai_app`` over the api phase's configuration and weights
+    (the caller's tensors, by reference). The api traffic, completions and
+    chats over HTTP from concurrent client threads and the two streams
+    through the app handle, a first pass (the kernels' launches counted
+    over it as in the api phase) and two more, then the same engine driven
+    directly and through Serve in turns (S D D S S D, after a direct
+    warm-up pass); steady is the median of the Serve passes after the first
+    that captured no graph, beside the api phase's direct LLMServer passes;
+    the round trip of /v1/models over HTTP and through the handle. Fails unless every completion has its
+    32 tokens or a stop, /v1/models names llama3-8b at 8192, /-/healthz
+    answers and an unknown route is a 404, the replica engine's weights
+    are the caller's tensors, a greedy completion sent alone over HTTP
+    has the text of the same completion sent alone through the handle, a
+    burst past max_queue_depth gives 429s with Retry-After over HTTP, and
+    after ``serve.shutdown()`` the engine loop has exited and the card's
+    allocated memory has fallen by at least the KV cache's bytes."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import EngineConfig, LLMConfig, build_openai_app
+    from ray_tpu_torch.models.llama import sorted_leaves
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from ray_tpu_torch.ops.ragged import ragged_attention_cuda
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    mem_start = torch.cuda.memory_allocated()
+    ray_tpu_torch.init()
+    port = _free_port()
+    serve.start(host="127.0.0.1", port=port)
+    base = f"http://127.0.0.1:{port}"
+    cfg = EngineConfig(model="llama3-8b", **ENGINE_KW)
+    t0 = time.perf_counter()
+    handle = build_openai_app(LLMConfig(model_id="llama3-8b", engine=cfg, params=params,
+                                        tokenizer=IdTextTokenizer(cfg.model.vocab_size),
+                                        device=str(dev)), route_prefix="/")
+    init_s = time.perf_counter() - t0
+    server = _replica_server()
+    eng = server.engine
+    recorded = _record_requests(eng)
+    model = eng.config.model
+    res = {"phase": "serve", "model": "LLAMA3_8B (registry name llama3-8b)",
+           "dtype": "bfloat16", "layers": model.n_layers, "d_model": model.d_model,
+           "path": "HTTP -> stdlib proxy -> DeploymentHandle -> router -> replica (async "
+                   "actor) -> LLMServer -> engine loop thread -> LLMEngine",
+           "server_init_s": init_s,
+           "runtime_resources": ray_tpu_torch.cluster_resources()}
+    if res["runtime_resources"].get("GPU", 0) < 1:
+        raise AssertionError(f"serve: the runtime sees no GPU: {res['runtime_resources']}")
+
+    # the replica's engine serves the caller's tensors, not a copy
+    mine, theirs = sorted_leaves(params), sorted_leaves(eng.params)
+    if len(mine) != len(theirs) or any(a.data_ptr() != b.data_ptr()
+                                       for a, b in zip(mine, theirs)):
+        raise AssertionError("serve: the replica engine's weights are not the caller's tensors")
+    res["weights_by_reference"] = {"tensors": len(mine), "same_data_ptr": True}
+
+    st, _, raw = _http("GET", base + "/-/healthz")
+    if (st, raw) != (200, b"success"):
+        raise AssertionError(f"serve: /-/healthz answered {st} {raw!r}")
+    st, _, raw = _http("GET", base + "/v1/no-such-route")
+    if st != 404:
+        raise AssertionError(f"serve: an unknown route answered {st} {raw!r}")
+    rtt = []
+    for _ in range(21):
+        t1 = time.perf_counter()
+        st, _, raw = _http("GET", base + "/v1/models")
+        rtt.append((time.perf_counter() - t1) * 1e3)
+    card = json.loads(raw)["data"][0]
+    if st != 200 or card["id"] != "llama3-8b" or card["max_model_len"] != 8192:
+        raise AssertionError(f"serve: /v1/models says {st} {raw!r}")
+    res["http_models_rtt_ms"] = {"median": float(np.median(rtt[1:])), "first": rtt[0],
+                                 "max": float(max(rtt[1:])), "n": len(rtt) - 1}
+    rtt_h = []
+    for _ in range(21):
+        t1 = time.perf_counter()
+        handle.models.remote().result()
+        rtt_h.append((time.perf_counter() - t1) * 1e3)
+    res["handle_models_rtt_ms"] = {"median": float(np.median(rtt_h[1:])), "first": rtt_h[0],
+                                   "max": float(max(rtt_h[1:])), "n": len(rtt_h) - 1}
+
+    bodies, chats, streams = _api_traffic()
+    # the main path: the counters zeroed just before the first pass, read
+    # just after (eager launches + those of graph replays)
+    paged_attention_cuda.launches = 0
+    ragged_attention_cuda.launches = 0
+    marks = _launch_marks(eng)
+    pmarks = _pass_marks(eng)
+    first = _serve_pass(base, handle, server, recorded, bodies, chats, streams)
+    launches = _launch_counts(eng, marks)
+    res["first_pass_graphs"] = _pass_graphs(eng, pmarks)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"serve: a kernel of the path never launched: {launches}")
+    res["kernel_launches"] = launches
+    res["first"] = first
+
+    def counted(fn):
+        c0 = sum(g.captures for g in _families(eng))
+        out = fn()
+        return {**{k: v for k, v in out.items() if k not in ("completions", "chats", "streams")},
+                "graphs_captured": sum(g.captures for g in _families(eng)) - c0}
+
+    def steady_of(passes):
+        # a pass that captured a graph pays its capture (a decode chunk's at
+        # 8B: seconds): read the passes that captured none, as the api phase
+        read = [p for p in passes if not p["graphs_captured"]] or passes
+        return {"output_tok_per_s": float(np.median([p["output_tok_per_s"] for p in read])),
+                "mean_ttft_s": float(np.median([p["mean_ttft_s"] for p in read])),
+                "stream_ttft_s": [float(np.median([p["stream_ttft_s"][i] for p in read]))
+                                  for i in range(len(streams))],
+                "passes_read": len(read)}
+
+    serve_pass = lambda: _serve_pass(base, handle, server, recorded, bodies, chats,  # noqa: E731
+                                     streams)
+    passes = [counted(serve_pass) for _ in range(2)]
+    res["warm"] = passes[0]
+    # the same engine driven directly (the api phase's pass: LLMServer from
+    # this thread's event loop) and through Serve over HTTP, in turns, after
+    # one direct pass that captures the direct pattern's buckets; only the
+    # passes that captured no graph are read
+    direct_pass = lambda: _api_pass(server, recorded, bodies, chats, streams)  # noqa: E731
+    order = "SDDSSD"
+    ab = {"order": order, "direct_warmup": counted(direct_pass)}
+    ab["passes"] = [{"path": k, **counted(serve_pass if k == "S" else direct_pass)}
+                    for k in order]
+    for k, name in (("S", "serve"), ("D", "direct")):
+        read = [t for t in ab["passes"] if t["path"] == k and not t["graphs_captured"]]
+        ab[name] = steady_of(read) if read else None
+    ab["serve_over_direct"] = (ab["serve"]["output_tok_per_s"] / ab["direct"]["output_tok_per_s"]
+                               if ab["serve"] and ab["direct"] else None)
+    res["same_engine_ab"] = ab
+    # steady: every Serve pass after the first, the turns' too
+    passes += [t for t in ab["passes"] if t["path"] == "S"]
+    res["steady"] = {**steady_of(passes), "passes": passes}
+    api_first, api_steady = api_res["first"], api_res["steady"]
+    res["api_phase"] = {
+        "output_tok_per_s": {"first": api_first["output_tok_per_s"],
+                             "steady": api_steady["output_tok_per_s"]},
+        "mean_ttft_s": {"first": api_first["mean_ttft_s"], "steady": api_steady["mean_ttft_s"]},
+        "stream_ttft_s": {"first": api_first["stream_ttft_s"],
+                          "steady": api_steady["stream_ttft_s"]},
+        "first_pass_peak_mem_gb": api_res["first_pass_graphs"]["peak_mem_gb"],
+    }
+    res["serve_over_api_tok_per_s"] = {
+        "first": first["output_tok_per_s"] / api_first["output_tok_per_s"],
+        "steady": res["steady"]["output_tok_per_s"] / api_steady["output_tok_per_s"]}
+    res["peak_mem_gb_minus_api_phase"] = (res["first_pass_graphs"]["peak_mem_gb"]
+                                          - api_res["first_pass_graphs"]["peak_mem_gb"])
+
+    # one greedy completion sent alone over HTTP, then alone through the
+    # handle (prefix cache emptied before each): the same text
+    probe = {"prompt": bodies[1]["prompt"], "max_tokens": 32, "temperature": 0.0}
+    texts = []
+    for via in ("http", "handle"):
+        server.runner.call(lambda: eng.allocator.drop_prefix_cache())
+        if via == "http":
+            st, _, raw = _http("POST", base + "/v1/completions", probe)
+            texts.append(json.loads(raw)["choices"][0]["text"])
+        else:
+            texts.append(handle.completions.remote(probe).result()["choices"][0]["text"])
+    if texts[0] != texts[1] or not texts[0]:
+        raise AssertionError(f"serve: HTTP and handle texts differ: {texts}")
+    res["http_equals_handle"] = {"tokens": texts[0].count("<"), "equal": True}
+
+    res["burst"] = _serve_burst(base, server, bodies)
+
+    # shutdown: the replica's shutdown hook stops the engine loop and frees
+    # the KV cache and graphs; the weights stay (they are the caller's)
+    kv_bytes = eng._kv_cache_nbytes
+    thread = server.runner._thread
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    serve.shutdown()
+    ray_tpu_torch.shutdown()
+    shutdown_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    if thread.is_alive():
+        raise AssertionError("serve: the engine loop thread outlived serve.shutdown()")
+    if mem_before - mem_after < kv_bytes:
+        raise AssertionError(f"serve: shutdown freed {mem_before - mem_after} B of the card, "
+                             f"less than the KV cache's {kv_bytes} B")
+    res["shutdown"] = {"seconds": shutdown_s, "kv_cache_bytes": kv_bytes,
+                       "allocated_freed_bytes": mem_before - mem_after,
+                       "allocated_left_over_phase_start_bytes": mem_after - mem_start}
+    del server, eng, handle, recorded
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # disagg
 # ---------------------------------------------------------------------------
 
@@ -3166,6 +3546,9 @@ def _parity_kvtier(dev, model, params_cpu, params_gpu) -> dict:
     for where, params, device in (("cuda", params_gpu, dev), ("cpu", params_cpu, "cpu")):
         eng = LLMEngine(EngineConfig(kvtier={"object_bytes": 0}, **kw), params=params,
                         device=device)
+        # chunks held at 8: a step-up on host timing would give the
+        # resurrected request's decode a chunk length no earlier request used
+        _pin_chunks(eng)
         try:
             eng.generate([warm], sp)
             for f in fillers:
@@ -4306,8 +4689,8 @@ def fleet_phase(dev, params) -> dict:
 
 # ---------------------------------------------------------------------------
 
-PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "api", "disagg", "kvtier",
-          "parity", "spec", "fleet", "train", "publish", "train_parity")
+PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "api", "serve", "disagg",
+          "kvtier", "parity", "spec", "fleet", "train", "publish", "train_parity")
 
 SOURCES = {
     "paged_attention": ("ray_tpu_torch/ops/csrc/paged_attention.cu",
@@ -4352,6 +4735,8 @@ def main(argv=None) -> int:
         ap.error(f"unknown phases {sorted(unknown)}")
     if {"lora", "api", "disagg"} & set(phases) and "engine" not in phases:
         ap.error("the lora, api and disagg phases read the engine phase's results: add engine")
+    if "serve" in phases and "api" not in phases:
+        ap.error("the serve phase reads the api phase's results: add engine,api")
     if "publish" in phases and "train" not in phases:
         ap.error("the publish phase trains on from the train phase's state: add train")
     if not torch.cuda.is_available():
@@ -4379,9 +4764,10 @@ def main(argv=None) -> int:
         timings.update(kernels_phase(dev))
     if "flash_kernels" in phases:
         timings.update(flash_kernels_phase(dev))
-    params, params_s = (params_8b(dev) if {"engine", "spec", "api", "disagg", "kvtier", "fleet"}
-                        & set(phases) else (None, 0.0))
+    params, params_s = (params_8b(dev) if {"engine", "spec", "api", "serve", "disagg", "kvtier",
+                                            "fleet"} & set(phases) else (None, 0.0))
     lora_launches, api_launches, disagg_launches, replayed = {}, {}, {}, {}
+    serve_launches = {}
     disagg_device_launches = {}
     kvtier_launches, fleet_launches, publish_launches = {}, {}, {}
     if "engine" in phases:
@@ -4391,7 +4777,12 @@ def main(argv=None) -> int:
     if "lora" in phases:
         lora_launches = lora_phase(dev, params, engine_res)["kernel_launches"]
     if "api" in phases:
-        api_launches = api_phase(dev, params, engine_res)["kernel_launches"]
+        api_res = api_phase(dev, params, engine_res)
+        api_launches = api_res["kernel_launches"]
+    if "serve" in phases:
+        serve_launches = serve_phase(dev, params, api_res)["kernel_launches"]
+    if "api" in phases:
+        del api_res
     if "disagg" in phases:
         disagg_res = disagg_phase(dev, params, engine_res)
         disagg_launches = disagg_res["kernel_launches"]
@@ -4429,6 +4820,7 @@ def main(argv=None) -> int:
             **({"launches_in_graph_replays": replayed[name]} if name in replayed else {}),
             **({"launches_lora_phase": lora_launches[name]} if name in lora_launches else {}),
             **({"launches_api_phase": api_launches[name]} if name in api_launches else {}),
+            **({"launches_serve_phase": serve_launches[name]} if name in serve_launches else {}),
             **({"launches_disagg_phase": disagg_launches[name]}
                if name in disagg_launches else {}),
             **({"launches_disagg_device_leg": disagg_device_launches[name]}

@@ -9,6 +9,10 @@ CUDA kernels are compiled at their first launch (``ops/_build.py``).
 Entry points (``LLMEngine``, ``init_params``, ``init_cache``) default to
 ``device="cuda"``; the CPU is used only when the caller passes
 ``device="cpu"``, and then every kernel runs as its plain PyTorch version.
+
+The core API (``init``, ``shutdown``, ``remote``, ``get``, ``put``,
+``wait``, ``get_actor``, ``kill``, ...) is re-exported lazily from
+``ray_tpu_torch.core.api``, as ``ray_tpu`` re-exports its own.
 """
 
 from __future__ import annotations
@@ -16,10 +20,10 @@ from __future__ import annotations
 import importlib
 
 __all__ = ["autoscale", "chaos", "cluster", "core", "fabric", "fleet", "llm", "models", "nn",
-           "obs", "ops", "resolve_device", "train", "util"]
+           "obs", "ops", "resolve_device", "serve", "train", "util", "utils"]
 
 _SUBPACKAGES = ("autoscale", "chaos", "cluster", "core", "fabric", "fleet", "llm", "models", "nn",
-                "obs", "ops", "train", "util")
+                "obs", "ops", "serve", "train", "util", "utils")
 
 
 def resolve_device(device) -> "torch.device":  # noqa: F821
@@ -43,4 +47,8 @@ def resolve_device(device) -> "torch.device":  # noqa: F821
 def __getattr__(name):
     if name in _SUBPACKAGES:
         return importlib.import_module(f"{__name__}.{name}")
+    if not name.startswith("__"):
+        api = importlib.import_module(f"{__name__}.core.api")
+        if hasattr(api, name):
+            return getattr(api, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

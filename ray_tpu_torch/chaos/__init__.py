@@ -19,7 +19,9 @@ Usage::
 
 Hook sites: ``llm.engine.step`` (``llm/engine.py``),
 ``disagg.kv_transfer`` (``llm/disagg/connector.py``), ``llm.kvtier.spill``
-and ``llm.kvfetch`` (``llm/kvtier/tiers.py``), each behind an
+and ``llm.kvfetch`` (``llm/kvtier/tiers.py``), ``serve.replica``
+(``serve/replica.py``: KILL_REPLICA raises ``ReplicaCrashed``), each
+behind an
 ``ACTIVE is None`` fast path. The reference's ``ChaosRunner``
 (orchestrated process kills) and environment propagation to worker
 processes wait for the cluster runtime (ROADMAP.md Queue 1, B8).
@@ -29,6 +31,7 @@ from ray_tpu_torch.chaos import harness
 from ray_tpu_torch.chaos.harness import (
     EnginePreempted,
     FaultInjected,
+    ReplicaCrashed,
     active,
     corrupt_frame,
     fault_log,
@@ -76,7 +79,7 @@ __all__ = [
     "KILL_GCS_PRIMARY", "KILL_RANK", "KILL_REPLICA", "KILL_WORKER", "KINDS",
     "PARTIAL_PARTITION", "PARTITION_GCS_PAIR", "PREEMPT_ENGINE", "PREEMPT_NODE",
     "STALL_CHANNEL", "STALL_COLLECTIVE", "STALL_GCS", "STALL_HEARTBEAT",
-    "Fault", "FaultSchedule", "FaultSpec", "FaultInjected", "EnginePreempted",
+    "Fault", "FaultSchedule", "FaultSpec", "FaultInjected", "EnginePreempted", "ReplicaCrashed",
     "active", "corrupt_frame",
     "fault_log", "fire", "harness", "install", "uninstall",
 ]

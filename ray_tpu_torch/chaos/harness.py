@@ -31,6 +31,7 @@ from ray_tpu_torch.chaos.schedule import (  # noqa: F401 — the kinds the hook 
     DROP_DEVICE_TRANSFER,
     DROP_KV_TRANSFER,
     DROP_RPC,
+    KILL_REPLICA,
     KILL_WORKER,
     PARTIAL_PARTITION,
     PREEMPT_ENGINE,
@@ -47,6 +48,12 @@ ACTIVE: Optional[FaultSchedule] = None
 class FaultInjected(Exception):
     """Base of injected failures (so recovery paths and tests can tell
     chaos from organic faults)."""
+
+
+class ReplicaCrashed(FaultInjected):
+    """A serve replica crashed mid-request (KILL_REPLICA at the
+    ``serve.replica`` site): the handle's failover treats it as the
+    replica's death and re-dispatches to another replica."""
 
 
 class EnginePreempted(FaultInjected):

@@ -10,7 +10,7 @@ from ray_tpu_torch.llm.engine import (
     Request,
     RequestOutput,
 )
-from ray_tpu_torch.llm.openai_api import ByteTokenizer, LLMConfig, LLMServer
+from ray_tpu_torch.llm.openai_api import ByteTokenizer, LLMConfig, LLMServer, build_openai_app
 from ray_tpu_torch.llm.sampling import SamplingParams
 
 __all__ = [
@@ -25,5 +25,6 @@ __all__ = [
     "Request",
     "RequestOutput",
     "SamplingParams",
+    "build_openai_app",
     "build_processor",
 ]

@@ -1012,6 +1012,19 @@ class LLMEngine:
         if self.kvtier is not None:
             self.kvtier.stop()
 
+    def release(self) -> None:
+        """Free the engine's device memory once nothing steps it any more
+        (its serving loop has stopped): the tiered cache's workers, the
+        paged KV cache, every captured graph with its pool and buffers, and
+        the pipelined batch state. The weights stay: they are the caller's.
+        The engine cannot step afterwards."""
+        self.close()
+        self.cache = None
+        for fam in (self._graphs, self._mixed_graphs, self._verify_graphs):
+            fam.release()
+        self._pipe_state = self._pipe_inflight = None
+        self._copy_stream = None
+
     def _copies(self) -> "torch.cuda.Stream":
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)

@@ -177,6 +177,7 @@ class GraphFamily:
     def __init__(self, device: torch.device, shared_with: "Optional[GraphFamily]" = None):
         self.device = device
         self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self._bufs: dict = {}  # the static input buffers per bucket (subclasses fill)
         self._warm: set = set()
         self._share = shared_with
         self._pool = None
@@ -250,6 +251,15 @@ class GraphFamily:
         self.capture_s_by_key[key].append(seconds)
         return entry
 
+    def release(self) -> None:
+        """Drop every captured graph, its outputs, the memory pool and the
+        capture stream (the counters stay): the family's device memory goes
+        back to the caching allocator."""
+        self._graphs.clear()
+        self._warm.clear()
+        self._pool = self._stream = None
+        self._bufs.clear()
+
     def stats(self) -> dict:
         return {
             "graphs": len(self._graphs), "captured": self.captures,
@@ -268,10 +278,6 @@ class ChunkGraphs(GraphFamily):
     graph replay on the card and eagerly on the CPU. ``fn`` is not kept:
     an engine that owns this object and passes its own method stays free
     of a reference cycle, so dropping the engine frees its memory at once."""
-
-    def __init__(self, device: torch.device):
-        super().__init__(device)
-        self._bufs: dict = {}
 
     def buffers(self, B: int, stop_w: int, bt_width: int) -> ChunkBuffers:
         key = (B, stop_w, bt_width)
@@ -368,7 +374,6 @@ class PackedGraphs(GraphFamily):
                  shared_with: Optional[GraphFamily] = None):
         super().__init__(device, shared_with)
         self.trash_slot = trash_slot
-        self._bufs: dict = {}
 
     def buffers(self, program: str, T_pad: int, B_pad: int, bt_width: int,
                 k1: int = 0, lora: bool = False) -> PackedBuffers:

@@ -18,9 +18,16 @@ so its SLO histograms and series carry that label; a chaos
 ``PREEMPT_ENGINE`` at ``llm.engine.step`` drives the runner's crash
 recovery.
 
-Not ported: ``build_openai_app`` and ``build_disagg_openai_app`` (they
-deploy through ``ray_tpu.serve``, which has no counterpart here, ROADMAP.md
-Queue 1 B8).
+``build_openai_app`` deploys an ``LLMServer`` as a Serve deployment
+(``ray_tpu_torch.serve``): requests then arrive over the stdlib HTTP proxy
+or a ``DeploymentHandle``, and the replica's constructor receives the
+caller's ``LLMConfig`` by reference, so the engine serves the caller's
+weight tensors, never a copy. ``LLMServer.shutdown`` (the replica's
+shutdown hook) stops the engine loop and frees the engine's KV cache and
+captured graphs.
+
+Not ported: ``build_disagg_openai_app`` (``ray_tpu/serve/disagg.py``,
+ROADMAP.md Queue 1, item 6, a later part).
 
 The engine runner differs from the reference's in one way: callers never
 wait behind a running step. ``submit``, ``abort`` and state reads are
@@ -471,11 +478,14 @@ class LLMServer:
 
     def shutdown(self):
         """Graceful shutdown: stop admission, give the engines a short
-        drain, stop the loops."""
+        drain, stop the loops; then free the engine's device memory (its
+        KV cache and captured graphs; the weights are the caller's)."""
         try:
             self.drain(timeout_s=5.0)
         finally:
             self._stop_engines()
+            if self.runner is not None and not self.runner._thread.is_alive():
+                self.runner.engine.release()
 
     def drain(self, timeout_s: float = 30.0) -> dict:
         """Maintenance drain: new requests get 503 + Retry-After while
@@ -619,7 +629,9 @@ class LLMServer:
         if path.rstrip("/") == "/v1/models" and method == "GET":
             return self.models()
         if path.rstrip("/") == "/v1/stats" and method == "GET":
-            return self.stats()
+            # off the event loop: stats() waits for the engine loop's step
+            # boundary, which would stall every request on this loop
+            return await asyncio.get_running_loop().run_in_executor(None, self.stats)
         if path.rstrip("/") == "/v1/requests" and method == "GET":
             return self.list_requests()
         parts = [p for p in path.split("/") if p]
@@ -891,3 +903,24 @@ def _sse_transcript(payload: dict, obj: str) -> str:
     events.append(f"data: {json.dumps(chunk)}")
     events.append("data: [DONE]")
     return "\n\n".join(events) + "\n\n"
+
+
+def build_openai_app(
+    llm_config: LLMConfig,
+    *,
+    name: str = "llm",
+    route_prefix: str = "/",
+    num_replicas: int = 1,
+    max_ongoing_requests: int = 64,
+):
+    """Deploy an OpenAI-compatible app; returns the ingress handle
+    (reference: build_openai_app, application_builders.py)."""
+    from ray_tpu_torch import serve
+
+    dep = serve.deployment(
+        LLMServer,
+        name=f"LLMServer:{llm_config.model_id}",
+        num_replicas=num_replicas,
+        max_ongoing_requests=max_ongoing_requests,
+    )
+    return serve.run(dep.bind(llm_config), name=name, route_prefix=route_prefix)

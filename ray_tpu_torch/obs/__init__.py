@@ -17,7 +17,15 @@ disaggregated orchestrator ``llm.kv_transfer``; ``/v1/requests`` and
 store wait for the cluster runtime (ROADMAP.md, Queue 1, B8).
 """
 
-from ray_tpu_torch.obs.context import TraceContext, attach, current, detach, new_context, use
+from ray_tpu_torch.obs.context import (
+    TraceContext,
+    attach,
+    current,
+    detach,
+    new_context,
+    use,
+    use_from,
+)
 from ray_tpu_torch.obs.recorder import Span, SpanRecorder, get_recorder, span
 
 __all__ = [
@@ -31,4 +39,5 @@ __all__ = [
     "new_context",
     "span",
     "use",
+    "use_from",
 ]

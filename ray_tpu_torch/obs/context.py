@@ -3,8 +3,9 @@
 A ``TraceContext`` is (trace_id, span_id): the trace_id names one
 end-to-end request, the span_id the current operation within it. It
 travels by contextvar within a thread or asyncio task (``use`` /
-``attach``) and explicitly across threads (the serving front end hands it
-to the engine loop with each request).
+``attach``), explicitly across threads (the serving front end hands it
+to the engine loop with each request), and as a dict in the runtime's
+task specs, attached around each execution (``to_dict`` / ``use_from``).
 """
 
 from __future__ import annotations
@@ -84,3 +85,24 @@ def use(ctx: Optional[TraceContext]):
             # finalized by the event loop in a fresh task): that context
             # dies anyway, nothing to restore
             pass
+
+
+@contextlib.contextmanager
+def use_from(trace_dict: Optional[dict]):
+    """Attach a context carried as a dict (a TaskSpec's ``trace``) around an
+    execution body: the runtime's task and actor executions wrap with it.
+    The context is attached as it is, not as a fresh child: the envelope's
+    span_id names a span the submitter records (``serve.request``, an
+    ``obs.span`` block), so spans recorded inside the body parent to a span
+    that exists in the recorder. No-ops when the envelope carries no
+    (valid) trace, and never raises: tracing must never break task
+    execution. Yields the attached context or None."""
+    try:
+        ctx = TraceContext.from_dict(trace_dict)
+    except Exception:  # noqa: BLE001
+        ctx = None
+    if ctx is None:
+        yield None
+        return
+    with use(ctx):
+        yield ctx

@@ -84,6 +84,18 @@ class Metric:
         with self._lock:
             return dict(self._series)
 
+    def remove_series(self, tags: Optional[dict] = None) -> None:
+        """Retract one tag combination entirely: a gauge of a deleted
+        entity (a Serve deployment's replica count) must not go on
+        exporting its last value."""
+        k = self._key(tags)
+        with self._lock:
+            self._series.pop(k, None)
+            if isinstance(self, Histogram):
+                self._buckets.pop(k, None)
+                self._sums.pop(k, None)
+                self._counts.pop(k, None)
+
 
 class Counter(Metric):
     TYPE = "counter"

@@ -1673,3 +1673,136 @@ def test_fleet_replicas_own_storages_and_promote_is_bitwise():
         assert outs[r0.tag] == outs[r1.tag]
     finally:
         mgr.close()
+
+
+class _IdText:
+    """ByteTokenizer's encoding, and a decode that writes every id as
+    "<id>" (random weights make ids past the byte range, which
+    ByteTokenizer decodes to nothing)."""
+
+    def __init__(self, vocab_size):
+        from ray_tpu_torch.llm import ByteTokenizer
+
+        self._bytes = ByteTokenizer(vocab_size)
+        self.eos_token_id = self._bytes.eos_token_id
+
+    def encode(self, text):
+        return self._bytes.encode(text)
+
+    def decode(self, ids):
+        return "".join(f"<{i}>" for i in ids)
+
+
+def _serve_400m():
+    """LLAMA_400M bf16 weights on the card, an engine config for them, and
+    a free loopback port."""
+    import socket
+
+    from ray_tpu_torch.llm import EngineConfig
+    from ray_tpu_torch.models.llama import LLAMA_400M, init_params
+
+    params = init_params(LLAMA_400M, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                         dtype=torch.bfloat16)
+    cfg = EngineConfig(model=LLAMA_400M, num_blocks=256, block_size=16, max_num_seqs=4,
+                       max_prefill_len=256, mixed_batch=True, mixed_prefill_chunk=64)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return params, cfg, port
+
+
+def _post(url, body):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def _replica_servers():
+    from ray_tpu_torch.core import runtime as rt
+
+    return [a.instance._callable for a in rt.get_runtime().gcs.list_actors()
+            if type(a.instance).__name__ == "Replica" and a.instance._callable is not None]
+
+
+def test_openai_app_on_card_serves_the_callers_weights():
+    """LLAMA_400M bf16 deployed with build_openai_app and served over the
+    stdlib HTTP proxy: the replica's engine holds the caller's tensors (no
+    copy), and a greedy completion over HTTP has the tokens a direct
+    LLMServer on the same weights gives the same request, each sent
+    alone."""
+    _need_cuda()
+    import asyncio
+    import dataclasses
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import LLMConfig, LLMServer, build_openai_app
+    from ray_tpu_torch.models.llama import sorted_leaves
+
+    params, cfg, port = _serve_400m()
+    tok = _IdText(cfg.model.vocab_size)
+    body = {"prompt": "the quick brown fox " * 8, "max_tokens": 24, "temperature": 0.0}
+    ray_tpu_torch.init()
+    try:
+        serve.start(host="127.0.0.1", port=port)
+        build_openai_app(LLMConfig(model_id="m", engine=cfg, params=params, tokenizer=tok),
+                         route_prefix="/")
+        (server,) = _replica_servers()
+        assert [t.data_ptr() for t in sorted_leaves(server.engine.params)] == \
+            [t.data_ptr() for t in sorted_leaves(params)]
+        over_http = _post(f"http://127.0.0.1:{port}/v1/completions", body)
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+
+    class _Req:
+        method, path = "POST", "/v1/completions"
+
+        def json(self):
+            return body
+
+    direct = LLMServer(LLMConfig(model_id="m", engine=dataclasses.replace(cfg), params=params,
+                                 tokenizer=tok))
+    try:
+        alone = asyncio.run(direct(_Req()))
+    finally:
+        direct.shutdown()
+    assert over_http["usage"]["completion_tokens"] == 24
+    assert over_http["choices"][0]["text"] == alone["choices"][0]["text"]
+
+
+def test_serve_shutdown_frees_the_kv_cache_on_card():
+    """serve.shutdown() returns after the replica's shutdown hook: the
+    engine loop has exited and the card's allocated memory fell by at least
+    the KV cache's bytes (the weights stay: they are the caller's)."""
+    _need_cuda()
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import LLMConfig, build_openai_app
+
+    params, cfg, port = _serve_400m()
+    ray_tpu_torch.init()
+    try:
+        serve.start(host="127.0.0.1", port=port)
+        build_openai_app(LLMConfig(model_id="m", engine=cfg, params=params,
+                                   tokenizer=_IdText(cfg.model.vocab_size)), route_prefix="/")
+        out = _post(f"http://127.0.0.1:{port}/v1/completions",
+                    {"prompt": "hello", "max_tokens": 8, "temperature": 0.0})
+        assert out["usage"]["completion_tokens"] == 8
+        (server,) = _replica_servers()
+        thread, kv_bytes = server.runner._thread, server.engine._kv_cache_nbytes
+        del server
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        serve.shutdown()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+    assert not thread.is_alive()
+    assert before - after >= kv_bytes > 0

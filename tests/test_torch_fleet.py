@@ -384,12 +384,23 @@ def test_noisy_neighbor_paying_tenant_green(jparams):
                 except Exception:  # noqa: BLE001 — a shed or aborted flood request
                     pass
 
+        runner = mgr.replicas("tiny")[0].runner
+
+        def saturated():
+            # each paying request is sent while the flood holds both of
+            # max_num_seqs=2's slots, so it has a batch request to preempt
+            deadline = time.monotonic() + 60
+            while runner.depths()[1] < 2:
+                assert time.monotonic() < deadline, "the flood never filled the batch"
+                time.sleep(0.001)
+
         threads = [threading.Thread(target=flood) for _ in range(4)]
         for th in threads:
             th.start()
         time.sleep(0.5)
         try:
             for _ in range(3):
+                saturated()
                 assert len(_run(mgr, "port", "tiny")) == 6
         finally:
             stop.set()

@@ -43,13 +43,14 @@ def test_no_port_file_imports_jax_or_the_jax_package():
 
 
 def test_port_imports_without_jax_triton_or_gpu():
-    """Every module of the port imports with jax, optax, ray_tpu and triton
-    blocked, and the plain path runs pipelined and speculative decoding,
-    disaggregated serving (in-process and over the device fabric) and a
-    train step on the CPU."""
+    """Every module of the port imports with jax, optax, ray_tpu, triton,
+    aiohttp and cloudpickle blocked, and the plain path runs pipelined and
+    speculative decoding, disaggregated serving (in-process and over the
+    device fabric), a train step, a task on the in-process runtime and a
+    completion over HTTP through ``build_openai_app`` on the CPU."""
     code = """
 import sys
-for name in ("jax", "jaxlib", "optax", "ray_tpu", "triton"):
+for name in ("jax", "jaxlib", "optax", "ray_tpu", "triton", "aiohttp", "cloudpickle"):
     sys.modules[name] = None
 import ray_tpu_torch
 import ray_tpu_torch.llm, ray_tpu_torch.llm.decode_loop
@@ -65,6 +66,8 @@ import ray_tpu_torch.chaos, ray_tpu_torch.obs.slo, ray_tpu_torch.obs.telemetry
 import ray_tpu_torch.fabric, ray_tpu_torch.cluster.rpc, ray_tpu_torch.util.backoff
 import ray_tpu_torch.llm.kvfetch.plane
 import ray_tpu_torch.train.weight_sync, ray_tpu_torch.autoscale, ray_tpu_torch.fleet
+import ray_tpu_torch.utils, ray_tpu_torch.core.api, ray_tpu_torch.core.events
+import ray_tpu_torch.serve, ray_tpu_torch.serve.proxy
 import dataclasses, torch
 from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
 from ray_tpu_torch.models import llama
@@ -102,6 +105,21 @@ step = make_train_step(lambda p, b: llama.loss_and_weight_fn(p, b, cfg))
 toks = torch.randint(0, cfg.vocab_size, (2, 17))
 state, m = step(state, {"tokens": toks[:, :-1], "targets": toks[:, 1:]})
 assert torch.isfinite(m["loss"]) and state.step == 1
+import json, urllib.request
+from ray_tpu_torch import serve
+from ray_tpu_torch.llm import LLMConfig, build_openai_app
+ray_tpu_torch.init(num_cpus=4)
+assert ray_tpu_torch.get(ray_tpu_torch.remote(lambda x: x + 1).remote(1)) == 2
+serve.start(host="127.0.0.1", port=0)
+build_openai_app(LLMConfig(model_id="iso", engine=EngineConfig(
+    model=LLAMA_TINY, num_blocks=32, block_size=4, max_num_seqs=2, max_prefill_len=32),
+    device="cpu"))
+base = f"http://127.0.0.1:{serve.api._proxy.port}"
+req = urllib.request.Request(base + "/v1/completions", data=json.dumps(
+    {"prompt": "hi", "max_tokens": 3, "temperature": 0.0}).encode())
+assert json.loads(urllib.request.urlopen(req, timeout=60).read())["usage"]["completion_tokens"] == 3
+serve.shutdown()
+ray_tpu_torch.shutdown()
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")

@@ -88,6 +88,32 @@ def test_tier_workers_and_locks_are_linted(rel, cls, thread, guarded):
                    for kw in th.node.keywords)
 
 
+@pytest.mark.parametrize("rel,cls,thread,guarded", [
+    ("core/scheduler.py", "LocalScheduler", "ray_tpu_torch-dispatch", {"_queue": "_cv"}),
+    ("core/object_store.py", "ObjectStore", None,
+     {"_entries": "_lock", "_on_ready": "_lock", "_used": "_lock"}),
+    ("core/actor_runtime.py", "Actor", None, {"_mailbox": "_lock"}),
+    ("core/placement.py", "PlacementGroup", "ray_tpu_torch-pg-drain", {"_state": "_lock"}),
+    ("serve/controller.py", "ServeController", "serve-reconcile",
+     {"_apps": "_lock", "_drains": "_lock"}),
+    ("serve/router.py", "Router", None,
+     {"_replicas": "_lock", "_inflight": "_lock", "_last_refresh": "_lock", "_suspect": "_lock"}),
+    ("serve/proxy.py", "HTTPProxy", "serve-http-proxy", {}),
+])
+def test_runtime_and_serve_threads_and_locks_are_linted(rel, cls, thread, guarded):
+    """The in-process runtime's and Serve's threads and locks are in what
+    the passes see, so the clean gate above covers them."""
+    m = _model(rel)
+    if thread is not None:
+        assert thread in _thread_names(m)
+    guards = lock_guards.infer_guards(m)
+    for attr, lock in guarded.items():
+        assert guards.get((cls, attr)) == f"{cls}.{lock}", attr
+    for th in m.threads:
+        assert any(kw.arg == "daemon" and getattr(kw.value, "value", None) is True
+                   for kw in th.node.keywords)
+
+
 class _FakeEngine:
     def __init__(self):
         self.waiting, self.running = [], []
