@@ -5,6 +5,8 @@
     python3 chip_smoke.py --phases build,flash_kernels   # a short first check of a kernel edit
     python3 chip_smoke.py --phases build,engine,api      # the serving front end alone
     python3 chip_smoke.py --phases build,engine,api,serve  # ... and through a Serve deployment
+    python3 chip_smoke.py --phases build,engine,data     # batch inference over a Dataset
+    python3 chip_smoke.py --phases build,train,data_feed # the train step fed by a Dataset
     python3 chip_smoke.py --phases build,engine,disagg   # disaggregated, inproc and device legs
     python3 chip_smoke.py --phases build,kvtier          # the tiered KV cache alone
     python3 chip_smoke.py --phases build,fleet           # the canary ladder at LLAMA3_8B
@@ -130,6 +132,22 @@ Phases, each printing one JSON line:
            with Retry-After and 3 completions, and after serve.shutdown()
            the engine loop has exited and the card's allocated memory fell
            by at least the KV cache's bytes
+  data     offline batch inference at LLAMA3_8B through the port's
+           datasets: build_processor(ProcessorConfig(...)) over
+           data.from_items of 48 text prompts (64-1536 bytes, numpy seed
+           0, two on a 512-byte prefix) in 4 blocks, batch_size 16, the
+           engine phase's EngineConfig and weights (by reference), 32
+           greedy outputs; the stage on an actor pool of one (a thread of
+           the in-process runtime), its engine and graphs built there,
+           handed 16 + 8 rows per bundle of 2 blocks. A direct pass
+           (LLMEngine.generate on the same batches), then
+           dataset and direct in turns (S D D S): rows/s, tok/s, peak
+           memory, the stage's graph captures, and the bytes freed once each
+           dataset pass's pool is killed; K3/K4 launches counted over the
+           first dataset pass. Fails unless each dataset pass's rows come
+           back in order with their columns carried and every
+           generated_text equals the direct pass's, both kernels launched,
+           and each killed pool freed at least its KV cache's bytes
   disagg   LLAMA3_8B disaggregated (the engine phase's weights, one copy
            shared, configuration and 12 requests), two legs alive at once,
            each a DisaggOrchestrator with one prefill and one decode engine
@@ -246,6 +264,17 @@ Phases, each printing one JSON line:
            flash counters are zeroed just before the steps and read just
            after; then one step under torch.profiler (it fails if a flash
            kernel launched but its kernel-name group reads no time)
+  data_feed  the train phase's setup fed by the port's datasets: 6 batches
+           of int32 tokens [8, 1025] (numpy seed 0) through data.from_numpy
+           and iter_device_batches(batch_size=8, prefetch=1) (pinned host
+           batches copied non_blocking on the feed's side stream, the
+           step's stream waiting on each copy's event) into 6 steps from a
+           fresh state (torch seed 0), and the same steps on the same
+           batches copied synchronously beforehand, in turns (F P P F);
+           K1/K2 counted over the first fed run. Fails unless every fed
+           tensor equals its host batch and every run's losses equal bit
+           for bit. Reports step ms of each run, the feed's host ms per
+           batch and the consumer's wait
   publish  train -> publish -> serve at LLAMA_400M: an engine (bf16, the
            engine phase's batching, 1 024 blocks, chunks held at 8) serves
            the engine phase's 12 requests (graphs captured), the train
@@ -2606,6 +2635,240 @@ def serve_phase(dev, params, api_res: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# data
+# ---------------------------------------------------------------------------
+
+
+DATA_ROWS, DATA_BATCH, DATA_BLOCKS = 48, 16, 4
+
+
+def _stage_batches() -> list:
+    """The (start, stop) rows of each batch the stage is handed: the
+    executor bundles whole blocks until a bundle holds >= batch_size rows
+    (2 blocks of 12 here), and the stage cuts each bundle into batch_size
+    rows and a remainder (16 + 8)."""
+    bounds = [round(i * DATA_ROWS / DATA_BLOCKS) for i in range(DATA_BLOCKS + 1)]
+    out, lo, hi = [], 0, 0
+    for b in range(DATA_BLOCKS):
+        hi = bounds[b + 1]
+        if hi - lo >= DATA_BATCH or b == DATA_BLOCKS - 1:
+            out += [(s, min(s + DATA_BATCH, hi)) for s in range(lo, hi, DATA_BATCH)]
+            lo = hi
+    return out
+
+
+def _data_rows(seed: int = 0) -> list:
+    """48 rows of printable ASCII prompts (numpy seed 0) whose ByteTokenizer
+    encodings (BOS included) are 64-1536 tokens, rows 0 and 47 on one
+    512-byte prefix, each with its row number and byte count carried."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(64, 1537, size=DATA_ROWS)
+
+    def text(n):
+        return rng.integers(32, 127, size=int(n)).astype(np.uint8).tobytes().decode()
+
+    texts = [text(n - 1) for n in lens]
+    shared = text(512)
+    for i in (0, DATA_ROWS - 1):
+        texts[i] = shared + texts[i][: int(lens[i]) - 1 - 512]
+    return [{"prompt": t, "row": i, "n_bytes": len(t)} for i, t in enumerate(texts)]
+
+
+def _watch_stage(stages: list, cls):
+    """Wrap ``cls.__call__`` (the stage's batch call, on its actor's thread)
+    to keep, after every batch, the stage (by weak reference), its engine's
+    K3/K4 launches so far (eager + graph replays), its KV cache bytes and the
+    card's allocated bytes; returns the undo."""
+    import weakref
+
+    import torch
+
+    call = cls.__call__
+
+    def watched(self, batch):
+        out = call(self, batch)
+        eng = self.engine
+        if not stages or stages[-1]["stage"]() is not self:
+            stages.append({"stage": weakref.ref(self), "batches": []})
+        torch.cuda.synchronize()
+        stages[-1]["batches"].append(len(out[self.config.output_column]))
+        stages[-1].update(launches=_launch_marks(eng),
+                          kv_bytes=eng._kv_cache_nbytes,
+                          allocated_live=torch.cuda.memory_allocated(),
+                          graphs_captured=sum(f.captures for f in _families(eng)),
+                          capture_s=sum(sum(sum(v) for v in f.capture_s_by_key.values())
+                                        for f in _families(eng)))
+        return out
+
+    cls.__call__ = watched
+    return lambda: setattr(cls, "__call__", call)
+
+
+def _freed_after_kill(st: dict, deadline_s: float = 30.0) -> dict:
+    """After a dataset pass: wait for the killed pool's actor to drop its
+    stage (weak reference dead), then read what the card freed against the
+    allocated bytes after the stage's last batch."""
+    import torch
+
+    t0 = time.perf_counter()
+    while st["stage"]() is not None and time.perf_counter() - t0 < deadline_s:
+        time.sleep(0.01)
+    needed_gc = st["stage"]() is not None
+    if needed_gc:
+        gc.collect()
+    if st["stage"]() is not None:
+        raise AssertionError("data: the killed pool's stage (and its engine) is still alive")
+    torch.cuda.synchronize()
+    freed = st["allocated_live"] - torch.cuda.memory_allocated()
+    if freed < st["kv_bytes"]:
+        raise AssertionError(f"data: killing the pool freed {freed} B of the card, less than "
+                             f"the KV cache's {st['kv_bytes']} B")
+    return {"freed_bytes": freed, "kv_cache_bytes": st["kv_bytes"], "needed_gc": needed_gc,
+            "wait_s": time.perf_counter() - t0}
+
+
+def data_phase(dev, params) -> dict:
+    """Offline batch inference at LLAMA3_8B through the port's datasets:
+    ``build_processor(ProcessorConfig(...))`` over ``data.from_items`` of
+    48 prompts in 4 blocks, ``batch_size`` 16, the engine phase's
+    EngineConfig and weights (by reference), 32 greedy outputs per row. The
+    stage runs on an actor pool of one (a thread of the in-process runtime),
+    its engine and graphs built there; it is handed batches of 16 and 8 rows
+    (``_stage_batches``). First a direct pass (LLMEngine.generate on the same
+    batches, a fresh engine of the same configuration),
+    then the dataset and direct in turns (S D D S; the direct engine's prefix
+    cache dropped before each pass, so each does a fresh engine's work): rows/s,
+    output tok/s, peak memory, the stage's construction and graph-capture
+    seconds, and after each dataset pass the bytes freed once its pool was
+    killed. K3/K4 launches counted over the first dataset pass (eager + graph
+    replays of the stage's engine). Fails unless every dataset pass's rows come
+    back in order with their columns carried and each ``generated_text`` equals
+    the direct pass's text, both kernels launched, and each killed pool freed
+    at least its KV cache's bytes."""
+    import dataclasses
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, ProcessorConfig, SamplingParams
+    from ray_tpu_torch.llm import batch as llm_batch
+    from ray_tpu_torch.llm import build_processor
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from ray_tpu_torch.ops.ragged import ragged_attention_cuda
+
+    t_phase = time.perf_counter()
+    cfg = EngineConfig(model="llama3-8b", **ENGINE_KW)
+    tok = IdTextTokenizer(cfg.model.vocab_size)
+    sp = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
+    rows = _data_rows()
+    prompts = [r["prompt"] for r in rows]
+    res = {"phase": "data", "model": "LLAMA3_8B (registry name llama3-8b)", "dtype": "bfloat16",
+           "rows": DATA_ROWS, "blocks": DATA_BLOCKS, "batch_size": DATA_BATCH,
+           "prompt_tokens": sum(len(tok.encode(p)) for p in prompts),
+           "path": "from_items -> Read tasks -> map_batches(_EngineStage, concurrency=1) -> "
+                   "actor pool of one (thread) -> LLMEngine.generate per batch"}
+
+    eng = LLMEngine(dataclasses.replace(cfg, eos_token_id=tok.eos_token_id), params=params,
+                    seed=0, device=dev)
+
+    def direct():
+        eng.allocator.drop_prefix_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = sum(f.captures for f in _families(eng))
+        t0 = time.perf_counter()
+        toks = []
+        for lo, hi in _stage_batches():
+            toks += eng.generate([tok.encode(p) for p in prompts[lo:hi]], sp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = sum(len(t) for t in toks)
+        texts = [tok.decode(t[:-1] if t and t[-1] == tok.eos_token_id else t) for t in toks]
+        return texts, {"path": "D", "seconds": wall, "rows_per_s": DATA_ROWS / wall,
+                       "output_tok_per_s": n / wall, "output_tokens": n,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                       "graphs_captured": sum(f.captures for f in _families(eng)) - c0}
+
+    want, first_direct = direct()
+    n_out = first_direct["output_tokens"]
+    res["direct_first"] = first_direct
+
+    stages: list = []
+    undo = _watch_stage(stages, llm_batch._EngineStage)
+    ray_tpu_torch.init(num_cpus=4)
+    pc = ProcessorConfig(engine=dataclasses.replace(cfg), tokenizer=tok, params=params,
+                         sampling=sp, batch_size=DATA_BATCH, device=str(dev))
+
+    def through_dataset(first: bool = False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if first:  # the main path: the counters zeroed just before, read after
+            paged_attention_cuda.launches = 0
+            ragged_attention_cuda.launches = 0
+        n_stages = len(stages)
+        t0 = time.perf_counter()
+        ds = data.from_items(rows, parallelism=DATA_BLOCKS)
+        got = build_processor(pc)(ds).take_all()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if len(stages) != n_stages + 1:
+            raise AssertionError(f"data: {len(stages) - n_stages} stages served one pass")
+        st = stages[-1]
+        if st["batches"] != [hi - lo for lo, hi in _stage_batches()]:
+            raise AssertionError(f"data: the stage saw batches of {st['batches']} rows")
+        if [r["row"] for r in got] != list(range(DATA_ROWS)) or any(
+                (r["prompt"], r["n_bytes"]) != (w["prompt"], w["n_bytes"])
+                for r, w in zip(got, rows)):
+            raise AssertionError("data: rows came back out of order or a column was not carried")
+        texts = [r["generated_text"] for r in got]
+        if texts != want:
+            bad = [i for i, (a, b) in enumerate(zip(texts, want)) if a != b]
+            raise AssertionError(f"data: {len(bad)} rows differ from direct generate "
+                                 f"(first {bad[:5]}; row {bad[0]}: {texts[bad[0]][:120]!r} "
+                                 f"vs {want[bad[0]][:120]!r})")
+        out = {"path": "S", "seconds": wall, "rows_per_s": DATA_ROWS / wall,
+               "output_tok_per_s": n_out / wall, "output_tokens": n_out, "peak_mem_gb": peak,
+               "stage_batches": st["batches"], "graphs_captured": st["graphs_captured"],
+               "capture_s": st["capture_s"], "pool_kill": _freed_after_kill(st)}
+        return out, {k: v for k, v in st["launches"].items()}
+
+    try:
+        first, launches = through_dataset(first=True)
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"data: a kernel of the path never launched: {launches}")
+        res["kernel_launches"] = launches
+        res["dataset_first"] = first
+        order = "SDDS"
+        res["order"] = order
+        passes = []
+        for k in order:
+            if k == "S":
+                passes.append(through_dataset()[0])
+            else:
+                texts, d = direct()
+                passes.append({**d, "texts_equal_first_direct": texts == want})
+        res["passes"] = passes
+    finally:
+        undo()
+        ray_tpu_torch.shutdown()
+    for k, name in (("S", "dataset"), ("D", "direct")):
+        read = [p for p in res["passes"] if p["path"] == k]
+        res[name] = {m: float(sum(p[m] for p in read) / len(read))
+                     for m in ("rows_per_s", "output_tok_per_s", "peak_mem_gb")}
+    res["dataset_over_direct_rows_per_s"] = res["dataset"]["rows_per_s"] / res["direct"]["rows_per_s"]
+    res["rows_equal_direct"] = True
+    eng.release()
+    del eng
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # disagg
 # ---------------------------------------------------------------------------
 
@@ -4073,6 +4336,153 @@ def _profile_train(step, state, batch) -> dict:
     }
 
 
+FEED_BATCHES = 6
+
+
+def data_feed_phase(dev) -> dict:
+    """The train step fed by the port's datasets: 6 batches of int32 tokens
+    [8, 1025] (numpy seed 0) through ``data.from_numpy``, then
+    ``iter_device_batches(batch_size=8, prefetch=1)`` (pinned host batches
+    copied non_blocking on the feed's side stream by the data-prefetch
+    thread, the step's stream waiting on each copy's event), into 6 steps
+    of ``make_train_step`` at LLAMA_400M (the train phase's setup) from a
+    fresh state (torch seed 0); and the same 6 steps from the same fresh
+    state on the same batches copied synchronously by ``.to(dev)`` before
+    the steps (pre-placed), in turns: F P P F, after a warm-up of 2 steps on
+    a throwaway state. K1/K2 launches counted over the first fed run. Fails
+    unless every fed tensor equals its host batch and every run's losses
+    equal the first's bit for bit. Reports step ms of each run, the feed's
+    host ms per batch on the prefetch thread (pin + issuing the copies) and
+    the consumer's wait for each batch."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+    from ray_tpu_torch.data import iterator
+    from ray_tpu_torch.models.llama import LLAMA_400M, init_params, loss_and_weight_fn
+    from ray_tpu_torch.ops.flash import flash_bwd_cuda, flash_fwd_cuda
+    from ray_tpu_torch.train import TrainState, adamw, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(LLAMA_400M, attention_impl="flash")
+    B, S = 8, 1024
+    host = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(FEED_BATCHES * B, S + 1),
+                                             dtype=np.int32)
+    step = make_train_step(lambda p, b: loss_and_weight_fn(p, b, cfg), None)
+
+    def fresh():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return TrainState.create(init_params(cfg, gen, dev), adamw(3e-4, weight_decay=1e-4))
+
+    def split(t):
+        return {"tokens": t[:, :-1], "targets": t[:, 1:]}
+
+    state = fresh()  # warm-up: cuBLAS plans, allocator growth
+    warm = torch.from_numpy(host[:B]).to(dev)
+    for _ in range(2):
+        state, m = step(state, split(warm))
+    float(m["loss"])
+    del state, warm
+
+    copy_ms = []
+    copy = iterator._CudaFeed._copy
+
+    def timed_copy(self, b):
+        t0 = time.perf_counter()
+        out = copy(self, b)
+        copy_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    iterator._CudaFeed._copy = timed_copy
+
+    def fed_run():
+        state = fresh()
+        torch.cuda.synchronize()
+        n_copies = len(copy_ms)
+        fed, losses, waits = [], [], []
+        t0 = time.perf_counter()
+        it = iter(ds.iter_device_batches(batch_size=B, prefetch=1))
+        while True:
+            tw = time.perf_counter()
+            b = next(it, None)
+            waits.append((time.perf_counter() - tw) * 1e3)
+            if b is None:
+                break
+            fed.append(b["tokens"])
+            state, m = step(state, split(b["tokens"]))
+            losses.append(m["loss"])
+        losses = [float(x) for x in losses]
+        wall = time.perf_counter() - t0
+        if len(fed) != FEED_BATCHES:
+            raise AssertionError(f"data_feed: {len(fed)} batches fed, not {FEED_BATCHES}")
+        for i, t in enumerate(fed):
+            if not (t.device.type == dev.type and t.dtype == torch.int32
+                    and torch.equal(t.cpu(), torch.from_numpy(host[i * B:(i + 1) * B]))):
+                raise AssertionError(f"data_feed: fed batch {i} differs from its host batch")
+        return losses, {"path": "F", "step_ms": wall / FEED_BATCHES * 1e3,
+                        "copy_host_ms": copy_ms[n_copies:], "consumer_wait_ms": waits[:-1]}
+
+    def placed_run():
+        state = fresh()
+        placed = [torch.from_numpy(host[i * B:(i + 1) * B]).to(dev)
+                  for i in range(FEED_BATCHES)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        for t in placed:
+            state, m = step(state, split(t))
+            losses.append(m["loss"])
+        losses = [float(x) for x in losses]
+        return losses, {"path": "P", "step_ms": (time.perf_counter() - t0) / FEED_BATCHES * 1e3}
+
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        ds = data.from_numpy({"tokens": host})
+        # the main path: the counters zeroed just before the first fed run, read after it
+        flash_fwd_cuda.launches = 0
+        flash_bwd_cuda.launches = 0
+        losses, first = fed_run()
+        launches = {"flash_fwd": flash_fwd_cuda.launches, "flash_bwd": flash_bwd_cuda.launches}
+        order = "PPF"  # in turns after the first fed run: F P P F
+        runs = [first]
+        for k in order:
+            got, run = fed_run() if k == "F" else placed_run()
+            if got != losses:
+                raise AssertionError(f"data_feed: run {len(runs)} ({k}) losses {got} differ "
+                                     f"from the first fed run's {losses}")
+            runs.append(run)
+    finally:
+        iterator._CudaFeed._copy = copy
+        ray_tpu_torch.shutdown()
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"data_feed: a kernel of the path never launched: {launches}")
+    torch.cuda.empty_cache()
+    fed = [r for r in runs if r["path"] == "F"]
+    waits = [w for r in fed for w in r["consumer_wait_ms"]]
+    res = {"phase": "data_feed", "model": "LLAMA_400M", "batch": B, "seq": S,
+           "batches": FEED_BATCHES, "prefetch": 1, "dtype": "bfloat16", "param_dtype": "float32",
+           "order": "F" + order, "losses": losses, "losses_equal_bitwise": True,
+           "fed_equal_host": True,
+           "step_ms": {r["path"] + str(i): r["step_ms"] for i, r in enumerate(runs)},
+           "step_ms_fed": float(np.mean([r["step_ms"] for r in fed])),
+           "step_ms_preplaced": float(np.mean([r["step_ms"] for r in runs if r["path"] == "P"])),
+           "feed_copy_host_ms": {"first_run": fed[0]["copy_host_ms"],
+                                 "last_run": fed[-1]["copy_host_ms"]},
+           "consumer_wait_ms": {"first_batch": [r["consumer_wait_ms"][0] for r in fed],
+                                "rest_mean": float(np.mean([w for r in fed
+                                                            for w in r["consumer_wait_ms"][1:]])),
+                                "rest_max": float(max(w for r in fed
+                                                      for w in r["consumer_wait_ms"][1:]))},
+           "batch_bytes": B * (S + 1) * 4, "kernel_launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
 # train_parity bands (stated in PERF.md): the loss and grad_norm of each of
 # the 5 steps within 1e-4 relative; the params within 2 * lr * steps = 3e-3
 # absolute (Adam's first steps move each element by about lr * sign(grad),
@@ -4689,8 +5099,8 @@ def fleet_phase(dev, params) -> dict:
 
 # ---------------------------------------------------------------------------
 
-PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "api", "serve", "disagg",
-          "kvtier", "parity", "spec", "fleet", "train", "publish", "train_parity")
+PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "api", "serve", "data", "disagg",
+          "kvtier", "parity", "spec", "fleet", "train", "data_feed", "publish", "train_parity")
 
 SOURCES = {
     "paged_attention": ("ray_tpu_torch/ops/csrc/paged_attention.cu",
@@ -4733,8 +5143,9 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
-    if {"lora", "api", "disagg"} & set(phases) and "engine" not in phases:
-        ap.error("the lora, api and disagg phases read the engine phase's results: add engine")
+    if {"lora", "api", "data", "disagg"} & set(phases) and "engine" not in phases:
+        ap.error("the lora, api, data and disagg phases read the engine phase's results: "
+                 "add engine")
     if "serve" in phases and "api" not in phases:
         ap.error("the serve phase reads the api phase's results: add engine,api")
     if "publish" in phases and "train" not in phases:
@@ -4764,10 +5175,10 @@ def main(argv=None) -> int:
         timings.update(kernels_phase(dev))
     if "flash_kernels" in phases:
         timings.update(flash_kernels_phase(dev))
-    params, params_s = (params_8b(dev) if {"engine", "spec", "api", "serve", "disagg", "kvtier",
-                                            "fleet"} & set(phases) else (None, 0.0))
+    params, params_s = (params_8b(dev) if {"engine", "spec", "api", "serve", "data", "disagg",
+                                            "kvtier", "fleet"} & set(phases) else (None, 0.0))
     lora_launches, api_launches, disagg_launches, replayed = {}, {}, {}, {}
-    serve_launches = {}
+    serve_launches, data_launches, feed_launches = {}, {}, {}
     disagg_device_launches = {}
     kvtier_launches, fleet_launches, publish_launches = {}, {}, {}
     if "engine" in phases:
@@ -4783,6 +5194,8 @@ def main(argv=None) -> int:
         serve_launches = serve_phase(dev, params, api_res)["kernel_launches"]
     if "api" in phases:
         del api_res
+    if "data" in phases:
+        data_launches = data_phase(dev, params)["kernel_launches"]
     if "disagg" in phases:
         disagg_res = disagg_phase(dev, params, engine_res)
         disagg_launches = disagg_res["kernel_launches"]
@@ -4803,6 +5216,8 @@ def main(argv=None) -> int:
     if "train" in phases:
         train_res = train_phase(dev, keep_state="publish" in phases)
         launches.update(train_res["kernel_launches"])
+    if "data_feed" in phases:
+        feed_launches = data_feed_phase(dev)["kernel_launches"]
     if "publish" in phases:
         publish_launches = publish_phase(dev, train_res.pop("trained"))["kernel_launches"]
     if "train_parity" in phases:
@@ -4821,6 +5236,8 @@ def main(argv=None) -> int:
             **({"launches_lora_phase": lora_launches[name]} if name in lora_launches else {}),
             **({"launches_api_phase": api_launches[name]} if name in api_launches else {}),
             **({"launches_serve_phase": serve_launches[name]} if name in serve_launches else {}),
+            **({"launches_data_phase": data_launches[name]} if name in data_launches else {}),
+            **({"launches_data_feed_phase": feed_launches[name]} if name in feed_launches else {}),
             **({"launches_disagg_phase": disagg_launches[name]}
                if name in disagg_launches else {}),
             **({"launches_disagg_device_leg": disagg_device_launches[name]}

@@ -19,11 +19,11 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["autoscale", "chaos", "cluster", "core", "fabric", "fleet", "llm", "models", "nn",
-           "obs", "ops", "resolve_device", "serve", "train", "util", "utils"]
+__all__ = ["autoscale", "chaos", "cluster", "core", "data", "fabric", "fleet", "llm", "models",
+           "nn", "obs", "ops", "resolve_device", "serve", "train", "util", "utils"]
 
-_SUBPACKAGES = ("autoscale", "chaos", "cluster", "core", "fabric", "fleet", "llm", "models", "nn",
-                "obs", "ops", "serve", "train", "util", "utils")
+_SUBPACKAGES = ("autoscale", "chaos", "cluster", "core", "data", "fabric", "fleet", "llm", "models",
+                "nn", "obs", "ops", "serve", "train", "util", "utils")
 
 
 def resolve_device(device) -> "torch.device":  # noqa: F821

@@ -162,9 +162,12 @@ class Actor:
             loop.close()
 
     def _drain_dead(self, mailbox: queue.Queue) -> None:
-        """After this mailbox's actor incarnation ends: fail queued work."""
+        """After this mailbox's actor incarnation ends: fail queued work, and
+        drop the instance, so what it holds (an engine's KV cache and graphs)
+        is freed although the actor's record and handles live on."""
         if not self._stale(mailbox):
             self.state = ActorState.DEAD
+            self.instance = None
             self._release_resources()
         while True:
             try:

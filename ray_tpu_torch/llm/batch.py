@@ -3,9 +3,13 @@
 
 The processor is a ``map_batches`` stage holding one engine per worker:
 rows in, rows + generated text out, continuous batching inside the stage.
-``build_processor`` returns ``apply(dataset)``, which calls the given
-dataset's ``map_batches`` with the reference's arguments; the port has no
-dataset runtime of its own (ROADMAP.md, Queue 1).
+``build_processor`` returns ``apply(dataset)``, which calls a
+``ray_tpu_torch.data.Dataset``'s ``map_batches`` with the reference's
+arguments: the stage class goes onto an actor pool of one (a thread of this
+process, on the port's runtime), its engine on ``ProcessorConfig.device``.
+The engine's graphs capture on that actor's thread. When the pool is
+killed at the end of the stream the actor drops its instance, and with it
+the engine's KV cache and graphs.
 """
 
 from __future__ import annotations

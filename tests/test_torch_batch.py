@@ -3,13 +3,24 @@
 ``_EngineStage`` on the same dict batch (a prompt column, then a messages
 column) gives the reference's ``generated_text`` (greedy fp32, the same
 weights, EOS stripped), and ``build_processor`` hands a dataset's
-``map_batches`` the reference's arguments.
+``map_batches`` the reference's arguments. Over a port ``Dataset`` on the
+port's runtime, ``build_processor`` gives the rows the reference's gives
+over a reference ``Dataset``: their order, the carried columns and the
+generated text.
 """
 
 import dataclasses
 
 import jax
 import jax.numpy as jnp
+import ray_tpu
+import ray_tpu_torch
+from ray_tpu import data as jdata
+from ray_tpu import serve as jserve
+from ray_tpu.core import runtime as jrt
+from ray_tpu_torch import data as tdata
+from ray_tpu_torch import serve as tserve
+from ray_tpu_torch.core import runtime as trt
 import numpy as np
 import pytest
 import torch
@@ -95,3 +106,46 @@ def test_build_processor_hands_map_batches_the_reference_arguments(weights):
     assert port_kw["fn_constructor_args"] == (port_cfg,)
     strip = lambda kw: {k: v for k, v in kw.items() if k != "fn_constructor_args"}  # noqa: E731
     assert strip(port_kw) == strip(ref_kw) == {"batch_size": 4, "concurrency": 1}
+
+
+def _rows(batch: dict) -> list:
+    n = len(next(iter(batch.values())))
+    return [{k: v[i] for k, v in batch.items()} for i in range(n)]
+
+
+def _on_runtime(api, runtime, serve, fn):
+    """``fn()`` on a fresh runtime of this package (4 CPUs), torn down
+    after, Serve first."""
+    serve.shutdown()
+    if runtime.is_initialized():
+        runtime.shutdown_runtime()
+    api.init(num_cpus=4)
+    try:
+        return fn()
+    finally:
+        serve.shutdown()
+        runtime.shutdown_runtime()
+
+
+@pytest.mark.parametrize("column", sorted(BATCHES))
+def test_build_processor_over_a_dataset_equals_reference(weights, column):
+    """The stage on an actor pool of one, batch_size 4: the port's rows
+    equal the reference's, in order, every column carried. Prompts come in
+    2 blocks; messages in 1, since both packages build a block of equally
+    long message lists as a 2-D column, which a ragged block's 1-D one
+    cannot be concatenated with."""
+    kw, batch = BATCHES[column]
+    ref_cfg, port_cfg = _configs(weights, **kw)
+    rows, blocks = _rows(batch), 1 if column == "messages" else 2
+    ref = _on_runtime(ray_tpu, jrt, jserve, lambda: jbuild_processor(ref_cfg)(
+        jdata.from_items(rows, parallelism=blocks)).take_all())
+    got = _on_runtime(ray_tpu_torch, trt, tserve, lambda: build_processor(port_cfg)(
+        tdata.from_items(rows, parallelism=blocks)).take_all())
+    out_col = kw.get("output_column", "generated_text")
+    assert len(got) == len(rows) and [set(r) for r in got] == [set(batch) | {out_col}] * len(rows)
+    for k in batch:
+        assert [np.asarray(r[k]).tolist() for r in got] == [np.asarray(r[k]).tolist()
+                                                            for r in ref]
+    assert [str(r[out_col]) for r in got] == [str(r[out_col]) for r in ref]
+    assert [type(r[out_col]) for r in got] == [type(r[out_col]) for r in ref]
+    assert any(r[out_col] for r in got)

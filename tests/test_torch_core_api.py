@@ -27,6 +27,7 @@ from ray_tpu_torch.core import runtime as trt
 
 pytestmark = pytest.mark.torch_port
 torch.set_num_threads(2)
+WAIT_S = 60  # every wait on a task, a response or a future fails past this
 
 PACKAGES = {"ref": (ray_tpu, jrt, jserve), "port": (ray_tpu_torch, trt, tserve)}
 
@@ -61,8 +62,8 @@ def _raises(fn) -> tuple:
 
 def test_task_basic(rt):
     f = rt.remote(lambda x: x + 1)
-    assert rt.get(f.remote(1)) == 2
-    assert rt.get([f.remote(i) for i in range(10)]) == list(range(1, 11))
+    assert rt.get(f.remote(1), timeout=WAIT_S) == 2
+    assert rt.get([f.remote(i) for i in range(10)], timeout=WAIT_S) == list(range(1, 11))
 
 
 def test_task_chaining_and_deps(rt):
@@ -73,7 +74,7 @@ def test_task_chaining_and_deps(rt):
     r = f.remote(1)
     for _ in range(5):
         r = f.remote(r)
-    assert rt.get(r) == 64
+    assert rt.get(r, timeout=WAIT_S) == 64
 
 
 def test_task_error_propagates(rt):
@@ -81,10 +82,10 @@ def test_task_error_propagates(rt):
     def boom():
         raise ValueError("kapow")
 
-    name, msg = _raises(lambda: rt.get(boom.remote()))
+    name, msg = _raises(lambda: rt.get(boom.remote(), timeout=WAIT_S))
     assert name == "TaskError" and "kapow" in msg
     with pytest.raises(rt.TaskError) as ei:
-        rt.get(boom.remote())
+        rt.get(boom.remote(), timeout=WAIT_S)
     assert isinstance(ei.value.cause, ValueError)
 
 
@@ -97,15 +98,15 @@ def test_error_propagates_through_deps(rt):
     def g(x):
         return x
 
-    name, msg = _raises(lambda: rt.get(g.remote(boom.remote())))
+    name, msg = _raises(lambda: rt.get(g.remote(boom.remote()), timeout=WAIT_S))
     assert name == "TaskError" and "root cause" in msg
 
 
 def test_put_get_by_reference(rt):
     arr = np.arange(1000)
-    assert rt.get(rt.put(arr)) is arr
+    assert rt.get(rt.put(arr), timeout=WAIT_S) is arr
     t = torch.arange(1000, dtype=torch.float32)
-    out = rt.get(rt.put(t))
+    out = rt.get(rt.put(t), timeout=WAIT_S)
     assert out is t and out.data_ptr() == t.data_ptr()
 
 
@@ -113,8 +114,8 @@ def test_task_args_by_reference(rt):
     """A tensor handed to a task arrives as the caller's object."""
     t = torch.ones(64)
     ptr = rt.remote(lambda x: x.data_ptr())
-    assert rt.get(ptr.remote(t)) == t.data_ptr()
-    assert rt.get(ptr.remote(rt.put(t))) == t.data_ptr()
+    assert rt.get(ptr.remote(t), timeout=WAIT_S) == t.data_ptr()
+    assert rt.get(ptr.remote(rt.put(t)), timeout=WAIT_S) == t.data_ptr()
 
 
 def test_num_returns(rt):
@@ -123,13 +124,13 @@ def test_num_returns(rt):
         return 1, 2, 3
 
     a, b, c = three.remote()
-    assert rt.get([a, b, c]) == [1, 2, 3]
+    assert rt.get([a, b, c], timeout=WAIT_S) == [1, 2, 3]
 
     @rt.remote(num_returns=2)
     def wrong():
         return 1, 2, 3
 
-    name, msg = _raises(lambda: rt.get(wrong.remote()[0]))
+    name, msg = _raises(lambda: rt.get(wrong.remote()[0], timeout=WAIT_S))
     assert name == "TaskError" and "num_returns=2" in msg
 
 
@@ -164,7 +165,7 @@ def test_get_timeout(rt):
 
 def test_options_override(rt):
     f = rt.remote(lambda: 1)
-    assert rt.get(f.options(num_cpus=2).remote()) == 1
+    assert rt.get(f.options(num_cpus=2).remote(), timeout=WAIT_S) == 1
     assert _raises(lambda: f.options(bogus_option=1))[0] == "TypeError"
 
 
@@ -182,7 +183,7 @@ def test_resource_limits_concurrency(rt):
             running.remove(i)
         return i
 
-    assert sorted(rt.get([task.remote(i) for i in range(6)])) == list(range(6))
+    assert sorted(rt.get([task.remote(i) for i in range(6)], timeout=WAIT_S)) == list(range(6))
     assert max(peak) <= 2  # 4 CPUs / 2 per task
 
 
@@ -192,7 +193,7 @@ def test_streaming_generator(rt):
         for i in range(n):
             yield i * 10
 
-    assert [rt.get(ref) for ref in gen.remote(5)] == [0, 10, 20, 30, 40]
+    assert [rt.get(ref, timeout=WAIT_S) for ref in gen.remote(5)] == [0, 10, 20, 30, 40]
 
     @rt.remote(num_returns="streaming")
     def broken():
@@ -200,8 +201,8 @@ def test_streaming_generator(rt):
         raise RuntimeError("mid-stream")
 
     refs = list(broken.remote())
-    assert rt.get(refs[0]) == 1
-    name, msg = _raises(lambda: rt.get(refs[1]))
+    assert rt.get(refs[0], timeout=WAIT_S) == 1
+    name, msg = _raises(lambda: rt.get(refs[1], timeout=WAIT_S))
     assert name == "TaskError" and "mid-stream" in msg
 
 
@@ -216,7 +217,8 @@ def test_actor_counter(rt):
             return self.n
 
     c = Counter.remote()
-    assert rt.get([c.incr.remote() for _ in range(10)]) == list(range(1, 11))  # in order
+    # in order
+    assert rt.get([c.incr.remote() for _ in range(10)], timeout=WAIT_S) == list(range(1, 11))
 
 
 def test_actor_error_and_survives(rt):
@@ -229,8 +231,8 @@ def test_actor_error_and_survives(rt):
             return "ok"
 
     a = A.remote()
-    assert _raises(lambda: rt.get(a.bad.remote()))[0] == "TaskError"
-    assert rt.get(a.good.remote()) == "ok"
+    assert _raises(lambda: rt.get(a.bad.remote(), timeout=WAIT_S))[0] == "TaskError"
+    assert rt.get(a.good.remote(), timeout=WAIT_S) == "ok"
     assert _raises(lambda: a.missing)[0] == "AttributeError"
 
 
@@ -244,7 +246,7 @@ def test_actor_ctor_failure(rt):
             return 1
 
     b = Broken.remote()
-    name, msg = _raises(lambda: rt.get(b.m.remote()))
+    name, msg = _raises(lambda: rt.get(b.m.remote(), timeout=WAIT_S))
     assert name == "ActorDiedError" and "ctor boom" in msg
 
 
@@ -255,10 +257,10 @@ def test_named_actor(rt):
             return "pong"
 
     svc = Svc.options(name="svc1").remote()  # noqa: F841 — the handle keeps it alive
-    assert rt.get(rt.get_actor("svc1").ping.remote()) == "pong"
+    assert rt.get(rt.get_actor("svc1").ping.remote(), timeout=WAIT_S) == "pong"
     assert _raises(lambda: Svc.options(name="svc1").remote())[0] == "ValueError"
     got = Svc.options(name="svc1", get_if_exists=True).remote()
-    assert rt.get(got.ping.remote()) == "pong"
+    assert rt.get(got.ping.remote(), timeout=WAIT_S) == "pong"
     assert _raises(lambda: rt.get_actor("nobody"))[0] == "ValueError"
 
 
@@ -269,10 +271,10 @@ def test_kill_actor(rt):
             return 1
 
     a = A.remote()
-    assert rt.get(a.m.remote()) == 1
+    assert rt.get(a.m.remote(), timeout=WAIT_S) == 1
     rt.kill(a)
     time.sleep(0.1)
-    assert _raises(lambda: rt.get(a.m.remote()))[0] == "ActorDiedError"
+    assert _raises(lambda: rt.get(a.m.remote(), timeout=WAIT_S))[0] == "ActorDiedError"
 
 
 def test_actor_restart(rt):
@@ -286,10 +288,10 @@ def test_actor_restart(rt):
             return self.n
 
     a = A.remote()
-    assert rt.get([a.incr.remote(), a.incr.remote()]) == [1, 2]
+    assert rt.get([a.incr.remote(), a.incr.remote()], timeout=WAIT_S) == [1, 2]
     rt.kill(a, no_restart=False)
     time.sleep(0.2)
-    assert rt.get(a.incr.remote()) == 1  # the constructor ran again
+    assert rt.get(a.incr.remote(), timeout=WAIT_S) == 1  # the constructor ran again
 
 
 def test_async_actor(rt):
@@ -304,10 +306,10 @@ def test_async_actor(rt):
 
     svc = AsyncSvc.remote()
     t0 = time.monotonic()
-    assert rt.get([svc.slow_echo.remote(i) for i in range(8)]) == list(range(8))
+    assert rt.get([svc.slow_echo.remote(i) for i in range(8)], timeout=WAIT_S) == list(range(8))
     assert time.monotonic() - t0 < 1.2  # 8 x 0.2 s of sleep overlap
     # every call runs on the actor's own event loop
-    assert len(set(rt.get([svc.loop_id.remote() for _ in range(4)]))) == 1
+    assert len(set(rt.get([svc.loop_id.remote() for _ in range(4)], timeout=WAIT_S))) == 1
 
 
 def test_actor_resource_released_on_death(rt):
@@ -317,7 +319,7 @@ def test_actor_resource_released_on_death(rt):
             return 1
 
     b = Big.remote()
-    assert rt.get(b.m.remote()) == 1
+    assert rt.get(b.m.remote(), timeout=WAIT_S) == 1
     assert rt.available_resources().get("CPU", 0) == 0
     rt.kill(b)
     time.sleep(0.3)
@@ -344,11 +346,11 @@ def test_actor_handle_in_task(rt):
 
     @rt.remote
     def writer(store, k, v):
-        return rt.get(store.set.remote(k, v))
+        return rt.get(store.set.remote(k, v), timeout=WAIT_S)
 
     s = Store.remote()
-    assert rt.get(writer.remote(s, "a", 1)) is True
-    assert rt.get(s.get.remote("a")) == 1
+    assert rt.get(writer.remote(s, "a", 1), timeout=WAIT_S) is True
+    assert rt.get(s.get.remote("a"), timeout=WAIT_S) == 1
 
 
 def test_placement_group(rt):
@@ -356,7 +358,7 @@ def test_placement_group(rt):
     assert pg.ready(timeout=10)
     f = rt.remote(lambda: "in bundle").options(
         scheduling_strategy=rt.PlacementGroupSchedulingStrategy(pg, 1))
-    assert rt.get(f.remote()) == "in bundle"
+    assert rt.get(f.remote(), timeout=WAIT_S) == "in bundle"
     assert rt.available_resources()["CPU"] == 2
     assert "CREATED" in repr(pg)
     rt.remove_placement_group(pg)
@@ -370,7 +372,7 @@ def test_task_events_record_lifecycle(rt):
     from importlib import import_module
 
     runtime = import_module(f"{rt.__name__}.core.runtime").get_runtime()
-    rt.get(rt.remote(lambda: 1).options(name="probe").remote())
+    rt.get(rt.remote(lambda: 1).options(name="probe").remote(), timeout=WAIT_S)
     states = [e.state for e in runtime.task_events.events() if e.name.startswith("probe")]
     assert states == ["SUBMITTED", "RUNNING", "FINISHED"]
 
@@ -487,6 +489,6 @@ def test_task_runs_under_the_submitters_trace(rt):
     with obs.use(ctx):
         ref = rt.remote(lambda: (obs.current().trace_id, obs.current().span_id)).options(
             name="traced").remote()
-    assert rt.get(ref) == (ctx.trace_id, ctx.span_id)
+    assert rt.get(ref, timeout=WAIT_S) == (ctx.trace_id, ctx.span_id)
     assert {e.trace_id for e in runtime.task_events.events()
             if e.name.startswith("traced")} == {ctx.trace_id}

@@ -1091,7 +1091,7 @@ def test_two_engines_capture_concurrently_on_two_threads():
 
     def serve(i):
         try:
-            start.wait()
+            start.wait(timeout=60)
             for _ in range(2):  # the second pass replays what the first captured
                 engines[i].allocator.drop_prefix_cache()
                 results[i] = [t for t, _ in _serve_tokens(engines[i], prompts, [None] * 4)]
@@ -1806,3 +1806,115 @@ def test_serve_shutdown_frees_the_kv_cache_on_card():
         ray_tpu_torch.shutdown()
     assert not thread.is_alive()
     assert before - after >= kv_bytes > 0
+
+
+def _feed_runtime():
+    import ray_tpu_torch
+    from ray_tpu_torch.core import runtime as rt
+
+    if rt.is_initialized():
+        rt.shutdown_runtime()
+    ray_tpu_torch.init(num_cpus=4)
+
+
+def test_device_feed_batches_equal_host_batches_bit_for_bit():
+    """iter_device_batches on the card: int32, float32 and bf16 (a dtypes
+    cast on the host) columns equal the host batches bit for bit, object
+    columns stay lists, and every tensor lies on the card."""
+    _need_cuda()
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+
+    rng = np.random.default_rng(0)
+    cols = {"tok": rng.integers(0, 128256, (40, 1025), dtype=np.int32),
+            "x": rng.standard_normal((40, 64)).astype(np.float32),
+            "h": rng.standard_normal((40, 64)).astype(np.float32),
+            "s": np.array([f"row {i}" for i in range(40)], dtype=object)}
+    _feed_runtime()
+    try:
+        ds = data.from_numpy(cols)
+        host = list(ds.iter_batches(batch_size=16))
+        fed = list(ds.iter_device_batches(batch_size=16, dtypes={"h": torch.bfloat16}))
+        torch.cuda.synchronize()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert [len(b["s"]) for b in fed] == [16, 16, 8]
+    for h, f in zip(host, fed):
+        for k, dt in (("tok", torch.int32), ("x", torch.float32), ("h", torch.bfloat16)):
+            assert f[k].is_cuda and f[k].dtype == dt
+            want = torch.from_numpy(h[k]).to(dt)
+            assert torch.equal(f[k].cpu(), want)
+        assert f["s"] == list(h["s"])
+
+
+def test_device_feed_consumer_waits_for_a_held_back_copy(monkeypatch):
+    """The feed's side stream is held back by a spin before each copy: a
+    kernel on the consumer's stream still reads the batch's values, since
+    that stream waits on the copy's event."""
+    _need_cuda()
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+    from ray_tpu_torch.data import iterator
+
+    copy = iterator._CudaFeed._copy
+
+    def held_back(self, host):
+        with torch.cuda.stream(self.stream):
+            torch.cuda._sleep(200_000_000)  # ~0.1 s of the side stream
+        return copy(self, host)
+
+    monkeypatch.setattr(iterator._CudaFeed, "_copy", held_back)
+    x = np.arange(6 * 4096, dtype=np.float32).reshape(6, 4096)
+    _feed_runtime()
+    try:
+        sums = [(b["x"] * 2).sum(dim=1) for b in data.from_numpy({"x": x}).iter_device_batches(
+            batch_size=2, prefetch=2)]
+        torch.cuda.synchronize()
+    finally:
+        ray_tpu_torch.shutdown()
+    got = torch.cat(sums).cpu().numpy()
+    np.testing.assert_array_equal(got, (x * 2).sum(axis=1))
+
+
+def test_build_processor_on_card_equals_direct_generate():
+    """build_processor at LLAMA_400M bf16 over a port Dataset (the stage on
+    an actor pool of one, its graphs captured on the actor's thread) gives
+    each row the text of the same engine configuration's direct generate on
+    the same 4-row batches; the pool's engine is freed after the stream."""
+    _need_cuda()
+    import dataclasses
+    import gc
+
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+    from ray_tpu_torch.llm import (EngineConfig, LLMEngine, ProcessorConfig, SamplingParams,
+                                   build_processor)
+    from ray_tpu_torch.llm.openai_api import ByteTokenizer
+    from ray_tpu_torch.models.llama import LLAMA_400M, init_params
+
+    params = init_params(LLAMA_400M, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                         dtype=torch.bfloat16)
+    cfg = EngineConfig(model=LLAMA_400M, num_blocks=256, block_size=16, max_num_seqs=4,
+                       max_prefill_len=256, mixed_batch=True, mixed_prefill_chunk=64)
+    sp = SamplingParams(max_tokens=16, temperature=0.0)
+    prompts = [f"prompt {i}: " + "the quick brown fox " * (1 + i % 5) for i in range(8)]
+    pc = ProcessorConfig(engine=dataclasses.replace(cfg), params=params, sampling=sp,
+                         batch_size=4)
+    _feed_runtime()
+    try:
+        torch.cuda.synchronize()
+        rows = build_processor(pc)(data.from_items(
+            [{"prompt": p, "row": i} for i, p in enumerate(prompts)], parallelism=2)).take_all()
+    finally:
+        ray_tpu_torch.shutdown()
+    gc.collect()
+    tok = ByteTokenizer(cfg.model.vocab_size)
+    eng = LLMEngine(dataclasses.replace(cfg, eos_token_id=tok.eos_token_id), params=params,
+                    device="cuda")
+    want = []
+    for lo in range(0, 8, 4):
+        for toks in eng.generate([tok.encode(p) for p in prompts[lo:lo + 4]], sp):
+            want.append(tok.decode(toks[:-1] if toks and toks[-1] == tok.eos_token_id else toks))
+    assert [r["row"] for r in rows] == list(range(8))
+    assert [r["prompt"] for r in rows] == prompts
+    assert [r["generated_text"] for r in rows] == want

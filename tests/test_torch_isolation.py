@@ -109,7 +109,7 @@ import json, urllib.request
 from ray_tpu_torch import serve
 from ray_tpu_torch.llm import LLMConfig, build_openai_app
 ray_tpu_torch.init(num_cpus=4)
-assert ray_tpu_torch.get(ray_tpu_torch.remote(lambda x: x + 1).remote(1)) == 2
+assert ray_tpu_torch.get(ray_tpu_torch.remote(lambda x: x + 1).remote(1), timeout=60) == 2
 serve.start(host="127.0.0.1", port=0)
 build_openai_app(LLMConfig(model_id="iso", engine=EngineConfig(
     model=LLAMA_TINY, num_blocks=32, block_size=4, max_num_seqs=2, max_prefill_len=32),
@@ -119,6 +119,49 @@ req = urllib.request.Request(base + "/v1/completions", data=json.dumps(
     {"prompt": "hi", "max_tokens": 3, "temperature": 0.0}).encode())
 assert json.loads(urllib.request.urlopen(req, timeout=60).read())["usage"]["completion_tokens"] == 3
 serve.shutdown()
+ray_tpu_torch.shutdown()
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-3000:]
+
+
+def test_data_imports_and_runs_without_pandas_pyarrow_or_pil():
+    """``ray_tpu_torch.data`` imports with pandas, pyarrow and PIL blocked
+    (the card's host has none of them) as well as JAX, the JAX package and
+    triton, and a dataset runs on the in-process runtime: a map, a sort, a
+    groupby, an actor pool, CSV and JSON round trips and the device feed
+    on the CPU."""
+    code = """
+import sys, tempfile
+for name in ("jax", "jaxlib", "optax", "ray_tpu", "triton", "pandas", "pyarrow", "PIL"):
+    sys.modules[name] = None
+import numpy as np, torch
+import ray_tpu_torch
+from ray_tpu_torch import data
+from ray_tpu_torch.data import datasources_ext
+from ray_tpu_torch.llm import batch
+ray_tpu_torch.init(num_cpus=4)
+ds = data.range(40, parallelism=4).map(lambda x: x * 2)
+assert ds.sort("item", descending=True).take(2) == [78, 76]
+assert sorted(r["count()"] for r in data.from_items(
+    [{"k": i % 2} for i in range(10)]).groupby("k").count().take_all()) == [5, 5]
+
+class Add:
+    def __call__(self, b):
+        return {"item": b["item"] + 1}
+
+assert data.range(8).map_batches(Add, concurrency=1).take_all() == list(range(1, 9))
+d = tempfile.mkdtemp()
+data.from_items([{"a": i} for i in range(5)]).write_csv(d + "/csv")
+data.from_items([{"a": i} for i in range(5)]).write_json(d + "/json")
+assert sorted(r["a"] for r in data.read_csv(d + "/csv").take_all()) == list(range(5))
+assert sorted(r["a"] for r in data.read_json(d + "/json").take_all()) == list(range(5))
+fed = list(data.from_numpy({"x": np.arange(6, dtype=np.int32)}).iter_device_batches(
+    batch_size=4, device="cpu"))
+assert [b["x"].tolist() for b in fed] == [[0, 1, 2, 3], [4, 5]]
 ray_tpu_torch.shutdown()
 print("ok")
 """

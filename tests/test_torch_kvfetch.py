@@ -381,7 +381,7 @@ def _gated_load(pe, pkg, n=4):
     if pkg == "ref":
         # the pool lock, made reentrant by the caller: held on this thread
         # through the picks, which take it again
-        pe.lock.acquire()
+        assert pe.lock.acquire(timeout=60)
         load()
         return pe.lock
     release, ran = threading.Event(), threading.Event()

@@ -54,6 +54,7 @@ from ray_tpu_torch.util import metrics as tmetrics
 
 pytestmark = pytest.mark.torch_port
 torch.set_num_threads(2)
+WAIT_S = 60  # every wait on a task, a response or a future fails past this
 
 J_FP32_TINY = dataclasses.replace(jllama.LLAMA_TINY, dtype=jnp.float32)
 FP32_TINY = dataclasses.replace(tllama.LLAMA_TINY, dtype=torch.float32)
@@ -436,7 +437,7 @@ def test_priority_submit_preempts_at_the_next_step_boundary(tree):
         gate.set()
         gate = entered.get(timeout=30)  # the next step held: the submit was taken between
         assert fut.done() and engine.num_preemptions == 0
-        sinks = [f.result()[1] for f in futs + [fut]]
+        sinks = [f.result(timeout=WAIT_S)[1] for f in futs + [fut]]
         gate.set()
         gate = entered.get(timeout=30)  # that step preempted a priority-0 row
         assert engine.num_preemptions == 1

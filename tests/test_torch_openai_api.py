@@ -43,6 +43,7 @@ from ray_tpu_torch.models import llama as tllama
 
 pytestmark = pytest.mark.torch_port
 torch.set_num_threads(2)
+WAIT_S = 60  # every wait on a task, a response or a future fails past this
 
 J_FP32_TINY = dataclasses.replace(jllama.LLAMA_TINY, dtype=jnp.float32)
 FP32_TINY = dataclasses.replace(tllama.LLAMA_TINY, dtype=torch.float32)
@@ -465,7 +466,7 @@ def test_submit_during_a_step_returns_within_one_step(weights):
             gate.set()
             gate = entered.get(timeout=30)  # the next step runs, held
             assert fut.done()  # answered at the step boundary in between
-            queues.append(fut.result()[1])
+            queues.append(fut.result(timeout=WAIT_S)[1])
         free.set()
         gate.set()
         with pytest.raises(ValueError, match="max_prefill_len"):

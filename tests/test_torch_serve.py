@@ -33,6 +33,7 @@ from ray_tpu_torch.core import runtime as trt
 
 pytestmark = pytest.mark.torch_port
 torch.set_num_threads(2)
+WAIT_S = 60  # every wait on a task, a response or a future fails past this
 
 PACKAGES = {"ref": (ray_tpu, jserve, jrt), "port": (ray_tpu_torch, tserve, trt)}
 
@@ -84,7 +85,7 @@ def test_deploy_function_and_call(pkg):
         return 2 * x
 
     handle = serve.run(double.bind(), name="fn_app", route_prefix=None)
-    assert handle.remote(21).result() == 42
+    assert handle.remote(21).result(timeout_s=WAIT_S) == 42
 
 
 def test_deploy_class_replicas_and_methods(pkg):
@@ -102,8 +103,8 @@ def test_deploy_class_replicas_and_methods(pkg):
             return id(self)
 
     handle = serve.run(Counter.bind(100), name="cls_app", route_prefix=None)
-    assert handle.remote(5).result() == 105
-    ids = {handle.which.remote().result() for _ in range(20)}
+    assert handle.remote(5).result(timeout_s=WAIT_S) == 105
+    ids = {handle.which.remote().result(timeout_s=WAIT_S) for _ in range(20)}
     assert 1 <= len(ids) <= 2
     st = serve.status()["applications"]["cls_app"]["deployments"]["Counter"]
     assert st["replica_states"]["RUNNING"] == 2 and st["target_replicas"] == 2
@@ -123,10 +124,10 @@ def test_composition_handle_in_constructor(pkg):
             self.pre = pre
 
         def __call__(self, x):
-            return self.pre.remote(x).result() * 10
+            return self.pre.remote(x).result(timeout_s=WAIT_S) * 10
 
     handle = serve.run(Model.bind(Preprocess.bind()), name="comp", route_prefix=None)
-    assert handle.remote(4).result() == 50
+    assert handle.remote(4).result(timeout_s=WAIT_S) == 50
 
 
 def test_response_passed_as_argument(pkg):
@@ -142,7 +143,7 @@ def test_response_passed_as_argument(pkg):
 
     h1 = serve.run(stage1.bind(), name="s1", route_prefix=None)
     h2 = serve.run(stage2.bind(), name="s2", route_prefix=None)
-    assert h2.remote(h1.remote(10)).result() == 21
+    assert h2.remote(h1.remote(10)).result(timeout_s=WAIT_S) == 21
 
 
 def test_args_reach_the_replica_by_reference(pkg):
@@ -161,7 +162,7 @@ def test_args_reach_the_replica_by_reference(pkg):
 
     h = serve.run(Holder.bind(weights), name="byref", route_prefix=None)
     x = torch.zeros(8)
-    assert h.ptrs.remote(x).result() == (weights.data_ptr(), x.data_ptr())
+    assert h.ptrs.remote(x).result(timeout_s=WAIT_S) == (weights.data_ptr(), x.data_ptr())
 
 
 def test_user_config_reconfigure(pkg):
@@ -179,13 +180,13 @@ def test_user_config_reconfigure(pkg):
             return self.threshold
 
     handle = serve.run(Thresholder.bind(), name="ucfg", route_prefix=None)
-    assert handle.remote().result() == 5
+    assert handle.remote().result(timeout_s=WAIT_S) == 5
     serve.run(Thresholder.options(user_config={"threshold": 9}).bind(), name="ucfg",
               route_prefix=None)
     deadline = time.time() + 10
-    while time.time() < deadline and handle.remote().result() != 9:
+    while time.time() < deadline and handle.remote().result(timeout_s=WAIT_S) != 9:
         time.sleep(0.05)
-    assert handle.remote().result() == 9
+    assert handle.remote().result(timeout_s=WAIT_S) == 9
 
 
 def test_status_and_delete(pkg):
@@ -199,8 +200,8 @@ def test_status_and_delete(pkg):
     st = serve.status()
     assert st["applications"]["stapp"]["status"] == "RUNNING"
     assert st["applications"]["stapp"]["deployments"]["f"]["replica_states"]["RUNNING"] >= 1
-    assert serve.get_app_handle("stapp").remote().result() == "ok"
-    assert serve.get_deployment_handle("f", "stapp").remote().result() == "ok"
+    assert serve.get_app_handle("stapp").remote().result(timeout_s=WAIT_S) == "ok"
+    assert serve.get_deployment_handle("f", "stapp").remote().result(timeout_s=WAIT_S) == "ok"
     serve.delete("stapp")
     assert "stapp" not in serve.status()["applications"]
     with pytest.raises(ValueError):
@@ -280,7 +281,7 @@ def test_user_error_is_not_retried(pkg):
 
     h = serve.run(flaky.bind(), name="uerr", route_prefix=None)
     with pytest.raises(api.TaskError) as ei:
-        h.remote("k").result()
+        h.remote("k").result(timeout_s=WAIT_S)
     assert type(ei.value.cause).__name__ == "KeyError" and calls == ["k"]
 
 
@@ -298,7 +299,7 @@ def test_shutdown_hook_runs_on_delete(pkg):
                 f.write("cleaned")
 
     h = serve.run(WithCleanup.bind(), name="cleanup", route_prefix=None)
-    assert h.remote().result() == "ok"
+    assert h.remote().result(timeout_s=WAIT_S) == "ok"
     serve.delete("cleanup")
     deadline = time.time() + 10
     while time.time() < deadline and not os.path.exists(marker):
@@ -374,8 +375,8 @@ def test_kill_replica_fails_over(pkg):
         chaos.FaultSpec(chaos.KILL_REPLICA, site="serve.replica", max_fires=1)])
     chaos.install(sched)
     try:
-        assert h.remote(7).result() == 21
-        assert [h.remote(i).result() for i in range(4)] == [0, 3, 6, 9]
+        assert h.remote(7).result(timeout_s=WAIT_S) == 21
+        assert [h.remote(i).result(timeout_s=WAIT_S) for i in range(4)] == [0, 3, 6, 9]
     finally:
         chaos.uninstall()
     assert sched.decisions() == [(chaos.KILL_REPLICA, "serve.replica", 0)]
@@ -385,7 +386,7 @@ def test_kill_replica_fails_over(pkg):
     chaos.install(sched)
     try:
         with pytest.raises(api.TaskError) as ei:
-            h.options(system_retries=0).remote(1).result()
+            h.options(system_retries=0).remote(1).result(timeout_s=WAIT_S)
     finally:
         chaos.uninstall()
     assert type(ei.value.cause).__name__ == "ReplicaCrashed"

@@ -48,6 +48,7 @@ from ray_tpu_torch.models import llama as tllama
 
 pytestmark = pytest.mark.torch_port
 torch.set_num_threads(2)
+WAIT_S = 60  # every wait on a task, a response or a future fails past this
 
 J_FP32_TINY = dataclasses.replace(jllama.LLAMA_TINY, dtype=jnp.float32)
 FP32_TINY = dataclasses.replace(tllama.LLAMA_TINY, dtype=torch.float32)
@@ -213,7 +214,7 @@ def test_handle_stream_joins_to_reference_text(apps):
     assert texts["port"] == texts["ref"]
     # the handle's unary path gives the same payload as HTTP
     body = {"prompt": "The cat", **kw}
-    via_handle = apps["port"][1].completions.remote(body).result()
+    via_handle = apps["port"][1].completions.remote(body).result(timeout_s=WAIT_S)
     assert via_handle["choices"][0]["text"] == texts["ref"]
 
 
@@ -285,8 +286,9 @@ def test_shutdown_stops_the_engine_and_frees_its_cache(weights):
         h = build_openai_app(LLMConfig(model_id="tiny2", engine=EngineConfig(
             model=FP32_TINY, **ENGINE_KW), params=weights[1], device="cpu"),
             name="llm2", route_prefix=None)
-        assert h.completions.remote({"prompt": "hi", "max_tokens": 3,
-                                     "temperature": 0.0}).result()["usage"]["completion_tokens"] == 3
+        out = h.completions.remote({"prompt": "hi", "max_tokens": 3,
+                                    "temperature": 0.0}).result(timeout_s=WAIT_S)
+        assert out["usage"]["completion_tokens"] == 3
         (server,) = _replica_servers(trt)
         thread, eng = server.runner._thread, server.engine
         assert thread.is_alive() and eng.cache is not None
