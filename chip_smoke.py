@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases build,kvtier          # the tiered KV cache alone
     python3 chip_smoke.py --phases build,fleet           # the canary ladder at LLAMA3_8B
     python3 chip_smoke.py --phases build,train,publish   # train -> publish -> serve
+    python3 chip_smoke.py --phases build,engine,process  # 8B in a pinned worker process
 
 Phases, each printing one JSON line:
 
@@ -160,7 +161,10 @@ Phases, each printing one JSON line:
            and read after), one more ungated inproc pass, then gated passes
            in turns, inproc, device, inproc, device, device, inproc (all 12
            admitted in one step, the decode loop parked until the 12
-           handoffs are sent, so one batch shape: the same bf16 bits), then
+           handoffs are sent, so one batch shape: the same bf16 bits), and
+           up to three more pairs in turns until one pair captured no graph
+           on either leg (a chunk controller that steps to a new chunk
+           length captures its graph: host timing decides), then
            a gated pass on each leg with one handoff corrupted in flight
            (CORRUPT_KV_TRANSFER at the connector's gate; on the device leg
            CORRUPT_DEVICE_TRANSFER in the transport, which degrades the edge
@@ -256,6 +260,28 @@ Phases, each printing one JSON line:
            ms by stage (seal, verify, the in-place write), each apply's ms,
            promote and rollback wall time, K3/K4 launches per replica (eager
            and in replays) and peak memory
+  process  GPU work in worker processes: ray_tpu_torch.init(worker_mode=
+           "process") (one GPU, detected; the shared-memory store built with
+           g++). A GPU task defined here (so it ships by value) serves
+           LLAMA3_8B in a worker pinned to the card (CUDA_VISIBLE_DEVICES
+           "0"): params_8b on the worker's card, the engine phase's
+           configuration and 12 requests (prompts as one int32 array through
+           the store), K3/K4 counted by the engine's marks, then each greedy
+           row's last step again (a 1-token request) for its logits, a bf16
+           CPU tensor [10, 128256] back through the store. Fails unless K3
+           and K4 launched in the worker, this process's allocated card
+           memory did not grow, the store is empty after, and the parity
+           model's fp32 greedy tokens in a worker equal this process's on the
+           card (the 8B streams' equality with the engine phase's first pass
+           is reported, with any differing tokens); a GPU task that holds 8
+           GiB and checks K3 at the kernels phase's shape against its plain
+           twin, then dies, retries in a fresh worker; a chaos KILL_WORKER at
+           process_pool.task on a GPU task retries to success; after
+           shutdown the card's free bytes are back within 256 MiB. Reports a
+           worker's cold start (fork to entry, import torch, first CUDA
+           context), a warm GPU task's round trip, a 64 MiB numpy argument
+           and result through the store and through the pipe in turns, the
+           8B task's param-init, capture and pass seconds and peak memory
   train    LLAMA_400M at full width and depth (bf16 compute, fp32 params,
            remat "dots", flash attention, AdamW lr 3e-4 wd 1e-4), B 8,
            S 1024, one fixed batch (numpy seed 0), with bench.py's gates:
@@ -453,6 +479,12 @@ def _check(name, got, ref, dtype_name, results):
     return err
 
 
+# K3's contexts in the kernels phase and the process phase's crash: B 16 over
+# 1..2048, one pad row
+K3_CTX_LENS = [0, 1, 17, 100, 255, 256, 511, 700, 1000, 1023, 1300, 1500, 1777, 1999, 2047,
+               2048]
+
+
 def kernels_phase(dev) -> dict:
     """Hold each kernel against its plain version and time both; returns
     the per-kernel numbers of the bf16 engine-shape cases."""
@@ -487,7 +519,7 @@ def kernels_phase(dev) -> dict:
         return lambda: F.scaled_dot_product_attention(qd, ke, ve, attn_mask=mask)
 
     # ---- K3: paged decode, B 16, contexts over 1..2048, one pad row ------
-    ctx_lens = [0, 1, 17, 100, 255, 256, 511, 700, 1000, 1023, 1300, 1500, 1777, 1999, 2047, 2048]
+    ctx_lens = K3_CTX_LENS
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
         for H, KVH, D, B, cl in ((32, 8, 128, 16, ctx_lens), (32, 8, 64, 8, ctx_lens[::2])):
@@ -3325,7 +3357,8 @@ def disagg_phase(dev, params, engine_res: dict) -> dict:
         # batch's graphs; the second reads its imports back from the cache
         gated = {"inproc": [], "device": []}
         reuse = {}
-        for leg in ("inproc", "device", "inproc", "device", "device", "inproc"):
+
+        def gated_pass(leg):
             o = orchs[leg]
             pe, de = o._prefill[0], o._decode[0]
             for p in (pe, de):
@@ -3345,6 +3378,22 @@ def disagg_phase(dev, params, engine_res: dict) -> dict:
             g.pop("traces")
             recs[leg]["keep"], recs[leg]["sent"] = False, {}
             gated[leg].append(g)
+
+        def capture_free() -> list:
+            return [j for j in range(len(gated["device"]))
+                    if not any(sum(c["captured"] for c in gated[leg][j]["graphs"].values())
+                               for leg in gated)]
+
+        for leg in ("inproc", "device", "inproc", "device", "device", "inproc"):
+            gated_pass(leg)
+        # a pass whose chunk controller steps to a new chunk length captures
+        # its graph (host timing decides): until a pair is capture-free on
+        # both legs, up to three more pairs in turns
+        for order in (("inproc", "device"), ("device", "inproc"), ("inproc", "device")):
+            if capture_free():
+                break
+            for leg in order:
+                gated_pass(leg)
         summary = {}
         for leg in ("inproc", "device"):
             fams, keys0, replays0, back = reuse[leg]
@@ -3364,8 +3413,7 @@ def disagg_phase(dev, params, engine_res: dict) -> dict:
         # the device leg against the inproc leg, pass for pass
         dev_equal = [sum(d["finals"][f"g{i}"] == p["finals"][f"g{i}"] for i in range(12))
                      for d, p in zip(gated["device"], gated["inproc"])]
-        free = [j for j in range(3) if not summary["device"]["graphs_captured"][j]
-                and not summary["inproc"]["graphs_captured"][j]]
+        free = capture_free()
         launches_equal = [gated["device"][j]["kernel_launches"]
                           == gated["inproc"][j]["kernel_launches"] for j in free]
         staged = [g["staged_device_handoffs"] for g in gated["device"]]
@@ -3376,7 +3424,8 @@ def disagg_phase(dev, params, engine_res: dict) -> dict:
                                 for leg in gated},
             "staged_device_handoffs": staged}
         res["gated"] = summary
-        if dev_equal != [12, 12, 12] or not free or not all(launches_equal) or any(staged) or \
+        if any(e != 12 for e in dev_equal) or not free or not all(launches_equal) or \
+                any(staged) or \
                 any(b != {"device": 12} for b in summary["device"]["handoff_backends"]):
             raise AssertionError(f"disagg: device leg against inproc: {summary['device_vs_inproc']}")
 
@@ -5098,9 +5147,338 @@ def fleet_phase(dev, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# process
+# ---------------------------------------------------------------------------
+
+
+PROCESS_CRASH_GIB = 8           # what the crashing task holds on its card
+PROCESS_FREE_SLACK = 256 << 20  # the card's free bytes back within this after shutdown
+STORE_PIPE_BYTES = 64 << 20     # the numpy argument and result, store against pipe
+WARM_TRIPS = 20
+
+
+def _cold_start_probe(submitted: float, device: str) -> dict:
+    """A fresh GPU worker's first task: fork to entry, ``import torch``,
+    the first CUDA context."""
+    import os
+    import sys
+
+    entered = time.time()
+    t0 = time.perf_counter()
+    had_torch = "torch" in sys.modules
+    import torch
+
+    t1 = time.perf_counter()
+    torch.zeros(1, device=device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"pid": os.getpid(), "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "submit_to_entry_s": entered - submitted, "torch_imported_before": had_torch,
+            "import_torch_s": t1 - t0, "cuda_context_s": t2 - t1,
+            "device": torch.cuda.get_device_name(0), "cards_seen": torch.cuda.device_count()}
+
+
+def _warm_trip() -> int:
+    import os
+
+    return os.getpid()
+
+
+def _serve_8b_in_worker(flat, lens, sps, greedy: int, device: str) -> dict:
+    """In a GPU worker: LLAMA3_8B's weights (``params_8b``, torch seed 0)
+    made on the worker's own card, the engine phase's configuration, the
+    engine phase's 12 requests (their prompts shipped as one int32 array),
+    K3/K4 counted over the pass by the engine's marks; then each greedy
+    row's last step again as a 1-token request (prompt + outputs but the
+    last: a prefix-cache hit), its logits taken at the sampler."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.models.llama import LLAMA3_8B
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from ray_tpu_torch.ops.ragged import ragged_attention_cuda
+
+    dev = torch.device(device)
+    params, params_s = params_8b(dev)
+    t0 = time.perf_counter()
+    eng = LLMEngine(EngineConfig(model=LLAMA3_8B, **ENGINE_KW), params=params, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    prompts = [flat[offs[i]:offs[i + 1]].tolist() for i in range(len(lens))]
+    paged_attention_cuda.launches = 0
+    ragged_attention_cuda.launches = 0
+    marks, replayed0 = _launch_marks(eng), _replayed_marks(eng)
+    finals, _reqs, wall, steps = _serve(eng, prompts, sps, "r")
+    launches = _launch_counts(eng, marks)
+    replayed = {n: v - replayed0[n] for n, v in _replayed_marks(eng).items()}
+    capture_s = sum(sum(s) for f in _families(eng) for s in f.capture_s_by_key.values())
+
+    logits, sample = {}, eng._sample_batch
+
+    def take_logits(lg, batch):
+        for j, r in enumerate(batch):
+            logits[r.request_id] = lg[j].detach().to(torch.bfloat16).cpu()
+        return sample(lg, batch)
+
+    eng._sample_batch = take_logits
+    one = SamplingParams(max_tokens=1, temperature=0.0, ignore_eos=True)
+    for i in range(greedy):
+        eng.add_request(prompts[i] + finals[f"r{i}"][:-1], one, request_id=f"z{i}")
+    scored = {}
+    while eng.has_unfinished():
+        for out in eng.step():
+            if out.finished:
+                scored[out.request_id] = out.output_token_ids
+    del eng._sample_batch
+    last = torch.stack([logits[f"z{i}"] for i in range(greedy)])
+    peak = torch.cuda.max_memory_allocated()
+    del eng, params
+    torch.cuda.empty_cache()  # the pooled worker keeps no 8B cache
+    return {"pid": os.getpid(), "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "tokens": finals, "last_step_logits": last,
+            "scored_equal_last_token": sum(scored[f"z{i}"] == finals[f"r{i}"][-1:]
+                                           for i in range(greedy)),
+            "kernel_launches": launches, "kernel_launches_in_replays": replayed,
+            "params_s": params_s, "engine_init_s": init_s,
+            "capture_s": capture_s, "pass_s": wall, "steps": steps,
+            "peak_mem_gb": peak / 2**30}
+
+
+def _fp32_greedy_tokens(device: str) -> list:
+    """The parity model's fp32 greedy tokens on this process's card."""
+    import torch
+
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+
+    model, _, params, prompts = _parity_setup(torch.device(device))
+    cfg = EngineConfig(model=model, num_blocks=256, block_size=16, max_num_seqs=8,
+                       max_prefill_len=256, mixed_batch=True, mixed_prefill_chunk=64,
+                       decode_chunk=8)
+    eng = LLMEngine(cfg, params=params, device=device)
+    sp = SamplingParams(max_tokens=16, temperature=0.0, ignore_eos=True)
+    return _generate(eng, prompts, sp, [None] * len(prompts))
+
+
+def _crash_after_k3(marker: str, gib: int, device: str) -> dict:
+    """First attempt: hold ``gib`` GiB on the card, launch K3 at the
+    kernels phase's shape and check it against its plain twin, write the
+    finding to ``marker`` and kill the process. The retry returns."""
+    import os
+
+    import torch
+
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda, paged_attention_torch
+
+    if os.path.exists(marker):
+        with open(marker) as f:
+            return {"retry_pid": os.getpid(), "first": json.load(f)}
+    dev = torch.device(device)
+    hog = torch.ones(gib << 30, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    q, k, v, bt, ctx = _paged_case(gen, dev, torch.bfloat16, 16, 32, 8, 128, 16, K3_CTX_LENS,
+                                   128)
+    got = paged_attention_cuda(q, k, v, bt, ctx, block_size=16)
+    ref = paged_attention_torch(q, k, v, bt, ctx, block_size=16)
+    err = float((got.float() - ref.float()).abs().max())
+    torch.cuda.synchronize()
+    with open(marker, "w") as f:
+        json.dump({"pid": os.getpid(), "max_abs_err": err, "held_gib":
+                   torch.cuda.memory_allocated() / 2**30, "hog_bytes": hog.numel()}, f)
+    os._exit(9)
+
+
+def _echo(a):
+    return a
+
+
+def _free_bytes_back(want: int, deadline_s: float = 30.0) -> tuple:
+    """Poll the card's free bytes until they reach ``want``."""
+    import torch
+
+    t0 = time.perf_counter()
+    while True:
+        free = torch.cuda.mem_get_info()[0]
+        if free >= want or time.perf_counter() - t0 > deadline_s:
+            return free, time.perf_counter() - t0
+        time.sleep(0.25)
+
+
+def process_phase(dev, engine_first: dict) -> dict:
+    """LLAMA3_8B served by a GPU task in a worker process pinned to the
+    card, under ``ray_tpu_torch.init(worker_mode="process")``; the fp32
+    identity of a worker and this process on the card; a crashed GPU task
+    and a chaos-killed one retried to success; the card's memory back."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import chaos
+    from ray_tpu_torch.core import process_pool
+    from ray_tpu_torch.core import runtime as rt
+    from ray_tpu_torch.models.llama import LLAMA3_8B
+
+    t_phase = time.perf_counter()
+    if rt.is_initialized():
+        raise AssertionError("process: a runtime outlived an earlier phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    res: dict = {"phase": "process"}
+    ray_tpu_torch.init(worker_mode="process")
+    try:
+        if ray_tpu_torch.cluster_resources().get("GPU") != 1:
+            raise AssertionError(f"process: {ray_tpu_torch.cluster_resources()}")
+        pool = rt.get_runtime().process_pool
+        channel = pool._get_channel()
+        if channel.store is None:
+            raise AssertionError("process: the shared-memory store did not build or open")
+        gpu_task = ray_tpu_torch.remote(num_gpus=1)
+
+        # worker cold start, then a warm worker's round trip
+        t0 = time.perf_counter()
+        cold = ray_tpu_torch.get(gpu_task(_cold_start_probe).remote(time.time(), dev.type),
+                                 timeout=300)
+        cold["round_trip_s"] = time.perf_counter() - t0
+        if cold["visible"] != "0" or cold["cards_seen"] != 1:
+            raise AssertionError(f"process: the GPU worker is not pinned to card 0: {cold}")
+        trips, pids = [], set()
+        for _ in range(WARM_TRIPS):
+            t0 = time.perf_counter()
+            pids.add(ray_tpu_torch.get(gpu_task(_warm_trip).remote(), timeout=60))
+            trips.append((time.perf_counter() - t0) * 1e3)
+        res["cold_start"] = cold
+        res["warm_round_trip_ms"] = {"median": float(np.median(trips)), "min": min(trips),
+                                     "max": max(trips), "n": len(trips),
+                                     "one_worker": pids == {cold["pid"]}}
+
+        # (a) LLAMA3_8B in the worker: the engine phase's traffic and tokens
+        prompts, sps = _engine_traffic(LLAMA3_8B)
+        lens = np.asarray([len(p) for p in prompts], np.int64)
+        flat = np.concatenate([np.asarray(p, np.int32) for p in prompts])
+        greedy = sum(sp.temperature == 0.0 for sp in sps)
+        moved0 = dict(channel.moved)
+        alloc0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = ray_tpu_torch.get(
+            gpu_task(_serve_8b_in_worker).remote(flat, lens, sps, greedy, dev.type), timeout=900)
+        task_s = time.perf_counter() - t0
+        alloc1 = torch.cuda.memory_allocated()
+        objects_left = channel.store.stats()["num_objects"]
+        moved = {k: channel.moved[k] - moved0[k] for k in moved0}
+        differ = [(f"r{i}", j, a, b) for i in range(greedy)
+                  for j, (a, b) in enumerate(zip(out["tokens"][f"r{i}"], engine_first[f"r{i}"]))
+                  if a != b]
+        same_streams = sum(out["tokens"][f"r{i}"] == engine_first[f"r{i}"]
+                           for i in range(greedy))
+        last = out.pop("last_step_logits")
+        res["serve_8b"] = {
+            **{k: v for k, v in out.items() if k != "tokens"}, "task_s": task_s,
+            "greedy_streams_equal_engine_phase": f"{same_streams}/{greedy}",
+            "differing_tokens": differ[:20],
+            "last_step_logits": {"shape": list(last.shape), "dtype": str(last.dtype),
+                                 "finite": bool(torch.isfinite(last.float()).all()),
+                                 "argmax_equals_last_token": int(sum(
+                                     int(last[i].float().argmax()) == out["tokens"][f"r{i}"][-1]
+                                     for i in range(greedy)))},
+            "bytes_moved": moved, "parent_allocated_delta": alloc1 - alloc0,
+            "store_objects_after": objects_left,
+        }
+        if min(out["kernel_launches"].values()) <= 0:
+            raise AssertionError(f"process: K3/K4 did not launch in the worker: {out}")
+        if alloc1 > alloc0:
+            raise AssertionError(f"process: this process's card memory grew by "
+                                 f"{alloc1 - alloc0} B during the worker's task")
+        if objects_left != 0:
+            raise AssertionError(f"process: {objects_left} objects left in the store")
+        if last.shape != (greedy, LLAMA3_8B.vocab_size) or last.dtype != torch.bfloat16:
+            raise AssertionError(f"process: logits {tuple(last.shape)} {last.dtype}")
+        if moved["shm"] < sum(n for n in (flat.nbytes, last.numel() * last.element_size())
+                              if n >= process_pool._SHM_THRESHOLD):
+            raise AssertionError(f"process: the prompts and logits did not ride the store: "
+                                 f"{moved}")
+
+        # (b) fp32: the parity model's greedy tokens, worker = this process
+        in_worker = ray_tpu_torch.get(gpu_task(_fp32_greedy_tokens).remote(dev.type),
+                                      timeout=300)
+        here = _fp32_greedy_tokens(dev.type)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["fp32_worker_equals_parent"] = in_worker == here
+        res["fp32_tokens"] = sum(map(len, here))
+        if in_worker != here:
+            raise AssertionError("process: fp32 greedy tokens differ between a worker and "
+                                 "this process on the card")
+
+        # a 64 MiB numpy argument and result: the store, then the pipe, in turns
+        big = np.arange(STORE_PIPE_BYTES // 8, dtype=np.float64)
+        echo = ray_tpu_torch.remote(_echo)
+        ray_tpu_torch.get(echo.remote(big), timeout=120)  # the CPU worker's cold start
+        routes: dict = {"store": [], "pipe": []}
+        for route in ("store", "pipe", "pipe", "store"):
+            saved = process_pool._SHM_THRESHOLD
+            if route == "pipe":
+                process_pool._SHM_THRESHOLD = 1 << 62
+            try:
+                m0 = dict(channel.moved)
+                t0 = time.perf_counter()
+                back = ray_tpu_torch.get(echo.remote(big), timeout=120)
+                dt = time.perf_counter() - t0
+            finally:
+                process_pool._SHM_THRESHOLD = saved
+            if not np.array_equal(back, big):
+                raise AssertionError(f"process: the 64 MiB echo through the {route} differs")
+            via = {k: channel.moved[k] - m0[k] for k in m0}
+            if via["shm" if route == "store" else "inline"] < 2 * big.nbytes:
+                raise AssertionError(f"process: the {route} round did not go by it: {via}")
+            routes[route].append({"s": dt, "MB_per_s": 2 * big.nbytes / dt / 1e6})
+        res["store_vs_pipe_64MiB"] = routes
+
+        # (c) a GPU task holding 8 GiB and K3 crashes; its retry runs in a fresh worker
+        marker = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_process_"), "first_attempt")
+        crash = ray_tpu_torch.remote(num_gpus=1, max_retries=1)(_crash_after_k3)
+        got = ray_tpu_torch.get(crash.remote(marker, PROCESS_CRASH_GIB, dev.type), timeout=300)
+        first = got["first"]
+        res["crash"] = got
+        if first["held_gib"] < PROCESS_CRASH_GIB or first["max_abs_err"] > BANDS["bfloat16"]:
+            raise AssertionError(f"process: the crashing attempt: {first}")
+        if got["retry_pid"] == first["pid"]:
+            raise AssertionError("process: the retry ran in the crashed worker")
+        sched = chaos.install(chaos.FaultSchedule(17, [
+            chaos.FaultSpec(chaos.KILL_WORKER, site="process_pool.task", max_fires=1)]))
+        try:
+            killed = ray_tpu_torch.remote(num_gpus=1, max_retries=1)(_warm_trip)
+            pid = ray_tpu_torch.get(killed.remote(), timeout=300)
+        finally:
+            chaos.uninstall()
+        res["chaos_kill_worker"] = {"fired": sched.fired_kinds(), "retry_pid": pid}
+        if sched.fired_kinds() != [chaos.KILL_WORKER]:
+            raise AssertionError(f"process: KILL_WORKER fired {sched.fired_kinds()}")
+    finally:
+        ray_tpu_torch.shutdown()
+    free1, wait_s = _free_bytes_back(free0 - PROCESS_FREE_SLACK)
+    res["free_bytes"] = {"before": free0, "after_shutdown": free1, "waited_s": wait_s}
+    if free1 < free0 - PROCESS_FREE_SLACK:
+        raise AssertionError(f"process: the card's free bytes {free1} not back within 256 MiB "
+                             f"of {free0} after shutdown")
+    res["kernel_launches"] = out["kernel_launches"]
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "api", "serve", "data", "disagg",
-          "kvtier", "parity", "spec", "fleet", "train", "data_feed", "publish", "train_parity")
+          "kvtier", "parity", "spec", "fleet", "process", "train", "data_feed", "publish",
+          "train_parity")
 
 SOURCES = {
     "paged_attention": ("ray_tpu_torch/ops/csrc/paged_attention.cu",
@@ -5143,9 +5521,9 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
-    if {"lora", "api", "data", "disagg"} & set(phases) and "engine" not in phases:
-        ap.error("the lora, api, data and disagg phases read the engine phase's results: "
-                 "add engine")
+    if {"lora", "api", "data", "disagg", "process"} & set(phases) and "engine" not in phases:
+        ap.error("the lora, api, data, disagg and process phases read the engine phase's "
+                 "results: add engine")
     if "serve" in phases and "api" not in phases:
         ap.error("the serve phase reads the api phase's results: add engine,api")
     if "publish" in phases and "train" not in phases:
@@ -5180,9 +5558,10 @@ def main(argv=None) -> int:
     lora_launches, api_launches, disagg_launches, replayed = {}, {}, {}, {}
     serve_launches, data_launches, feed_launches = {}, {}, {}
     disagg_device_launches = {}
-    kvtier_launches, fleet_launches, publish_launches = {}, {}, {}
+    kvtier_launches, fleet_launches, publish_launches, process_launches = {}, {}, {}, {}
     if "engine" in phases:
         engine_res = engine_phase(dev, params, params_s)
+        engine_first = engine_res["first_pass_tokens"]  # a few KB, for the process phase
         launches.update(engine_res["kernel_launches"])
         replayed = engine_res["kernel_launches_in_replays"]
     if "lora" in phases:
@@ -5211,8 +5590,10 @@ def main(argv=None) -> int:
         spec_phase(dev, params)
     if "fleet" in phases:  # the last reader of the 8B weights: r0 serves them
         fleet_launches = fleet_phase(dev, params)["kernel_launches"]
-    del params  # the 8B weights go before training
+    del params  # the 8B weights go before the process phase and training
     torch.cuda.empty_cache()
+    if "process" in phases:
+        process_launches = process_phase(dev, engine_first)["kernel_launches"]
     if "train" in phases:
         train_res = train_phase(dev, keep_state="publish" in phases)
         launches.update(train_res["kernel_launches"])
@@ -5246,6 +5627,8 @@ def main(argv=None) -> int:
                if name in kvtier_launches else {}),
             "launches_publish_phase": publish_launches[name],
             "launches_fleet_phase": fleet_launches.get(name, 0),
+            **({"launches_process_phase": process_launches[name]}
+               if name in process_launches else {}),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
             "library_ms": bf["library_ms"], "dtype": "bfloat16", "shape": bf["shape"],

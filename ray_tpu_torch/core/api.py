@@ -6,8 +6,11 @@ Upstream Ray's public surface (python/ray/_private/worker.py:1285 init,
 ActorClass/ActorHandle; python/ray/util/placement_group.py), so a user of
 either maps a program 1:1. Tasks and actors are threads of the process
 that owns the card, and objects pass by reference (core/scheduler.py,
-core/object_store.py). The accelerator resource is ``num_gpus`` ->
-``"GPU"``.
+core/object_store.py); under ``init(worker_mode="process")`` tasks run in
+crash-isolated worker processes instead (actors stay threads), their
+arguments and results by value (core/process_pool.py). The accelerator
+resource is ``num_gpus`` -> ``"GPU"``; in process mode a task that holds
+it runs in a worker pinned to its cards.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
 Queue 1 item 6 part): ``init(address=...)``, the reference's cluster
@@ -84,7 +87,9 @@ def init(
     ignore_reinit_error: bool = False,
 ):
     """Start the per-process runtime. ``num_gpus`` defaults to the cards
-    this process sees (``runtime._detect_gpus``)."""
+    this process sees (``runtime._detect_gpus``). ``worker_mode``: "thread"
+    (the default, flag ``worker_mode``) or "process" (tasks in worker
+    processes, ``core/process_pool.py``)."""
     if address is not None:
         raise NotImplementedError(
             f"init(address={address!r}): attaching to a cluster is not ported to "

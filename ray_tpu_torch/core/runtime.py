@@ -6,11 +6,12 @@ class of the worker process, language-independent functionalities"): owns
 the object store, task submission, ownership/ref-counting and the
 scheduler. One node, in process. The accelerator resource is ``"GPU"``:
 ``Runtime(num_gpus=)``, detected by ``_detect_gpus`` when not given.
+``worker_mode="process"`` runs tasks in worker processes
+(``core/process_pool.py``, built at the first such task), each pinned to
+the cards its task was granted.
 
-Not ported: ``worker_mode="process"`` (tasks in worker processes,
-``ray_tpu/core/process_pool.py``) and the cluster transport that attaches
-remote nodes; both wait for the cluster runtime (ROADMAP.md Queue 1,
-item 6).
+Not ported: the cluster transport that attaches remote nodes; it waits
+for the cluster runtime (ROADMAP.md Queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -64,13 +65,6 @@ class Runtime:
 
         self.namespace = namespace
         self.worker_mode = worker_mode or config.get("worker_mode")
-        if self.worker_mode != "thread":
-            raise NotImplementedError(
-                f"worker_mode={self.worker_mode!r}: tasks in worker processes are not "
-                "ported to ray_tpu_torch (they need cloudpickle and would start a CUDA "
-                "context per worker; ROADMAP.md Queue 1, item 6, a later part); "
-                "use worker_mode='thread'"
-            )
         self.node_id = NodeID.from_random()
         self.worker_id = WorkerID.from_random()
         self.object_store = ObjectStore()
@@ -86,6 +80,20 @@ class Runtime:
         self._task_counter = 0
         self._lock = threading.Lock()
         self._pending_tasks: set[TaskID] = set()
+        self._process_pool = None
+        # its own lock: the first process task builds the store (g++) under it
+        self._pool_lock = threading.Lock()
+
+    # -- lazily built process pool ------------------------------------------
+
+    @property
+    def process_pool(self):
+        with self._pool_lock:
+            if self._process_pool is None:
+                from ray_tpu_torch.core.process_pool import ProcessPool
+
+                self._process_pool = ProcessPool()
+            return self._process_pool
 
     # -- object API ----------------------------------------------------------
 
@@ -221,6 +229,10 @@ class Runtime:
 
     def shutdown(self) -> None:
         self.scheduler.shutdown()
+        with self._pool_lock:
+            pool, self._process_pool = self._process_pool, None
+        if pool is not None:
+            pool.shutdown()
 
 
 def _detect_gpus() -> float:

@@ -79,6 +79,9 @@ class TaskSpec:
     # submitter's TraceContext as a dict (ray_tpu_torch.obs.context): attached
     # around execution so task events + nested calls carry the trace
     trace: Optional[dict] = None
+    # process mode: the cards this attempt was granted (indices into the
+    # runtime's own "GPU" cards); its worker's CUDA_VISIBLE_DEVICES names them
+    gpu_ids: Optional[tuple] = None
 
     def describe(self) -> str:
         # cached: called on every event record / error message

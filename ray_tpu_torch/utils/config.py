@@ -71,4 +71,4 @@ def all_flags() -> dict[str, Any]:
 # Flag definitions: the ones the port reads, under the reference's names.
 # ---------------------------------------------------------------------------
 
-define("worker_mode", str, "thread", "Task execution mode: 'thread' (tasks and actors are threads of the process that owns the card); 'process' is not ported.")
+define("worker_mode", str, "thread", "Task execution mode: 'thread' (tasks and actors are threads of the process that owns the card) or 'process' (tasks in crash-isolated worker processes, each pinned to the cards its task holds; actors stay threads).")

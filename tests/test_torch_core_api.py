@@ -7,10 +7,12 @@ on both packages, each with its own process-global runtime started and
 torn down by the fixture: the values must be equal and the error types
 must have the same names. Then what is the port's own: tensors through
 ``put``/``get`` by reference, the ``"GPU"`` resource, and the unported
-parts that raise ``NotImplementedError`` naming their ROADMAP item.
+parts that raise ``NotImplementedError`` naming their ROADMAP item
+(``worker_mode="process"``, ported since, now runs a task instead).
 """
 
 import asyncio
+import os
 import threading
 import time
 
@@ -438,9 +440,11 @@ def test_default_resources_have_no_tpu(port_rt):
 @pytest.mark.parametrize("case", ["worker_mode", "address", "task_bind", "method_bind"])
 def test_unported_parts_raise(port_rt, case):
     if case == "worker_mode":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 6"):
-            port_rt.init(num_cpus=2, worker_mode="process")
-        assert not trt.is_initialized()
+        # ported since: process mode starts and runs a task in a worker process
+        port_rt.init(num_cpus=2, worker_mode="process")
+        assert trt.get_runtime().worker_mode == "process"
+        pid = port_rt.get(port_rt.remote(lambda: os.getpid()).remote(), timeout=WAIT_S)
+        assert pid != os.getpid()
         return
     if case == "address":
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 6"):

@@ -1918,3 +1918,80 @@ def test_build_processor_on_card_equals_direct_generate():
     assert [r["row"] for r in rows] == list(range(8))
     assert [r["prompt"] for r in rows] == prompts
     assert [r["generated_text"] for r in rows] == want
+
+
+def _process_runtime(num_gpus=1):
+    import ray_tpu_torch
+    from ray_tpu_torch.core import runtime as rt
+
+    if rt.is_initialized():
+        rt.shutdown_runtime()
+    ray_tpu_torch.init(num_cpus=4, num_gpus=num_gpus, worker_mode="process")
+    return ray_tpu_torch
+
+
+def test_process_task_gets_a_cuda_argument_on_its_own_card():
+    """A CUDA tensor argument crosses to a GPU task's worker by value and
+    is rebuilt on the worker's card (CUDA_VISIBLE_DEVICES "0"); a CUDA
+    result comes back on the parent's card, bit for bit."""
+    _need_cuda()
+    import os
+
+    t = torch.randn(512, 384, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    t = t.to(torch.bfloat16)
+    api = _process_runtime()
+    try:
+        @api.remote(num_gpus=1)
+        def on_card(x):
+            return (x.device.type, torch.cuda.current_device(),
+                    os.environ["CUDA_VISIBLE_DEVICES"], x * 2)
+
+        kind, idx, visible, doubled = api.get(on_card.remote(t), timeout=120)
+    finally:
+        api.shutdown()
+    assert (kind, idx, visible) == ("cuda", 0, "0")
+    assert doubled.is_cuda and torch.equal(doubled.view(torch.int16), (t * 2).view(torch.int16))
+
+
+def test_cuda_tensor_to_a_worker_without_a_card_raises_type_error():
+    _need_cuda()
+    api = _process_runtime()
+    try:
+        @api.remote
+        def no_card(x):
+            return x
+
+        with pytest.raises(api.TaskError) as ei:
+            api.get(no_card.remote(torch.ones(4, device="cuda")), timeout=120)
+    finally:
+        api.shutdown()
+    assert isinstance(ei.value.cause, TypeError) and "sees no card" in str(ei.value.cause)
+
+
+def test_gpu_task_in_a_worker_equals_thread_mode():
+    """The paged kernel on the same inputs in a pinned worker process and
+    on a thread of this process: the same bits, and the kernel launched in
+    the worker (its counter travels back with the output)."""
+    _need_cuda()
+    import ray_tpu_torch
+    from ray_tpu_torch.core import runtime as rt
+
+    def run(seed):
+        q, k, v, bt, ctx, bs = _paged_case(seed, [7, 0, 13, 32, 1], D=128, dtype=torch.bfloat16)
+        args = [a.cuda() for a in (q, k, v, bt, ctx)]
+        before = tpa.paged_attention_cuda.launches
+        out = tpa.paged_attention(*args, block_size=bs)
+        return out.cpu(), tpa.paged_attention_cuda.launches - before
+
+    outs = {}
+    for mode in ("process", "thread"):
+        if rt.is_initialized():
+            rt.shutdown_runtime()
+        ray_tpu_torch.init(num_cpus=2, num_gpus=1, worker_mode=mode)
+        try:
+            outs[mode] = ray_tpu_torch.get(ray_tpu_torch.remote(num_gpus=1)(run).remote(3),
+                                           timeout=300)
+        finally:
+            ray_tpu_torch.shutdown()
+    assert outs["process"][1] == outs["thread"][1] == 1
+    assert torch.equal(outs["process"][0].view(torch.int16), outs["thread"][0].view(torch.int16))

@@ -42,12 +42,15 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
-def test_port_imports_without_jax_triton_or_gpu():
+def test_port_imports_without_jax_triton_or_gpu(tmp_path):
     """Every module of the port imports with jax, optax, ray_tpu, triton,
     aiohttp and cloudpickle blocked, and the plain path runs pipelined and
     speculative decoding, disaggregated serving (in-process and over the
-    device fabric), a train step, a task on the in-process runtime and a
-    completion over HTTP through ``build_openai_app`` on the CPU."""
+    device fabric), a train step, a task on the in-process runtime, a
+    completion over HTTP through ``build_openai_app`` on the CPU, and a
+    process-mode task whose function is a closure, with ``cloudpickle``
+    blocked in the workers too (a shadow module on ``PYTHONPATH`` that
+    raises on import: worker processes do not inherit ``sys.modules``)."""
     code = """
 import sys
 for name in ("jax", "jaxlib", "optax", "ray_tpu", "triton", "aiohttp", "cloudpickle"):
@@ -68,6 +71,7 @@ import ray_tpu_torch.llm.kvfetch.plane
 import ray_tpu_torch.train.weight_sync, ray_tpu_torch.autoscale, ray_tpu_torch.fleet
 import ray_tpu_torch.utils, ray_tpu_torch.core.api, ray_tpu_torch.core.events
 import ray_tpu_torch.serve, ray_tpu_torch.serve.proxy
+import ray_tpu_torch.native.shm, ray_tpu_torch.core.process_pool
 import dataclasses, torch
 from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
 from ray_tpu_torch.models import llama
@@ -120,9 +124,28 @@ req = urllib.request.Request(base + "/v1/completions", data=json.dumps(
 assert json.loads(urllib.request.urlopen(req, timeout=60).read())["usage"]["completion_tokens"] == 3
 serve.shutdown()
 ray_tpu_torch.shutdown()
+
+def make_probe(k):
+    def probe(x):
+        try:
+            import cloudpickle  # noqa: F401
+        except ImportError:
+            return x + k, os.getpid()
+        return "cloudpickle imported in a worker", os.getpid()
+    return probe
+
+import os
+ray_tpu_torch.init(num_cpus=2, worker_mode="process")
+got, pid = ray_tpu_torch.get(ray_tpu_torch.remote(make_probe(41)).remote(1), timeout=60)
+assert got == 42 and pid != os.getpid(), got
+ray_tpu_torch.shutdown()
 print("ok")
 """
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    shadow = tmp_path / "shadow"
+    shadow.mkdir()
+    (shadow / "cloudpickle.py").write_text("raise ImportError('cloudpickle is blocked here')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(shadow), REPO]),
+               OMP_NUM_THREADS="2")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-3000:]
