@@ -5184,6 +5184,35 @@ def _warm_trip() -> int:
     return os.getpid()
 
 
+def _unflatten(flat, lens) -> list:
+    """Prompts shipped as one int32 array and their lengths, as lists."""
+    import numpy as np
+
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    return [flat[offs[i]:offs[i + 1]].tolist() for i in range(len(lens))]
+
+
+def _captures(eng) -> int:
+    return sum(len(s) for f in _families(eng) for s in f.capture_s_by_key.values())
+
+
+def _counted_pass(eng, prompts, sps, tag: str) -> dict:
+    """One pass of the requests on ``eng``: its tokens, K3/K4's device
+    launches (the engine's marks), the launches made by graph replays, and
+    the graph captures it made and their seconds."""
+    captures0 = _captures(eng)
+    capture_s0 = sum(sum(s) for f in _families(eng) for s in f.capture_s_by_key.values())
+    marks, replayed0 = _launch_marks(eng), _replayed_marks(eng)
+    finals, _reqs, wall, steps = _serve(eng, prompts, sps, tag)
+    return {"tokens": finals, "kernel_launches": _launch_counts(eng, marks),
+            "kernel_launches_in_replays": {n: v - replayed0[n]
+                                           for n, v in _replayed_marks(eng).items()},
+            "captures": _captures(eng) - captures0,
+            "capture_s": sum(sum(s) for f in _families(eng)
+                             for s in f.capture_s_by_key.values()) - capture_s0,
+            "pass_s": wall, "steps": steps}
+
+
 def _serve_8b_in_worker(flat, lens, sps, greedy: int, device: str) -> dict:
     """In a GPU worker: LLAMA3_8B's weights (``params_8b``, torch seed 0)
     made on the worker's own card, the engine phase's configuration, the
@@ -5193,7 +5222,6 @@ def _serve_8b_in_worker(flat, lens, sps, greedy: int, device: str) -> dict:
     last: a prefix-cache hit), its logits taken at the sampler."""
     import os
 
-    import numpy as np
     import torch
 
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
@@ -5207,15 +5235,13 @@ def _serve_8b_in_worker(flat, lens, sps, greedy: int, device: str) -> dict:
     eng = LLMEngine(EngineConfig(model=LLAMA3_8B, **ENGINE_KW), params=params, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    offs = np.concatenate([[0], np.cumsum(lens)])
-    prompts = [flat[offs[i]:offs[i + 1]].tolist() for i in range(len(lens))]
+    prompts = _unflatten(flat, lens)
     paged_attention_cuda.launches = 0
     ragged_attention_cuda.launches = 0
-    marks, replayed0 = _launch_marks(eng), _replayed_marks(eng)
-    finals, _reqs, wall, steps = _serve(eng, prompts, sps, "r")
-    launches = _launch_counts(eng, marks)
-    replayed = {n: v - replayed0[n] for n, v in _replayed_marks(eng).items()}
-    capture_s = sum(sum(s) for f in _families(eng) for s in f.capture_s_by_key.values())
+    counted = _counted_pass(eng, prompts, sps, "r")
+    finals, launches, replayed = (counted["tokens"], counted["kernel_launches"],
+                                  counted["kernel_launches_in_replays"])
+    wall, steps, capture_s = counted["pass_s"], counted["steps"], counted["capture_s"]
 
     logits, sample = {}, eng._sample_batch
 
@@ -5475,10 +5501,298 @@ def process_phase(dev, engine_first: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# cluster
+# ---------------------------------------------------------------------------
+
+
+CLUSTER_FREE_SLACK = 64 << 20         # the card's free bytes back within this after a kill
+CLUSTER_TENSOR_BYTES = 256 << 20      # the bf16 CUDA tensor a GPU task returns
+CLUSTER_PULL_BYTES = 64 << 20         # the tensor the CPU node pulls from the GPU node
+CLUSTER_STORE_BYTES = 1 << 30         # each daemon's object store
+
+
+class ClusterServer8B:
+    """LLAMA3_8B in a cluster actor: the weights (``params_8b``, torch seed
+    0) made on the card of the worker's lease, the engine phase's
+    configuration; each ``serve`` is one pass of the engine phase's 12
+    requests, counted as the process phase counts its worker's pass, with
+    the prefix cache emptied first so each pass runs the same prefill (as
+    the engine phase's later passes do). The decode-chunk controller is
+    held at its initial length (8, the length the engine phase's first
+    pass runs at), so a later pass meets only buckets the first captured:
+    the worker's process is the actor's alone."""
+
+    def __init__(self, device: str):
+        import os
+
+        import torch
+
+        from ray_tpu_torch.llm import EngineConfig, LLMEngine, pipeline
+        from ray_tpu_torch.models.llama import LLAMA3_8B
+
+        pipeline.ChunkController.note_chunk = lambda self, *a, **k: None
+
+        entered = time.time()
+        dev = torch.device(device)
+        params, params_s = params_8b(dev)
+        t0 = time.perf_counter()
+        self.eng = LLMEngine(EngineConfig(model=LLAMA3_8B, **ENGINE_KW), params=params, device=dev)
+        torch.cuda.synchronize()
+        self.info_ = {"pid": os.getpid(), "node": os.environ.get("RAY_TPU_NODE_ID"),
+                      "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                      "cards_seen": torch.cuda.device_count(),
+                      "device": torch.cuda.get_device_name(0), "entered": entered,
+                      "params_s": params_s, "engine_init_s": time.perf_counter() - t0}
+
+    def info(self) -> dict:
+        return self.info_
+
+    def serve(self, flat, lens, sps, tag: str) -> dict:
+        import torch
+
+        self.eng.allocator.drop_prefix_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = _counted_pass(self.eng, _unflatten(flat, lens), sps, tag)
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        return out
+
+
+def _bits_tensor(n: int, device: str):
+    """A bf16 tensor of ``n`` elements whose bit patterns cover every int16
+    (NaNs and infinities included): equal only bit for bit."""
+    import torch
+
+    bits = (torch.arange(n, dtype=torch.int64, device=device) * 40503 % 65536) - 32768
+    return bits.to(torch.int16).view(torch.bfloat16)
+
+
+def _tensor_on_card(n: int, device: str):
+    import os
+
+    return os.environ.get("RAY_TPU_NODE_ID"), _bits_tensor(n, device)
+
+
+def _pull_from_the_other_node(oid: bytes) -> dict:
+    """On the CPU node: pull the driver's object from the GPU node's store
+    into this node's (timed alone), then read it from the shared mapping
+    and hash its bytes."""
+    import hashlib
+    import os
+
+    import torch  # noqa: F401 — imported before the clock: a cold worker's import is seconds
+
+    from ray_tpu_torch.cluster.client import ClusterObjectRef, _ambient_client
+
+    client = _ambient_client()
+    t0 = time.perf_counter()
+    marker = client.local_daemon.call(
+        "fetch_objects", {"object_ids": [oid], "timeout": 120.0,
+                          "shm_direct": client._local_shm() is not None}, timeout=180)[0]
+    pull_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    t = client.get(ClusterObjectRef(oid, client, "put"), timeout=120)
+    read_s = time.perf_counter() - t1
+    return {"node": os.environ.get("RAY_TPU_NODE_ID"),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "via_shm": isinstance(marker, dict), "pull_s": pull_s, "read_s": read_s,
+            "nbytes": t.numel() * t.element_size(),
+            "sha256": hashlib.sha256(t.numpy().tobytes()).hexdigest()}
+
+
+def _exit_once(marker: str, device: str) -> dict:
+    """First attempt: note the pid in ``marker`` and kill the worker
+    process; the retry returns both pids."""
+    import os
+
+    import torch
+
+    torch.zeros(1, device=device)  # the crash takes a live CUDA context with it
+    if os.path.exists(marker):
+        with open(marker) as f:
+            return {"first_pid": int(f.read()), "retry_pid": os.getpid(),
+                    "node": os.environ.get("RAY_TPU_NODE_ID")}
+    with open(marker, "w") as f:
+        f.write(str(os.getpid()))
+    os._exit(9)
+
+
+def _no_torch_in(pids) -> None:
+    for pid in pids:
+        with open(f"/proc/{pid}/maps") as f:
+            if "libtorch" in f.read():
+                raise AssertionError(f"cluster: control-plane process {pid} loaded torch")
+
+
+def cluster_phase(dev, engine_first: dict) -> dict:
+    """LLAMA3_8B served by a ``num_gpus=1`` actor in a worker process of a
+    port cluster (a GCS and two node daemons, ``"gpu"`` holding the card
+    and ``"cpu"``), attached with ``ray_tpu_torch.init(address=...)``: the
+    engine phase's greedy streams on two passes, the actor killed and the
+    card's memory back, a GPU worker's cold start through a daemon, a bf16
+    CUDA tensor returned through the store bit for bit, the driver's
+    tensor pulled by the CPU node, a crashed GPU task retried, and nothing
+    of the cluster left after shutdown."""
+    import hashlib
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.cluster import LocalCluster
+    from ray_tpu_torch.core import api as core_api
+    from ray_tpu_torch.core import runtime as rt
+    from ray_tpu_torch.models.llama import LLAMA3_8B
+
+    t_phase = time.perf_counter()
+    if rt.is_initialized():
+        raise AssertionError("cluster: a runtime outlived an earlier phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res: dict = {"phase": "cluster"}
+    c = LocalCluster(node_death_timeout_s=10.0)
+    try:
+        t0 = time.perf_counter()
+        c.start()
+        c.add_node({"num_cpus": 2, "GPU": 1}, node_id="gpu",
+                   object_capacity_bytes=CLUSTER_STORE_BYTES)
+        c.add_node({"num_cpus": 2}, node_id="cpu", object_capacity_bytes=CLUSTER_STORE_BYTES)
+        c.wait_for_nodes(2, timeout=60)
+        ray_tpu_torch.init(address=c.address)
+        res["cluster_start_s"] = time.perf_counter() - t0
+        res["resources"] = ray_tpu_torch.cluster_resources()
+        if res["resources"].get("GPU") != 1 or res["resources"].get("num_cpus") != 4:
+            raise AssertionError(f"cluster: resources {res['resources']}")
+        _no_torch_in(c.pids())
+
+        # (1) LLAMA3_8B in a num_gpus=1 actor on node "gpu": two passes
+        free0 = torch.cuda.mem_get_info()[0]
+        prompts, sps = _engine_traffic(LLAMA3_8B)
+        lens = np.asarray([len(p) for p in prompts], np.int64)
+        flat = np.concatenate([np.asarray(p, np.int32) for p in prompts])
+        greedy = sum(sp.temperature == 0.0 for sp in sps)
+        t0 = time.time()
+        server = ray_tpu_torch.remote(num_gpus=1)(ClusterServer8B).remote(dev.type)
+        info = ray_tpu_torch.get(server.info.remote(), timeout=600)
+        info["create_to_ready_s"] = time.time() - t0
+        info["submit_to_entry_s"] = info.pop("entered") - t0
+        if info["node"] != "gpu" or info["visible"] != "0" or info["cards_seen"] != 1:
+            raise AssertionError(f"cluster: the actor is not pinned to the gpu node's card: {info}")
+        res["actor"] = info
+        passes = []
+        for tag in ("r", "s"):
+            t0 = time.perf_counter()
+            out = ray_tpu_torch.get(server.serve.remote(flat, lens, sps, tag), timeout=600)
+            out["round_trip_s"] = time.perf_counter() - t0
+            toks = out.pop("tokens")
+            same = sum(toks[f"{tag}{i}"] == engine_first[f"r{i}"] for i in range(greedy))
+            out["greedy_streams_equal_engine_phase"] = f"{same}/{greedy}"
+            out["differing_tokens"] = [(f"{tag}{i}", j, a, b) for i in range(greedy)
+                                       for j, (a, b) in enumerate(zip(toks[f"{tag}{i}"],
+                                                                      engine_first[f"r{i}"]))
+                                       if a != b][:20]
+            passes.append(out)
+            if same != greedy:
+                raise AssertionError(f"cluster: pass {tag}: {same}/{greedy} greedy streams equal "
+                                     f"the engine phase's: {out['differing_tokens']}")
+        res["passes"] = passes
+        first = passes[0]["kernel_launches"]
+        want = {n: FIRST_PASS_LAUNCHES[n]["device"] for n in FIRST_PASS_LAUNCHES}
+        if first != want:
+            raise AssertionError(f"cluster: first-pass launches in the actor {first} != {want}")
+        if passes[1]["captures"] != 0:
+            raise AssertionError(f"cluster: the second pass captured {passes[1]['captures']} "
+                                 "graphs")
+
+        # (2) kill the actor: its lease is released and the card's memory comes back
+        t0 = time.perf_counter()
+        ray_tpu_torch.kill(server)
+        del server
+        free1, wait_s = _free_bytes_back(free0 - CLUSTER_FREE_SLACK)
+        gpu_addr = next(tuple(n["addr"]) for n in ray_tpu_torch.nodes() if n["node_id"] == "gpu")
+        stats = core_api._cluster().client.pool.get(gpu_addr).call("stats", None)
+        res["kill"] = {"free_before": free0, "free_after": free1, "waited_s": wait_s,
+                       "s": time.perf_counter() - t0, "gpu_node_leases": stats["num_leases"],
+                       "gpu_node_available": stats["available"]}
+        if free1 < free0 - CLUSTER_FREE_SLACK:
+            raise AssertionError(f"cluster: the card's free bytes {free1} not back within 64 MB "
+                                 f"of {free0} after the kill")
+        if stats["num_leases"] != 0 or stats["available"].get("GPU") != 1:
+            raise AssertionError(f"cluster: the actor's lease was not released: {stats}")
+
+        # (3) a GPU worker's cold start through the daemon, then a 256 MiB
+        # bf16 CUDA tensor back through the gpu node's store, bit for bit
+        gpu_task = ray_tpu_torch.remote(num_gpus=1)
+        t0 = time.perf_counter()
+        cold = ray_tpu_torch.get(gpu_task(_cold_start_probe).remote(time.time(), dev.type),
+                                 timeout=300)
+        cold["round_trip_s"] = time.perf_counter() - t0
+        if cold["visible"] != "0" or cold["cards_seen"] != 1:
+            raise AssertionError(f"cluster: the GPU worker is not pinned to card 0: {cold}")
+        res["cold_start"] = cold
+        n = CLUSTER_TENSOR_BYTES // 2
+        t0 = time.perf_counter()
+        node, got = ray_tpu_torch.get(gpu_task(_tensor_on_card).remote(n, dev.type), timeout=300)
+        torch.cuda.synchronize()
+        back_s = time.perf_counter() - t0
+        want_t = _bits_tensor(n, dev.type)
+        same_bits = bool(torch.equal(got.view(torch.int16), want_t.view(torch.int16)))
+        res["cuda_tensor"] = {"node": node, "bytes": CLUSTER_TENSOR_BYTES, "device": str(got.device),
+                              "dtype": str(got.dtype), "bit_for_bit": same_bits, "s": back_s,
+                              "MB_per_s": CLUSTER_TENSOR_BYTES / back_s / 1e6}
+        if (node != "gpu" or got.device.type != dev.type or got.dtype != torch.bfloat16
+                or not same_bits):
+            raise AssertionError(f"cluster: the CUDA tensor: {res['cuda_tensor']}")
+        del got, want_t
+
+        # (4) the CPU node pulls a 64 MiB tensor the driver put (GPU node's store)
+        host = torch.arange(CLUSTER_PULL_BYTES // 8, dtype=torch.int64)
+        t0 = time.perf_counter()
+        ref = ray_tpu_torch.put(host)
+        put_s = time.perf_counter() - t0
+        on_cpu = ray_tpu_torch.remote(scheduling_strategy=ray_tpu_torch.NodeAffinitySchedulingStrategy(
+            "cpu"))(_pull_from_the_other_node)
+        pulled = ray_tpu_torch.get(on_cpu.remote(ref.id), timeout=300)
+        pulled["put_s"] = put_s
+        pulled["MB_per_s"] = CLUSTER_PULL_BYTES / pulled["pull_s"] / 1e6
+        want_sha = hashlib.sha256(host.numpy().tobytes()).hexdigest()
+        res["pull_between_nodes"] = pulled
+        if (pulled["node"] != "cpu" or pulled["visible"] != "" or pulled["sha256"] != want_sha
+                or pulled["nbytes"] != CLUSTER_PULL_BYTES):
+            raise AssertionError(f"cluster: the pull between nodes: {pulled}")
+        del ref
+
+        # (5) a GPU task that kills its worker on the first attempt is retried
+        marker = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_cluster_"), "first_attempt")
+        t0 = time.perf_counter()
+        crash = ray_tpu_torch.remote(num_gpus=1, max_retries=1)(_exit_once)
+        retried = ray_tpu_torch.get(crash.remote(marker, dev.type), timeout=300)
+        retried["s"] = time.perf_counter() - t0
+        res["crash_retry"] = retried
+        if retried["retry_pid"] == retried["first_pid"] or retried["node"] != "gpu":
+            raise AssertionError(f"cluster: the retry: {retried}")
+        _no_torch_in(c.pids())  # the GCS and the daemons, after all of it
+    finally:
+        ray_tpu_torch.shutdown()
+        t0 = time.perf_counter()
+        c.shutdown()
+        res["shutdown_s"] = time.perf_counter() - t0
+    left = c.leftovers()
+    res["left_after_shutdown"] = left
+    if left != {"processes": [], "store_files": []}:
+        raise AssertionError(f"cluster: left after shutdown: {left}")
+    res["kernel_launches"] = first
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "api", "serve", "data", "disagg",
-          "kvtier", "parity", "spec", "fleet", "process", "train", "data_feed", "publish",
-          "train_parity")
+          "kvtier", "parity", "spec", "fleet", "process", "cluster", "train", "data_feed",
+          "publish", "train_parity")
 
 SOURCES = {
     "paged_attention": ("ray_tpu_torch/ops/csrc/paged_attention.cu",
@@ -5521,9 +5835,10 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
-    if {"lora", "api", "data", "disagg", "process"} & set(phases) and "engine" not in phases:
-        ap.error("the lora, api, data, disagg and process phases read the engine phase's "
-                 "results: add engine")
+    if {"lora", "api", "data", "disagg", "process", "cluster"} & set(phases) \
+            and "engine" not in phases:
+        ap.error("the lora, api, data, disagg, process and cluster phases read the engine "
+                 "phase's results: add engine")
     if "serve" in phases and "api" not in phases:
         ap.error("the serve phase reads the api phase's results: add engine,api")
     if "publish" in phases and "train" not in phases:
@@ -5559,6 +5874,7 @@ def main(argv=None) -> int:
     serve_launches, data_launches, feed_launches = {}, {}, {}
     disagg_device_launches = {}
     kvtier_launches, fleet_launches, publish_launches, process_launches = {}, {}, {}, {}
+    cluster_launches = {}
     if "engine" in phases:
         engine_res = engine_phase(dev, params, params_s)
         engine_first = engine_res["first_pass_tokens"]  # a few KB, for the process phase
@@ -5594,6 +5910,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     if "process" in phases:
         process_launches = process_phase(dev, engine_first)["kernel_launches"]
+    if "cluster" in phases:
+        cluster_launches = cluster_phase(dev, engine_first)["kernel_launches"]
     if "train" in phases:
         train_res = train_phase(dev, keep_state="publish" in phases)
         launches.update(train_res["kernel_launches"])
@@ -5629,6 +5947,8 @@ def main(argv=None) -> int:
             "launches_fleet_phase": fleet_launches.get(name, 0),
             **({"launches_process_phase": process_launches[name]}
                if name in process_launches else {}),
+            **({"launches_cluster_phase": cluster_launches[name]}
+               if name in cluster_launches else {}),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
             "library_ms": bf["library_ms"], "dtype": "bfloat16", "shape": bf["shape"],

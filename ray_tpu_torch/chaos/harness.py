@@ -14,8 +14,8 @@ so a request's trace shows which fault fired inside it.
 
 Not ported: ``install(propagate_env=True)`` and ``install_from_env``,
 which hand a schedule to cluster worker processes, and the blocked-peer
-set of the control-plane partition faults; both come with the cluster
-runtime (ROADMAP.md Queue 1, B8).
+set of the control-plane partition faults; both come with the cluster's
+chaos runner (ROADMAP.md Queue 1, item 6, part 3b).
 """
 
 from __future__ import annotations
@@ -35,6 +35,8 @@ from ray_tpu_torch.chaos.schedule import (  # noqa: F401 — the kinds the hook 
     KILL_WORKER,
     PARTIAL_PARTITION,
     PREEMPT_ENGINE,
+    STALL_GCS,
+    STALL_HEARTBEAT,
     Fault,
     FaultSchedule,
     FaultSpec,

@@ -1,5 +1,4 @@
-"""Message-framed RPC over TCP (counterpart of ``ray_tpu/cluster/rpc.py``,
-the part the transfer planes use).
+"""Message-framed RPC over TCP (counterpart of ``ray_tpu/cluster/rpc.py``).
 
 Length-prefixed pickled frames over asyncio TCP:
 
@@ -8,22 +7,29 @@ Length-prefixed pickled frames over asyncio TCP:
     response := (msg_id, ok: bool, payload | exception)
 
 A server runs an asyncio loop on a thread of its own and dispatches each
-method to the function registered with ``route``; plain functions run in
-the loop's thread pool, so a slow handler never stalls the connection. A client is thread-safe: one
-persistent connection, requests pipelined and matched by ``msg_id``; one
-writer thread owns the socket's send side and a reader thread its receive
-side, so no caller blocks on the socket while holding a lock. Every call
-is bounded by a timeout, and a peer that stalls mid-frame reads as a lost
-connection. ``ClientPool`` caches one client per address and re-dials a
-dead one.
+method to the function registered with ``route``, else to its handler
+object's ``rpc_<method>``; plain functions run in the loop's thread pool,
+so a slow handler never stalls the connection, and each dispatch feeds the
+per-method latency histogram (``lockstats.rpc_latency_histogram``). A
+client is thread-safe: one persistent connection, requests pipelined and
+matched by ``msg_id``; one writer thread owns the socket's send side and a
+reader thread its receive side, so no caller blocks on the socket while
+holding a lock. With ``RAY_TPU_NATIVE_FRAMING=1`` both threads move their
+frames through ``native/framing.py``'s C loop. Every call is bounded by a
+timeout, and a peer that stalls mid-frame reads as a lost connection.
+``ClientPool`` caches one client per address and re-dials a dead one;
+``ReconnectingRpcClient`` re-dials a GCS restarted at the same address.
+
+A handler's exception reaches the caller as ``RemoteError``, which names
+the remote type (``type_name``) even when the exception itself does not
+pickle.
 
 The transfer planes (``llm/disagg/connector.RpcKVConnector``,
 ``llm/kvfetch/plane.RpcFetchServer`` / ``RpcFetchClient``) chunk their
-payloads under ``MAX_FRAME``. Not ported, with the cluster runtime
-(ROADMAP.md, Queue 1, B8): handler objects with ``rpc_<method>``
-methods, the fencing-term envelope of a replicated control plane, the
-reconnecting multi-endpoint client, the native framing and the per-method
-latency histogram.
+payloads under ``MAX_FRAME``. Not ported yet, with the GCS's high
+availability (ROADMAP.md Queue 1, item 6, part 3b): the fencing-term
+envelope of a replicated control plane and the client that fails over
+across several GCS endpoints.
 
 Peers are trusted (same-user local processes, cluster hosts): a frame is
 unpickled as it arrives.
@@ -44,6 +50,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Optional
 
 from ray_tpu_torch.chaos import harness as _chaos
+from ray_tpu_torch.native import framing as _framing
 from ray_tpu_torch.util.backoff import ExponentialBackoff
 
 logger = logging.getLogger("ray_tpu_torch.cluster.rpc")
@@ -56,12 +63,53 @@ class RpcError(Exception):
     """Transport-level failure (peer died, connection refused, timeout)."""
 
 
+class RemoteFailure(Exception):
+    """Stands in for a remote exception that does not pickle: its type
+    name and its repr."""
+
+    def __init__(self, type_name: str, text: str):
+        super().__init__(type_name, text)
+        self.type_name = type_name
+        self.text = text
+
+    def __str__(self) -> str:
+        return f"{self.type_name}: {self.text}"
+
+
 class RemoteError(Exception):
-    """The remote handler raised; carries the original exception."""
+    """The remote handler raised; carries the original exception (or its
+    ``RemoteFailure`` stand-in) and the remote type's name."""
 
     def __init__(self, cause: BaseException):
         super().__init__(repr(cause))
         self.cause = cause
+        self.type_name = (cause.type_name if isinstance(cause, RemoteFailure)
+                          else type(cause).__name__)
+
+
+PART_3B = "the GCS's high availability (ROADMAP.md Queue 1, item 6, part 3b)"
+
+
+def format_gcs_addr(addr) -> str:
+    """``"host:port"``: the ``--gcs`` flag form of a GCS address (a
+    ``(host, port)`` pair, or a one-endpoint list of pairs)."""
+    if isinstance(addr, str):
+        return addr
+    addr = tuple(addr)
+    if len(addr) == 2 and isinstance(addr[0], str):
+        return f"{addr[0]}:{int(addr[1])}"
+    if len(addr) == 1:
+        return format_gcs_addr(addr[0])
+    raise NotImplementedError(f"a GCS of {len(addr)} endpoints waits for {PART_3B}")
+
+
+def parse_gcs_addr(s: str) -> tuple:
+    """Inverse of ``format_gcs_addr``: ``"host:port"`` -> ``(host, port)``."""
+    parts = s.split(",")
+    if len(parts) != 1:
+        raise NotImplementedError(f"GCS address {s!r}: several endpoints wait for {PART_3B}")
+    host, port = parts[0].rsplit(":", 1)
+    return host, int(port)
 
 
 def _dump(obj: Any) -> bytes:
@@ -74,20 +122,27 @@ def _dump(obj: Any) -> bytes:
 
 
 class RpcServer:
-    """Asyncio TCP server on its own thread; dispatches each method to the
-    function registered with ``route``. A handler (plain function or coroutine) receives
-    ``(payload, peer)``, where peer is the connection's ("host", port)."""
+    """Asyncio TCP server on its own thread. Each method goes to the
+    function registered with ``route``, else to ``handler.rpc_<method>``.
+    A handler (plain function or coroutine) receives ``(payload, peer)``,
+    where peer is the connection's ("host", port)."""
 
-    def __init__(self, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, handler: Any = None, host: str = "127.0.0.1", port: int = 0,
+                 max_workers: int = 64):
+        self._handler = handler
         self._routes: dict[str, Callable] = {}
         self._host = host
         self._port = port
+        self._max_workers = max_workers
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._server: Optional[asyncio.AbstractServer] = None
         self._thread: Optional[threading.Thread] = None
         self._started = threading.Event()
         self._tasks: set = set()  # the loop holds tasks weakly
         self.address: Optional[tuple[str, int]] = None
+        from ray_tpu_torch.cluster.lockstats import rpc_latency_histogram
+
+        self._latency_hist = rpc_latency_histogram()
 
     def route(self, method: str, fn: Callable) -> None:
         self._routes[method] = fn
@@ -104,8 +159,9 @@ class RpcServer:
     def _run(self) -> None:
         loop = asyncio.new_event_loop()
         asyncio.set_event_loop(loop)
-        # plain handlers run in this pool: a blocking one never holds the loop
-        pool = ThreadPoolExecutor(max_workers=16, thread_name_prefix="rpc-handler")
+        # plain handlers run in this pool: a blocking one (a fetch, a
+        # long-poll, a task) never holds the loop
+        pool = ThreadPoolExecutor(max_workers=self._max_workers, thread_name_prefix="rpc-handler")
         loop.set_default_executor(pool)
         self._loop = loop
         try:
@@ -120,6 +176,12 @@ class RpcServer:
         self._server = await asyncio.start_server(self._on_conn, self._host, self._port)
         self.address = tuple(self._server.sockets[0].getsockname()[:2])
         self._started.set()
+
+    @property
+    def loop(self) -> asyncio.AbstractEventLoop:
+        if self._loop is None:
+            raise RpcError("rpc server not started")
+        return self._loop
 
     async def _shutdown(self) -> None:
         if self._server is not None:
@@ -174,15 +236,24 @@ class RpcServer:
         finally:
             writer.close()
 
+    def _lookup(self, method: str) -> Callable:
+        fn = self._routes.get(method)
+        if fn is None and self._handler is not None:
+            fn = getattr(self._handler, f"rpc_{method}", None)
+        if fn is None:
+            raise RpcError(f"no route {method!r} on this server")
+        return fn
+
     async def _dispatch(self, msg_id, method, payload, peer, writer, write_lock) -> None:
+        t0 = time.perf_counter()
         try:
-            fn = self._routes.get(method)
-            if fn is None:
-                raise RpcError(f"no route {method!r} on this server")
+            fn = self._lookup(method)
             if asyncio.iscoroutinefunction(fn):
                 result = await fn(payload, peer)
             else:
                 result = await asyncio.get_running_loop().run_in_executor(None, fn, payload, peer)
+                if asyncio.iscoroutine(result):
+                    result = await result
             body = _dump((msg_id, True, result))
         except asyncio.CancelledError:
             raise
@@ -190,7 +261,10 @@ class RpcServer:
             try:
                 body = _dump((msg_id, False, e))
             except Exception:  # noqa: BLE001 — an exception that does not pickle
-                body = _dump((msg_id, False, RpcError(repr(e))))
+                body = _dump((msg_id, False, RemoteFailure(type(e).__name__, repr(e))))
+        # handler latency including executor queueing (part of what a
+        # caller waits for), excluding the response write
+        self._latency_hist.observe((time.perf_counter() - t0) * 1e3, {"method": str(method)})
         async with write_lock:
             try:
                 writer.write(_LEN.pack(len(body)) + body)
@@ -220,6 +294,7 @@ class RpcClient:
         self._io_threads: list[threading.Thread] = []
         self._closed = False
         self._dead = False  # the peer vanished or a send failed
+        self._native = None  # the framing library, when RAY_TPU_NATIVE_FRAMING is on
 
     def connect(self, retries: int = 0, delay: float = 0.1) -> "RpcClient":
         last: Optional[BaseException] = None
@@ -237,6 +312,7 @@ class RpcClient:
             s.settimeout(None)
             s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             self._sock = s
+            self._native = _framing.load_library() if _framing.enabled() else None
             for target, name in ((self._read_loop, "rpc-client-reader"),
                                  (self._write_loop, "rpc-client-writer")):
                 t = threading.Thread(target=target, args=(s,), name=name, daemon=True)
@@ -332,8 +408,13 @@ class RpcClient:
             if body is None:
                 return
             try:
-                sock.sendall(_LEN.pack(len(body)))
-                sock.sendall(body)
+                if self._native is not None:
+                    # one writev in C, GIL released, bounded by the timeout
+                    _framing.write_frame(self._native, sock.fileno(), body,
+                                         int(self._timeout * 1000))
+                else:
+                    sock.sendall(_LEN.pack(len(body)))
+                    sock.sendall(body)
             except OSError as e:
                 self._fail_all(RpcError(f"send to {self.addr} failed: {e}"))
                 return
@@ -363,10 +444,22 @@ class RpcClient:
         return buf
 
     def _read_loop(self, sock: socket.socket) -> None:
+        native = None
+        if self._native is not None:
+            # the C receive loop: idle polls re-check _closed, a mid-frame
+            # stall past the timeout reads as a lost connection
+            native = _framing.FrameReader(sock.fileno(), timeout_ms=int(self._timeout * 1000),
+                                          should_stop=lambda: self._closed)
         try:
             while not self._closed:
-                (n,) = _LEN.unpack(self._recv_exact(sock, _LEN.size, mid_frame=False))
-                msg_id, ok, result = pickle.loads(self._recv_exact(sock, n, mid_frame=True))[:3]
+                if native is not None:
+                    body = native.read_frame()
+                    if body is None:
+                        raise ConnectionError("peer closed")
+                else:
+                    (n,) = _LEN.unpack(self._recv_exact(sock, _LEN.size, mid_frame=False))
+                    body = self._recv_exact(sock, n, mid_frame=True)
+                msg_id, ok, result = pickle.loads(body)[:3]
                 with self._plock:
                     ev = self._pending.pop(msg_id, None)
                 if ev is not None:
@@ -383,6 +476,85 @@ class RpcClient:
         for ev, slot in pending:
             slot[:] = [False, err]
             ev.set()
+
+
+class ReconnectingRpcClient:
+    """An ``RpcClient`` that re-dials a dead connection: the peer (a GCS
+    restarted from its snapshot) may come back at the same address
+    (reference: raylets reconnect to a restored GCS). A call on a dead
+    connection gets up to ``redial_attempts`` fresh dials with jittered
+    backoff; a timeout on a live connection is raised as it is, since the
+    request may still run and a resend would repeat a mutation. One
+    endpoint only: the failover across several waits for part 3b."""
+
+    def __init__(self, host, port=None, *extra, timeout: float = 30.0, retries: int = 20,
+                 redial_attempts: int = 3):
+        if port is None and not isinstance(host, str):
+            host, port = parse_gcs_addr(format_gcs_addr(host))
+        if extra:
+            raise NotImplementedError(f"a GCS of several endpoints waits for {PART_3B}")
+        self.addr = (host, int(port))
+        self._timeout = timeout
+        self._retries = retries
+        self._redial_attempts = max(1, int(redial_attempts))
+        self._lock = threading.Lock()
+        self._client: Optional[RpcClient] = None
+        self._closed = False
+
+    def _get(self) -> RpcClient:
+        with self._lock:
+            if self._closed:
+                raise RpcError(f"client to {self.addr} closed")
+            c = self._client
+            if c is not None and c.connected:
+                return c
+        # dial outside the lock: a connect timeout must not hold every caller
+        c = RpcClient(*self.addr, timeout=self._timeout).connect(retries=self._retries)
+        with self._lock:
+            if self._closed:
+                c.close()
+                raise RpcError(f"client to {self.addr} closed")
+            existing = self._client
+            if existing is not None and existing.connected:
+                c.close()  # another thread won the dial race; keep theirs
+                return existing
+            old, self._client = self._client, c
+        if old is not None:
+            old.close()
+        return c
+
+    def connect(self, retries: Optional[int] = None) -> "ReconnectingRpcClient":
+        if retries is not None:
+            self._retries = retries
+        self._get()
+        return self
+
+    def call(self, method: str, payload: Any = None, timeout: Optional[float] = None) -> Any:
+        if _chaos.ACTIVE is not None:
+            # STALL_GCS: a control-plane outage without a process death;
+            # this client is only pointed at the GCS
+            for f in _chaos.fire("gcs.call", kinds=(_chaos.STALL_GCS,), method=method,
+                                 peer=f"{self.addr[0]}:{self.addr[1]}"):
+                if f.kind == _chaos.STALL_GCS:
+                    raise RpcError(f"chaos: GCS stalled — {method!r} to {self.addr} lost")
+        backoff = ExponentialBackoff(base=0.05, cap=1.0)
+        redials = 0
+        while True:
+            c = self._get()
+            try:
+                return c.call(method, payload, timeout)
+            except RpcError:
+                if c.connected or redials >= self._redial_attempts:
+                    raise
+                redials += 1
+                backoff.sleep()
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            c, self._client = self._client, None
+        if c is not None:
+            c.close()
 
 
 class ClientPool:
@@ -410,6 +582,13 @@ class ClientPool:
                 return existing
             self._clients[addr] = c
             return c
+
+    def invalidate(self, addr: tuple[str, int]) -> None:
+        """Drop and close the client of ``addr`` (its peer died)."""
+        with self._lock:
+            c = self._clients.pop((addr[0], int(addr[1])), None)
+        if c is not None:
+            c.close()
 
     def close_all(self) -> None:
         with self._lock:

@@ -12,10 +12,15 @@ arguments and results by value (core/process_pool.py). The accelerator
 resource is ``num_gpus`` -> ``"GPU"``; in process mode a task that holds
 it runs in a worker pinned to its cards.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
-Queue 1 item 6 part): ``init(address=...)``, the reference's cluster
-attach; ``.bind`` on remote functions and actor methods, the DAG nodes of
-``ray_tpu/dag``.
+``init(address="host:port")`` (or ``"ray://host:port"``) attaches this
+driver to a running GCS (``ray_tpu_torch.cluster``) instead: tasks and
+actors then run in worker processes leased from node daemons, objects live
+in the nodes' shared-memory stores, and every call below goes through the
+cluster backend (``core/cluster_backend.py``), as in the reference.
+
+Not ported (raises ``NotImplementedError`` naming its ROADMAP.md Queue 1
+item 6 part): ``.bind`` on remote functions and actor methods, the DAG
+nodes of ``ray_tpu/dag``.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ __all__ = [
     "method",
     "cluster_resources",
     "available_resources",
+    "nodes",
     "placement_group",
     "remove_placement_group",
     "PlacementGroupSchedulingStrategy",
@@ -71,9 +77,16 @@ __all__ = [
 # ---------------------------------------------------------------------------
 
 
-_CLUSTER_RUNTIME = ("the cluster runtime (GCS, node daemons, worker processes; "
-                    "ROADMAP.md Queue 1, item 6, a later part)")
 _DAG = "the DAG nodes of ray_tpu/dag (ROADMAP.md Queue 1, item 6, a later part)"
+_RUNTIME_ENV = ("runtime_env needs process-isolated workers: attach to a cluster first "
+                "(ray_tpu_torch.init(address=...))")
+
+# The cluster backend, when init(address=...) attached this driver to a
+# GCS/node-daemon plane. One runtime per process: either in-process
+# (threads of the process that owns the card) or cluster (leases + worker
+# processes), the same split as the reference's local vs address= init
+# (python/ray/_private/worker.py:1285).
+_CLUSTER: list = [None]
 
 
 def init(
@@ -86,15 +99,30 @@ def init(
     namespace: str = "default",
     ignore_reinit_error: bool = False,
 ):
-    """Start the per-process runtime. ``num_gpus`` defaults to the cards
-    this process sees (``runtime._detect_gpus``). ``worker_mode``: "thread"
-    (the default, flag ``worker_mode``) or "process" (tasks in worker
-    processes, ``core/process_pool.py``)."""
+    """Start the per-process runtime, or attach to a running cluster.
+
+    With no ``address``, boots the in-process runtime. ``num_gpus``
+    defaults to the cards this process sees (``runtime._detect_gpus``).
+    ``worker_mode``: "thread" (the default, flag ``worker_mode``) or
+    "process" (tasks in worker processes, ``core/process_pool.py``).
+
+    With ``address="host:port"`` (a GCS address; ``"ray://host:port"`` is
+    an alias), attaches this driver to that cluster: tasks and actors
+    become leases on node daemons, run in worker processes cluster-wide.
+    """
     if address is not None:
-        raise NotImplementedError(
-            f"init(address={address!r}): attaching to a cluster is not ported to "
-            f"ray_tpu_torch; it waits for {_CLUSTER_RUNTIME}"
-        )
+        if address.startswith("ray://"):
+            address = address[len("ray://"):]
+        if _CLUSTER[0] is not None:
+            if ignore_reinit_error:
+                return _CLUSTER[0]
+            raise RuntimeError(
+                "ray_tpu_torch.init(address=...) called twice; pass ignore_reinit_error=True"
+            )
+        from ray_tpu_torch.core.cluster_backend import ClusterBackend
+
+        _CLUSTER[0] = ClusterBackend(address, namespace=namespace)
+        return _CLUSTER[0]
     if rt.is_initialized():
         if ignore_reinit_error:
             return rt.get_runtime()
@@ -109,15 +137,23 @@ def init(
 
 
 def shutdown() -> None:
+    if _CLUSTER[0] is not None:
+        _CLUSTER[0].close()
+        _CLUSTER[0] = None
     rt.shutdown_runtime()
 
 
 def is_initialized() -> bool:
-    return rt.is_initialized()
+    return _CLUSTER[0] is not None or rt.is_initialized()
 
 
 def _auto_init() -> rt.Runtime:
     return rt.get_runtime()
+
+
+def _cluster():
+    """The attached ClusterBackend, or None (in-process mode)."""
+    return _CLUSTER[0]
 
 
 # ---------------------------------------------------------------------------
@@ -177,11 +213,12 @@ class RemoteFunction:
         functools.update_wrapper(self, func)
 
     def remote(self, *args, **kwargs):
+        backend = _cluster()
+        if backend is not None:
+            out = backend.submit_task(self._func, args, kwargs, self._options)
+            return out[0] if self._options.num_returns == 1 else out
         if self._options.runtime_env:
-            raise ValueError(
-                "runtime_env needs process-isolated workers, which wait for "
-                f"{_CLUSTER_RUNTIME}"
-            )
+            raise ValueError(_RUNTIME_ENV)
         runtime = _auto_init()
         out = runtime.submit_task(self._func, args, kwargs, self._options)
         if isinstance(out, ObjectRefGenerator):
@@ -354,11 +391,11 @@ class ActorClass:
         functools.update_wrapper(self, cls, updated=[])
 
     def remote(self, *args, **kwargs) -> ActorHandle:
+        backend = _cluster()
+        if backend is not None:
+            return backend.create_actor(self._cls, args, kwargs, self._options)
         if self._options.runtime_env:
-            raise ValueError(
-                "runtime_env needs process-isolated workers, which wait for "
-                f"{_CLUSTER_RUNTIME}"
-            )
+            raise ValueError(_RUNTIME_ENV)
         runtime = _auto_init()
         opts = self._options
         if opts.name:
@@ -444,10 +481,16 @@ def remote(*args, **kwargs):
 
 
 def put(value: Any) -> ObjectRef:
+    backend = _cluster()
+    if backend is not None:
+        return backend.put(value)
     return _auto_init().put(value)
 
 
 def get(refs, timeout: Optional[float] = None):
+    backend = _cluster()
+    if backend is not None and not isinstance(refs, ObjectRef):
+        return backend.get(refs, timeout=timeout)
     runtime = _auto_init()
     if isinstance(refs, ObjectRef):
         return runtime.get([refs], timeout)[0]
@@ -463,6 +506,9 @@ def wait(
 ):
     if not refs:
         return [], []
+    backend = _cluster()
+    if backend is not None and not isinstance(refs[0], ObjectRef):
+        return backend.wait(list(refs), num_returns, timeout)
     return _auto_init().wait(list(refs), num_returns, timeout)
 
 
@@ -472,6 +518,10 @@ def free(refs) -> None:
     long-running loops."""
     if not isinstance(refs, (list, tuple)):
         refs = [refs]
+    backend = _cluster()
+    if backend is not None and refs and not isinstance(refs[0], ObjectRef):
+        backend.client.free(list(refs))
+        return
     runtime = _auto_init()
     for r in refs:
         # drop the producer's primary reference; the entry frees when the
@@ -480,10 +530,16 @@ def free(refs) -> None:
 
 
 def kill(handle, *, no_restart: bool = True) -> None:
-    handle._actor.kill(no_restart=no_restart)
+    if hasattr(handle, "_actor"):  # in-process handle
+        handle._actor.kill(no_restart=no_restart)
+    else:  # ClusterActorHandle: the worker dies with the actor's lease
+        handle.kill()
 
 
 def get_actor(name: str, namespace: Optional[str] = None):
+    backend = _cluster()
+    if backend is not None:
+        return backend.get_named_actor(name, namespace)
     runtime = _auto_init()
     actor = runtime.gcs.get_named_actor(name, namespace or runtime.namespace)
     if actor is None or actor.state == ActorState.DEAD:
@@ -493,11 +549,31 @@ def get_actor(name: str, namespace: Optional[str] = None):
 
 
 def cluster_resources() -> dict:
+    backend = _cluster()
+    if backend is not None:
+        return backend.cluster_resources()
     return _auto_init().gcs.cluster_resources()
 
 
 def available_resources() -> dict:
+    backend = _cluster()
+    if backend is not None:
+        return backend.available_resources()
     return _auto_init().gcs.available_resources()
+
+
+def nodes() -> list:
+    """The nodes of the attached cluster (``node_id``, ``addr``,
+    ``resources``, ``available``, ``labels``, ``alive``, ``draining``), or
+    the one node of the in-process runtime."""
+    backend = _cluster()
+    if backend is not None:
+        return backend.nodes()
+    runtime = _auto_init()
+    return [{"node_id": runtime.node_id.hex(), "addr": None,
+             "resources": runtime.gcs.cluster_resources(),
+             "available": runtime.gcs.available_resources(), "labels": {},
+             "alive": True, "draining": False}]
 
 
 # ---------------------------------------------------------------------------
@@ -510,6 +586,9 @@ def placement_group(
     strategy: str = "PACK",
     name: str = "",
 ) -> PlacementGroup:
+    backend = _cluster()
+    if backend is not None:
+        return backend.placement_group(bundles, strategy, name)
     runtime = _auto_init()
     pg = create_placement_group(runtime, bundles, strategy, name)
     runtime.gcs.register_placement_group(pg)
@@ -517,6 +596,10 @@ def placement_group(
 
 
 def remove_placement_group(pg) -> None:
+    backend = _cluster()
+    if backend is not None and not isinstance(pg, PlacementGroup):
+        backend.remove_placement_group(pg)
+        return
     runtime = _auto_init()
     pg.remove()
     runtime.gcs.remove_placement_group(pg.id)

@@ -24,7 +24,8 @@ tensor crosses the same way, by value, and is rebuilt on the receiver's
 own card, as the reference rebuilds a jax array on the receiver's default
 device; a receiver that sees no card raises ``TypeError``.
 
-Later home of the counterpart of ``ray_tpu/cluster/serialization.py``.
+``cluster/serialization.py`` builds the cluster's value pickles on this
+pickler.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ import sys
 import types
 from typing import Callable, Optional
 
-__all__ = ["CUDA_RULE", "Pickler", "by_reference", "dumps"]
+__all__ = ["CUDA_RULE", "Pickler", "by_reference", "dumps", "register_pickle_by_value"]
 
 _GLOBAL_OPS = frozenset({"LOAD_GLOBAL", "STORE_GLOBAL", "DELETE_GLOBAL", "LOAD_NAME",
                          "STORE_NAME", "DELETE_NAME"})
@@ -57,13 +58,31 @@ class _EmptyCell:
     """Marks a closure cell that held no value when pickled."""
 
 
+# modules whose functions and classes go by value although they import
+# (cloudpickle.register_pickle_by_value): a test module, say, that the
+# worker processes of a cluster cannot import
+_BY_VALUE: set = set()
+
+
+def register_pickle_by_value(module: types.ModuleType) -> None:
+    """Pickle the functions and classes of ``module`` (and of its
+    submodules) by value, as ``cloudpickle.register_pickle_by_value``."""
+    _BY_VALUE.add(module.__name__)
+
+
+def _registered_by_value(module_name: str) -> bool:
+    return any(module_name == m or module_name.startswith(m + ".") for m in _BY_VALUE)
+
+
 def by_reference(obj) -> bool:
     """cloudpickle's rule: ``obj`` (a function or class) is reached by
-    importing its module, which is not ``__main__``, and walking its
-    qualified name to the very same object."""
+    importing its module, which is not ``__main__`` nor registered by
+    value, and walking its qualified name to the very same object."""
     module_name = getattr(obj, "__module__", None)
     qualname = getattr(obj, "__qualname__", None)
     if not module_name or not qualname or module_name == "__main__":
+        return False
+    if _BY_VALUE and _registered_by_value(module_name):
         return False
     target = sys.modules.get(module_name)
     if target is None:

@@ -217,6 +217,42 @@ class ShmObjectStore:
         self.seal(object_id)
         self.release(object_id)
 
+    def put_pinned(self, object_id: bytes, data) -> bool:
+        """create + write + seal, keeping the creator's reference: the
+        object is pinned against LRU eviction until release() or
+        delete(). False (not an exception) when the store is full or the
+        id exists: the one sealing protocol of the cluster's daemons and
+        workers."""
+        if len(data) == 0:
+            return False  # the store rounds 0 up to 1 byte: the size would lie
+        try:
+            buf, _ = self.create_buffer(object_id, len(data))
+            ctypes.memmove(buf, data, len(data))
+            self.seal(object_id)
+        except (MemoryError, OSError, KeyError):
+            return False
+        return True
+
+    def get_slice(self, object_id: bytes, offset: int, length: int) -> Optional[bytes]:
+        """Copy out one slice of a sealed object (a chunked pull between
+        nodes must not copy the whole object per chunk)."""
+        view = self.get(object_id)
+        if view is None:
+            return None
+        try:
+            return bytes(view[offset:offset + length])
+        finally:
+            self.release(object_id)
+
+    def size_of(self, object_id: bytes) -> Optional[int]:
+        view = self.get(object_id)
+        if view is None:
+            return None
+        try:
+            return len(view)
+        finally:
+            self.release(object_id)
+
     def seal(self, object_id: bytes) -> None:
         self._check_open()
         if self._lib.shm_seal(self._h, self._id16(object_id)) != 0:

@@ -8,7 +8,8 @@ torn down by the fixture: the values must be equal and the error types
 must have the same names. Then what is the port's own: tensors through
 ``put``/``get`` by reference, the ``"GPU"`` resource, and the unported
 parts that raise ``NotImplementedError`` naming their ROADMAP item
-(``worker_mode="process"``, ported since, now runs a task instead).
+(``worker_mode="process"`` and ``init(address=...)``, ported since, now
+run a task in a worker process instead).
 """
 
 import asyncio
@@ -447,8 +448,23 @@ def test_unported_parts_raise(port_rt, case):
         assert pid != os.getpid()
         return
     if case == "address":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 6"):
-            port_rt.init(address="127.0.0.1:6379")
+        # ported since: an attach to a GCS runs a task in a worker process
+        from ray_tpu_torch.cluster import LocalCluster
+
+        c = LocalCluster(node_death_timeout_s=2.0)
+        try:
+            c.start()
+            c.add_node({"num_cpus": 1}, node_id="head")
+            c.wait_for_nodes(1, timeout=WAIT_S)
+            port_rt.init(address=c.address)
+            node, pid = port_rt.get(port_rt.remote(
+                lambda: (os.environ.get("RAY_TPU_NODE_ID"), os.getpid())).remote(),
+                timeout=WAIT_S)
+            assert node == "head" and pid != os.getpid()
+        finally:
+            port_rt.shutdown()
+            c.shutdown()
+        assert c.leftovers() == {"processes": [], "store_files": []}
         return
     port_rt.init(num_cpus=2)
     if case == "task_bind":

@@ -1995,3 +1995,94 @@ def test_gpu_task_in_a_worker_equals_thread_mode():
             ray_tpu_torch.shutdown()
     assert outs["process"][1] == outs["thread"][1] == 1
     assert torch.equal(outs["process"][0].view(torch.int16), outs["thread"][0].view(torch.int16))
+
+
+def _gpu_cluster():
+    """A port cluster of one node holding this machine's first card, and
+    the driver attached to it. Functions of this file go by value: the
+    cluster's workers cannot import it."""
+    import sys
+
+    import ray_tpu_torch
+    from ray_tpu_torch.cluster import LocalCluster
+    from ray_tpu_torch.core.serialization import register_pickle_by_value
+
+    register_pickle_by_value(sys.modules[__name__])
+    c = LocalCluster(node_death_timeout_s=5.0)
+    try:
+        c.start()
+        c.add_node({"num_cpus": 2, "GPU": 1}, node_id="gpu")
+        c.wait_for_nodes(1)
+        ray_tpu_torch.init(address=c.address)
+    except BaseException:
+        c.shutdown()
+        raise
+    return ray_tpu_torch, c
+
+
+def _stop_cluster(api, c):
+    api.shutdown()
+    c.shutdown()
+    assert c.leftovers() == {"processes": [], "store_files": []}
+
+
+def _probe_cards():
+    import os
+
+    import torch
+
+    return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "available": torch.cuda.is_available(), "count": torch.cuda.device_count(),
+            "node": os.environ.get("RAY_TPU_NODE_ID"), "pid": os.getpid(),
+            "initialized": torch.cuda.is_initialized()}
+
+
+def test_cluster_gpu_task_sees_exactly_its_card():
+    _need_cuda()
+    import os
+
+    api, c = _gpu_cluster()
+    try:
+        got = api.get(api.remote(num_gpus=1)(_probe_cards).remote(), timeout=300)
+        res = api.cluster_resources()
+    finally:
+        _stop_cluster(api, c)
+    assert got["node"] == "gpu" and got["available"] and got["count"] == 1
+    assert got["visible"] == (os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0] or "0")
+    assert res["GPU"] == 1.0
+
+
+def test_cluster_cpu_lease_worker_has_no_cuda_context():
+    _need_cuda()
+    api, c = _gpu_cluster()
+    try:
+        cpu = api.get(api.remote(num_cpus=1)(_probe_cards).remote(), timeout=300)
+        gpu = api.get(api.remote(num_gpus=1)(_probe_cards).remote(), timeout=300)
+    finally:
+        _stop_cluster(api, c)
+    assert cpu["visible"] == "" and not cpu["available"] and cpu["count"] == 0
+    assert not cpu["initialized"]
+    assert gpu["pid"] != cpu["pid"]  # never the same worker
+
+
+def test_cluster_cuda_tensor_returned_through_the_store_bit_for_bit():
+    """A bf16 CUDA tensor made in a GPU worker crosses through the node's
+    shared-memory store and is rebuilt on this process's card, bit for
+    bit (its bit patterns cover every int16, NaNs included)."""
+    _need_cuda()
+
+    def make(n):
+        import torch
+
+        bits = (torch.arange(n, dtype=torch.int64, device="cuda") * 40503 % 65536) - 32768
+        return bits.to(torch.int16).view(torch.bfloat16)
+
+    n = 8 << 20  # 16 MiB
+    api, c = _gpu_cluster()
+    try:
+        got = api.get(api.remote(num_gpus=1)(make).remote(n), timeout=300)
+    finally:
+        _stop_cluster(api, c)
+    want = make(n)
+    assert got.is_cuda and got.dtype == torch.bfloat16 and got.shape == (n,)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))

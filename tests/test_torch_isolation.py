@@ -48,7 +48,8 @@ def test_port_imports_without_jax_triton_or_gpu(tmp_path):
     speculative decoding, disaggregated serving (in-process and over the
     device fabric), a train step, a task on the in-process runtime, a
     completion over HTTP through ``build_openai_app`` on the CPU, and a
-    process-mode task whose function is a closure, with ``cloudpickle``
+    process-mode task and a task on a port cluster (GCS, node daemon,
+    cluster worker) whose function is a closure, with ``cloudpickle``
     blocked in the workers too (a shadow module on ``PYTHONPATH`` that
     raises on import: worker processes do not inherit ``sys.modules``)."""
     code = """
@@ -139,6 +140,24 @@ ray_tpu_torch.init(num_cpus=2, worker_mode="process")
 got, pid = ray_tpu_torch.get(ray_tpu_torch.remote(make_probe(41)).remote(1), timeout=60)
 assert got == 42 and pid != os.getpid(), got
 ray_tpu_torch.shutdown()
+
+import ray_tpu_torch.cluster.gcs_service, ray_tpu_torch.cluster.node_daemon
+import ray_tpu_torch.cluster.worker_main, ray_tpu_torch.cluster.client
+import ray_tpu_torch.cluster.lockstats, ray_tpu_torch.cluster.runtime_env
+import ray_tpu_torch.cluster.serialization, ray_tpu_torch.core.cluster_backend
+import ray_tpu_torch.native.framing, ray_tpu_torch.utils.env
+from ray_tpu_torch.cluster import LocalCluster
+c = LocalCluster(node_death_timeout_s=2.0).start()
+try:
+    c.add_node({"num_cpus": 1}, node_id="iso")
+    c.wait_for_nodes(1)
+    ray_tpu_torch.init(address=c.address)
+    got, pid = ray_tpu_torch.get(ray_tpu_torch.remote(make_probe(1)).remote(2), timeout=60)
+    assert got == 3 and pid != os.getpid(), got
+    ray_tpu_torch.shutdown()
+finally:
+    c.shutdown()
+assert c.leftovers() == {"processes": [], "store_files": []}
 print("ok")
 """
     shadow = tmp_path / "shadow"

@@ -128,7 +128,12 @@ def test_apply_lora_matches_reference(packed):
     l0 = _layer0(stacks)
     jl0 = {k: jnp.asarray(v) for k, v in l0.items()}
     jfn = jld._apply_lora_packed if packed else jld._apply_lora
-    ref = jfn(*(jnp.asarray(a) for a in qkv), jnp.asarray(x), jl0, jnp.asarray(ids), J_FP32_TINY)
+    # read the reference's outputs before the port runs: jnp.asarray can alias
+    # a 64-byte-aligned numpy buffer, the port adds its deltas into that
+    # buffer in place, and JAX dispatches asynchronously, so a reference
+    # still in flight would add the deltas twice
+    ref = [np.asarray(r) for r in jfn(*(jnp.asarray(a) for a in qkv), jnp.asarray(x), jl0,
+                                      jnp.asarray(ids), J_FP32_TINY)]
     _, tl = _lora_args(stacks, ids)
     mask, layers = tld._lora_layers(tl)
     tfn = tld._apply_lora_packed if packed else tld._apply_lora
