@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases build,fleet           # the canary ladder at LLAMA3_8B
     python3 chip_smoke.py --phases build,train,publish   # train -> publish -> serve
     python3 chip_smoke.py --phases build,engine,process  # 8B in a pinned worker process
+    python3 chip_smoke.py --phases build,engine,cluster_ha  # 8B across a GCS failover
 
 Phases, each printing one JSON line:
 
@@ -243,10 +244,11 @@ Phases, each printing one JSON line:
            FleetManager of 2 replicas (r0 serves the smoke's weights, r1 a
            clone), 1 024 blocks of 16 and max_num_seqs 8 each, max_loras 2
            (rank 8, wq and wv), tenants gold (priority 2, weight 3) and
-           batch (priority 0, weight 1) over a queue budget of 64 (batch
-           holds 16 in flight), the engine phase's prompts: a
-           noisy neighbour (24 batch threads flood, alone for 8 s, then
-           while gold sends 4:
+           batch (priority 0, weight 1) over a queue budget of 96 (batch
+           holds 24 in flight, 8 more than the two replicas' slots), the
+           engine phase's prompts: a noisy neighbour (32 batch threads
+           flood, alone for 8 s, then while gold sends 4, each once every
+           replica runs 8 rows:
            gold's TTFT and SLO grade, batch requests shed, priority
            preemptions); a base canary (every leaf x 1.01) graded on 8
            greedy gold requests (their shapes captured in a pass before)
@@ -282,6 +284,36 @@ Phases, each printing one JSON line:
            context), a warm GPU task's round trip, a 64 MiB numpy argument
            and result through the store and through the pipe in turns, the
            8B task's param-init, capture and pass seconds and peak memory
+  cluster  LLAMA3_8B in a num_gpus=1 actor of a port cluster (a GCS, node
+           "gpu" holding the card and node "cpu"), attached with
+           ray_tpu_torch.init(address=...): the engine phase's streams on
+           two passes, the actor killed and the card's memory back, a GPU
+           worker's cold start, a bf16 CUDA tensor through the store, the
+           driver's tensor pulled by the CPU node, a crashed GPU task
+           retried, nothing left after shutdown
+  cluster_ha  the cluster phase's nodes under a GCS with a warm standby
+           (LocalCluster(standby=True)), attached with both endpoints; a
+           seeded DROP_RPC on telemetry_push handed to the cluster's
+           processes through the environment. A num_gpus=1 actor serves
+           LLAMA3_8B (ClusterServer8B) and reports its registry to both
+           endpoints every 0.5 s; it serves the engine phase's 12 requests
+           three times: r with the primary up, s while a ChaosRunner
+           SIGKILLs the primary 0.3 s after the submit (KILL_GCS_PRIMARY),
+           t once the standby has promoted. Fails unless each pass's 10
+           greedy streams equal the engine phase's first pass, pass r
+           launches K3/K4 1 056 / 480 times and passes s and t 1 024 / 320,
+           all in graph replays with no capture; the promoted GCS reports
+           role primary, the term one above the old, one failover and no
+           fenced write; its merged TTFT histogram equals the worker's own
+           bucket for bucket over the 36 requests, the SLO grade is not
+           no_data, both daemons' node gauges arrived, format_status names
+           the new primary; the reporter lost pushes; the killed actor's
+           lease is released there and the card's memory comes back; a GPU
+           task leases through the new primary; nothing (standby included)
+           is left after shutdown, and no control-plane process loaded
+           torch. Reports the start, lease to ready, each pass, kill to
+           promoted, the reporter's counts, staleness after the failover,
+           the cold GPU task's round trip and the shutdown
   train    LLAMA_400M at full width and depth (bf16 compute, fp32 params,
            remat "dots", flash attention, AdamW lr 3e-4 wd 1e-4), B 8,
            S 1024, one fixed batch (numpy seed 0), with bench.py's gates:
@@ -4819,11 +4851,14 @@ def publish_phase(dev, trained) -> dict:
 FLEET_BLOCKS = 1024
 FLEET_KW = dict(max_loras=2, lora_rank=8, lora_targets=("wq", "wv"))
 FLEET_SEQS = 8            # max_num_seqs per replica
-# the tenants' admission budget: batch (weight 1 of 4) holds up to 16 requests
-# in flight, enough to fill both replicas' 8 sequences, so a gold arrival
-# must preempt; 24 flood threads exceed it, so batch is also shed
-FLEET_QUEUE_BUDGET = 64
-FLEET_FLOOD_THREADS = 24
+# the tenants' admission budget: batch (weight 1 of 4) holds up to 24 requests
+# in flight, more than both replicas' 8 sequences, so each replica keeps
+# batch rows waiting behind a full batch and a gold arrival must preempt
+# (at exactly 16, a row between finishing and its thread's next submit left
+# a slot free, least-loaded routing sent gold there, and no preemption
+# fired); 32 flood threads exceed the share, so batch is also shed
+FLEET_QUEUE_BUDGET = 96
+FLEET_FLOOD_THREADS = 32
 FLEET_FLOOD_WARM_S = 8.0  # flood alone before gold's graded requests
 
 
@@ -4837,6 +4872,18 @@ def _fleet_spec():
                  TenantSpec("batch", priority=0, weight=1.0)),
         total_queue_budget=FLEET_QUEUE_BUDGET,
     )
+
+
+def _wait_every_slot_batch(mgr, deadline_s: float = 60.0) -> None:
+    """Return once every replica runs ``FLEET_SEQS`` rows, so a gold request
+    sent now finds no free slot and has a batch row to preempt; fail after
+    ``deadline_s``."""
+    end = time.monotonic() + deadline_s
+    while any(r.runner.depths()[1] < FLEET_SEQS for r in mgr.replicas("llama3-8b")):
+        if time.monotonic() > end:
+            raise AssertionError(f"fleet: the flood never filled every replica's "
+                                 f"{FLEET_SEQS} slots in {deadline_s} s")
+        time.sleep(0.001)
 
 
 def _scaled(params, factor: float) -> dict:
@@ -4973,6 +5020,7 @@ def fleet_phase(dev, params) -> dict:
             gold_ttft, gold_tokens = [], 0
             try:
                 for i in range(4):
+                    _wait_every_slot_batch(mgr)
                     t = time.perf_counter()
                     ticket = mgr.submit("gold", "llama3-8b", prompts[2 + i], greedy,
                                         request_id=f"nn{i}")
@@ -5789,10 +5837,318 @@ def cluster_phase(dev, engine_first: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# cluster_ha
+# ---------------------------------------------------------------------------
+
+
+HA_DROP_SEED = 31337                 # the seeded DROP_RPC on telemetry_push
+HA_KILL_AT_S = 0.3                   # KILL_GCS_PRIMARY this long after pass s's submit
+HA_DEADLINE_S = 15.0                 # every control-plane query and wait of the phase
+HA_REPORTER = "llama3-8b-host"
+HA_MODEL_TAG = "llama3-8b-ha"
+
+
+class ClusterHAServer8B(ClusterServer8B):
+    """``ClusterServer8B`` with a ``TelemetryReporter`` to both GCS
+    endpoints (every 0.5 s, the engine's utilization gauges refreshed
+    before each snapshot), its requests' SLO samples tagged
+    ``HA_MODEL_TAG``."""
+
+    def __init__(self, device: str, endpoints):
+        super().__init__(device)
+        from ray_tpu_torch.obs.telemetry import TelemetryReporter
+
+        self.eng.model_tag = HA_MODEL_TAG
+        self.reporter = TelemetryReporter(tuple(tuple(e) for e in endpoints),
+                                          reporter_id=HA_REPORTER, kind="engine",
+                                          interval_s=0.5,
+                                          collect=[self.eng.update_telemetry_gauges]).start()
+
+    def flush_telemetry(self, attempts: int = 20) -> dict:
+        """Push until one push lands (the seeded schedule drops some); the
+        worker's own TTFT histogram and the reporter's counts."""
+        from ray_tpu_torch.obs import slo
+
+        landed = any(self.reporter.push_once() for _ in range(attempts))
+        hist = slo.ttft_histogram().hist_data().get((HA_MODEL_TAG,))
+        return {"landed": landed, "num_ok": self.reporter.num_ok,
+                "num_dropped": self.reporter.num_dropped,
+                "ttft_buckets": list(hist[0]) if hist else None,
+                "ttft_count": hist[2] if hist else 0}
+
+
+def _watch_promotion(endpoints, term0: int, out: dict, stop) -> None:
+    """Poll ``ha_status`` through a client of both endpoints until a GCS
+    answers with term ``term0 + 1``: ``out["promoted_at"]`` (wall clock)."""
+    from ray_tpu_torch.cluster.rpc import ReconnectingRpcClient
+
+    client = ReconnectingRpcClient(*endpoints, timeout=2.0, failover_attempts=2)
+    deadline = time.monotonic() + 60.0
+    try:
+        while not stop.is_set() and time.monotonic() < deadline:
+            try:
+                st = client.call("ha_status", {}, timeout=2.0)
+            except Exception:  # noqa: BLE001 — the failover window
+                stop.wait(0.05)
+                continue
+            if st.get("term") == term0 + 1 and st.get("role") == "primary":
+                out["promoted_at"] = time.time()
+                out["status"] = st
+                return
+            stop.wait(0.05)
+    finally:
+        client.close()
+
+
+def _ha_status(gcs, want_term: int) -> dict:
+    """``ha_status`` through the driver's client until it shows
+    ``want_term`` (HA_DEADLINE_S)."""
+    deadline = time.monotonic() + HA_DEADLINE_S
+    st: dict = {}
+    while True:
+        try:
+            st = gcs.call("ha_status", {}, timeout=5.0)
+            if st.get("term") == want_term:
+                return st
+        except Exception:  # noqa: BLE001 — the failover window
+            pass
+        if time.monotonic() > deadline:
+            raise AssertionError(f"cluster_ha: no GCS at term {want_term} within "
+                                 f"{HA_DEADLINE_S} s: {st}")
+        time.sleep(0.1)
+
+
+def cluster_ha_phase(dev, engine_first: dict) -> dict:
+    """LLAMA3_8B served by a ``num_gpus=1`` actor across a GCS failover: a
+    port cluster whose GCS has a warm standby (the cluster phase's nodes),
+    attached with both endpoints; the engine phase's streams on a pass
+    before, during and after ``KILL_GCS_PRIMARY``; the promotion, the
+    telemetry plane on the promoted GCS (the actor's pushes partly dropped
+    by a seeded schedule), the actor's kill and a GPU task through the new
+    primary, nothing left after shutdown."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import chaos
+    from ray_tpu_torch.chaos.runner import ChaosRunner
+    from ray_tpu_torch.cluster import LocalCluster
+    from ray_tpu_torch.core import api as core_api
+    from ray_tpu_torch.core import runtime as rt
+    from ray_tpu_torch.models.llama import LLAMA3_8B
+    from ray_tpu_torch.obs.telemetry import format_status
+
+    t_phase = time.perf_counter()
+    if rt.is_initialized():
+        raise AssertionError("cluster_ha: a runtime outlived an earlier phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res: dict = {"phase": "cluster_ha"}
+    drops = chaos.FaultSchedule(HA_DROP_SEED, [chaos.FaultSpec(
+        chaos.DROP_RPC, site="rpc.call", match={"method": "telemetry_push"}, every_n=2)])
+    # installed before the cluster starts: the daemons copy this process's
+    # environment and their workers adopt it (install_from_env)
+    chaos.install(drops, propagate_env=True)
+    c = LocalCluster(node_death_timeout_s=10.0, standby=True)
+    watch_stop = threading.Event()
+    try:
+        t0 = time.perf_counter()
+        c.start()
+        c.add_node({"num_cpus": 2, "GPU": 1}, node_id="gpu",
+                   object_capacity_bytes=CLUSTER_STORE_BYTES)
+        c.add_node({"num_cpus": 2}, node_id="cpu", object_capacity_bytes=CLUSTER_STORE_BYTES)
+        c.wait_for_nodes(2, timeout=60)
+        ray_tpu_torch.init(address=c.address)
+        res["cluster_start_s"] = time.perf_counter() - t0
+        endpoints = c.gcs_endpoints
+        gcs = core_api._cluster().client.gcs
+        res["address"] = c.address
+        if len(endpoints) != 2 or gcs.endpoints != endpoints:
+            raise AssertionError(f"cluster_ha: the driver's GCS client {gcs.endpoints} is not "
+                                 f"the pair {endpoints}")
+        _no_torch_in(c.pids())  # the primary, the standby and the daemons
+        term0 = _ha_status(gcs, 0)["term"]
+
+        # the actor: LLAMA3_8B on the gpu node's card, reporting to both endpoints
+        free0 = torch.cuda.mem_get_info()[0]
+        prompts, sps = _engine_traffic(LLAMA3_8B)
+        lens = np.asarray([len(p) for p in prompts], np.int64)
+        flat = np.concatenate([np.asarray(p, np.int32) for p in prompts])
+        greedy = sum(sp.temperature == 0.0 for sp in sps)
+        t0 = time.time()
+        server = ray_tpu_torch.remote(num_gpus=1)(ClusterHAServer8B).remote(dev.type, endpoints)
+        info = ray_tpu_torch.get(server.info.remote(), timeout=600)
+        info["lease_to_ready_s"] = time.time() - t0
+        info["submit_to_entry_s"] = info.pop("entered") - t0
+        if info["node"] != "gpu" or info["visible"] != "0" or info["cards_seen"] != 1:
+            raise AssertionError(f"cluster_ha: the actor is not pinned to the gpu node's card: "
+                                 f"{info}")
+        res["actor"] = info
+
+        returned_at: dict = {}  # wall time at which each pass's get returned
+
+        def serve_pass(tag: str, before_get=None) -> dict:
+            t0 = time.perf_counter()
+            ref = server.serve.remote(flat, lens, sps, tag)
+            if before_get is not None:
+                before_get()
+            out = ray_tpu_torch.get(ref, timeout=600)
+            returned_at[tag] = time.time()
+            out["round_trip_s"] = time.perf_counter() - t0
+            toks = out.pop("tokens")
+            same = sum(toks[f"{tag}{i}"] == engine_first[f"r{i}"] for i in range(greedy))
+            out["greedy_streams_equal_engine_phase"] = f"{same}/{greedy}"
+            if same != greedy:
+                diff = [(f"{tag}{i}", j, a, b) for i in range(greedy)
+                        for j, (a, b) in enumerate(zip(toks[f"{tag}{i}"], engine_first[f"r{i}"]))
+                        if a != b][:20]
+                raise AssertionError(f"cluster_ha: pass {tag}: {same}/{greedy} greedy streams "
+                                     f"equal the engine phase's: {diff}")
+            return out
+
+        passes = {"r": serve_pass("r")}
+        want_first = {n: FIRST_PASS_LAUNCHES[n]["device"] for n in FIRST_PASS_LAUNCHES}
+        if passes["r"]["kernel_launches"] != want_first:
+            raise AssertionError(f"cluster_ha: pass r launches {passes['r']['kernel_launches']} "
+                                 f"!= {want_first}")
+
+        # pass s: the primary is SIGKILLed 0.3 s after the submit
+        runner = ChaosRunner(chaos.FaultSchedule(HA_DROP_SEED + 1, [chaos.FaultSpec(
+            chaos.KILL_GCS_PRIMARY, at_s=HA_KILL_AT_S)]), cluster=c)
+        watched: dict = {}
+        watcher = threading.Thread(target=_watch_promotion, args=(endpoints, term0, watched,
+                                                                  watch_stop),
+                                   name="chip-smoke-ha-watch", daemon=True)
+
+        def kill_primary():
+            runner.start()
+            watcher.start()
+
+        passes["s"] = serve_pass("s", kill_primary)
+        runner.join(timeout=HA_DEADLINE_S)
+        runner.stop()
+        watcher.join(timeout=60)
+        if [f.kind for f in runner.executed] != [chaos.KILL_GCS_PRIMARY]:
+            raise AssertionError(f"cluster_ha: the runner executed {runner.executed}")
+        t_kill = runner.executed[0].t
+        # the kill must land while pass s is still in flight, not after it returned
+        res["kill_before_pass_s_returned_s"] = returned_at["s"] - t_kill
+        if t_kill >= returned_at["s"]:
+            raise AssertionError(f"cluster_ha: the primary was killed "
+                                 f"{t_kill - returned_at['s']:.3f} s after pass s returned")
+        if "promoted_at" not in watched:
+            raise AssertionError("cluster_ha: the standby did not promote within 60 s of the "
+                                 "kill")
+        res["kill_to_promoted_s"] = watched["promoted_at"] - t_kill
+        ha = _ha_status(gcs, term0 + 1)
+        res["ha_status"] = ha
+        if (ha["role"] != "primary" or ha["failovers_total"] != 1
+                or ha["fenced_writes_total"] != 0 or tuple(gcs.addr) != tuple(c.standby_addr)):
+            raise AssertionError(f"cluster_ha: after the failover {ha} at {gcs.addr}")
+
+        passes["t"] = serve_pass("t")
+        want_steady = {n: FIRST_PASS_LAUNCHES[n]["in_replays"] for n in FIRST_PASS_LAUNCHES}
+        for tag in ("s", "t"):
+            p = passes[tag]
+            if (p["kernel_launches"] != want_steady or p["kernel_launches_in_replays"] != want_steady
+                    or p["captures"] != 0):
+                raise AssertionError(f"cluster_ha: pass {tag}: launches {p['kernel_launches']}, "
+                                     f"in replays {p['kernel_launches_in_replays']}, captures "
+                                     f"{p['captures']}; want {want_steady} in replays and none")
+        res["passes"] = passes
+
+        # the telemetry plane on the promoted GCS
+        flushed = ray_tpu_torch.get(server.flush_telemetry.remote(), timeout=HA_DEADLINE_S)
+        res["reporter"] = {k: flushed[k] for k in ("landed", "num_ok", "num_dropped")}
+        agg = gcs.call("telemetry_cluster", {}, timeout=HA_DEADLINE_S)
+        merged = agg["histograms"].get("ray_tpu_llm_ttft_seconds", {}).get(
+            "series", {}).get(f"model={HA_MODEL_TAG}")
+        served = 3 * len(prompts)
+        res["ttft"] = {"gcs_count": merged and merged["count"], "worker_count": flushed["ttft_count"],
+                       "gcs_p50_s": merged and merged.get("p50"),
+                       "gcs_p95_s": merged and merged.get("p95")}
+        if (not flushed["landed"] or flushed["num_dropped"] == 0 or merged is None
+                or merged["buckets"] != flushed["ttft_buckets"] or merged["count"] != served
+                or flushed["ttft_count"] != served):
+            raise AssertionError(f"cluster_ha: the promoted GCS's TTFT histogram {merged} against "
+                                 f"the worker's {flushed}")
+        res["staleness_after_failover_s"] = agg["staleness"].get(HA_REPORTER)
+        slo = gcs.call("telemetry_slo", {}, timeout=HA_DEADLINE_S)
+        res["slo_grade"] = slo["model_tags"].get(HA_MODEL_TAG, {}).get("grade")
+        if res["slo_grade"] in (None, "no_data"):
+            raise AssertionError(f"cluster_ha: SLO grade {res['slo_grade']}")
+        deadline = time.monotonic() + HA_DEADLINE_S
+        while True:
+            workers = gcs.call("telemetry_cluster", {}, timeout=HA_DEADLINE_S)["gauges"].get(
+                "ray_tpu_node_workers", {}).get("series", {})
+            if {"node=gpu", "node=cpu"} <= set(workers) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        res["node_gauges"] = workers
+        if not {"node=gpu", "node=cpu"} <= set(workers):
+            raise AssertionError(f"cluster_ha: node gauges on the promoted GCS: {workers}")
+        text = format_status(gcs.call("telemetry_status", {}, timeout=HA_DEADLINE_S))
+        for want in ("role primary", f"term {term0 + 1}", "failovers 1"):
+            if want not in text:
+                raise AssertionError(f"cluster_ha: status text lacks {want!r}:\n{text}")
+
+        # kill the actor: its lease released on the promoted GCS, the card's memory back
+        t0 = time.perf_counter()
+        ray_tpu_torch.kill(server)
+        del server
+        free1, wait_s = _free_bytes_back(free0 - CLUSTER_FREE_SLACK)
+        deadline = time.monotonic() + HA_DEADLINE_S
+        while True:
+            gpu_row = next(n for n in gcs.call("list_nodes", None, timeout=HA_DEADLINE_S)
+                           if n["node_id"] == "gpu")
+            if gpu_row["available"].get("GPU") == 1 or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        stats = core_api._cluster().client.pool.get(tuple(gpu_row["addr"])).call("stats", None)
+        res["kill"] = {"free_before": free0, "free_after": free1, "waited_s": wait_s,
+                       "s": time.perf_counter() - t0, "gcs_gpu_available": gpu_row["available"],
+                       "gpu_node_leases": stats["num_leases"]}
+        if free1 < free0 - CLUSTER_FREE_SLACK:
+            raise AssertionError(f"cluster_ha: the card's free bytes {free1} not back within "
+                                 f"64 MB of {free0} after the kill")
+        if (gpu_row["available"].get("GPU") != 1 or stats["num_leases"] != 0
+                or stats["available"].get("GPU") != 1):
+            raise AssertionError(f"cluster_ha: the actor's lease was not released: {res['kill']}")
+
+        # a GPU task leased through the new primary
+        t0 = time.perf_counter()
+        cold = ray_tpu_torch.get(ray_tpu_torch.remote(num_gpus=1)(_cold_start_probe).remote(
+            time.time(), dev.type), timeout=300)
+        cold["round_trip_s"] = time.perf_counter() - t0
+        res["cold_gpu_task"] = cold
+        if cold["device"] != torch.cuda.get_device_name(0) or cold["visible"] != "0":
+            raise AssertionError(f"cluster_ha: the GPU task after the failover: {cold}")
+        _no_torch_in(c.pids())  # the promoted standby and the daemons, after all of it
+    finally:
+        watch_stop.set()
+        ray_tpu_torch.shutdown()
+        chaos.uninstall()
+        t0 = time.perf_counter()
+        c.shutdown()
+        res["shutdown_s"] = time.perf_counter() - t0
+    left = c.leftovers()
+    res["left_after_shutdown"] = left
+    if left != {"processes": [], "store_files": []}:
+        raise AssertionError(f"cluster_ha: left after shutdown: {left}")
+    res["kernel_launches"] = {n: sum(p["kernel_launches"][n] for p in passes.values())
+                              for n in want_first}
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "api", "serve", "data", "disagg",
-          "kvtier", "parity", "spec", "fleet", "process", "cluster", "train", "data_feed",
-          "publish", "train_parity")
+          "kvtier", "parity", "spec", "fleet", "process", "cluster", "cluster_ha", "train",
+          "data_feed", "publish", "train_parity")
 
 SOURCES = {
     "paged_attention": ("ray_tpu_torch/ops/csrc/paged_attention.cu",
@@ -5835,10 +6191,10 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
-    if {"lora", "api", "data", "disagg", "process", "cluster"} & set(phases) \
+    if {"lora", "api", "data", "disagg", "process", "cluster", "cluster_ha"} & set(phases) \
             and "engine" not in phases:
-        ap.error("the lora, api, data, disagg, process and cluster phases read the engine "
-                 "phase's results: add engine")
+        ap.error("the lora, api, data, disagg, process, cluster and cluster_ha phases read the "
+                 "engine phase's results: add engine")
     if "serve" in phases and "api" not in phases:
         ap.error("the serve phase reads the api phase's results: add engine,api")
     if "publish" in phases and "train" not in phases:
@@ -5874,7 +6230,7 @@ def main(argv=None) -> int:
     serve_launches, data_launches, feed_launches = {}, {}, {}
     disagg_device_launches = {}
     kvtier_launches, fleet_launches, publish_launches, process_launches = {}, {}, {}, {}
-    cluster_launches = {}
+    cluster_launches, cluster_ha_launches = {}, {}
     if "engine" in phases:
         engine_res = engine_phase(dev, params, params_s)
         engine_first = engine_res["first_pass_tokens"]  # a few KB, for the process phase
@@ -5912,6 +6268,8 @@ def main(argv=None) -> int:
         process_launches = process_phase(dev, engine_first)["kernel_launches"]
     if "cluster" in phases:
         cluster_launches = cluster_phase(dev, engine_first)["kernel_launches"]
+    if "cluster_ha" in phases:
+        cluster_ha_launches = cluster_ha_phase(dev, engine_first)["kernel_launches"]
     if "train" in phases:
         train_res = train_phase(dev, keep_state="publish" in phases)
         launches.update(train_res["kernel_launches"])
@@ -5949,6 +6307,8 @@ def main(argv=None) -> int:
                if name in process_launches else {}),
             **({"launches_cluster_phase": cluster_launches[name]}
                if name in cluster_launches else {}),
+            **({"launches_cluster_ha_phase": cluster_ha_launches[name]}
+               if name in cluster_ha_launches else {}),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
             "library_ms": bf["library_ms"], "dtype": "bfloat16", "shape": bf["shape"],

@@ -20,15 +20,20 @@ Usage::
 Hook sites: ``llm.engine.step`` (``llm/engine.py``),
 ``disagg.kv_transfer`` (``llm/disagg/connector.py``), ``llm.kvtier.spill``
 and ``llm.kvfetch`` (``llm/kvtier/tiers.py``), ``serve.replica``
-(``serve/replica.py``: KILL_REPLICA raises ``ReplicaCrashed``), each
-behind an
-``ACTIVE is None`` fast path. The reference's ``ChaosRunner``
-(orchestrated process kills) and environment propagation to worker
-processes wait for the cluster runtime (ROADMAP.md Queue 1, B8).
+(``serve/replica.py``: KILL_REPLICA raises ``ReplicaCrashed``),
+``rpc.call`` / ``rpc.frame`` / ``gcs.call`` (``cluster/rpc.py``),
+``node.heartbeat`` (``cluster/node_daemon.py``) and ``cluster.push``
+(``cluster/client.py``), each behind an ``ACTIVE is None`` fast path.
+``install(sched, propagate_env=True)`` hands the schedule to the cluster's
+daemons and workers (``install_from_env``). Orchestrated faults
+(``PREEMPT_NODE``, ``KILL_WORKER``, ``KILL_GCS``, ``KILL_GCS_PRIMARY``,
+``PARTITION_GCS_PAIR``, ``KILL_REPLICA`` with an ``at_s``) run through
+``chaos.runner.ChaosRunner``.
 """
 
 from ray_tpu_torch.chaos import harness
 from ray_tpu_torch.chaos.harness import (
+    ENV_VAR,
     EnginePreempted,
     FaultInjected,
     ReplicaCrashed,
@@ -37,6 +42,7 @@ from ray_tpu_torch.chaos.harness import (
     fault_log,
     fire,
     install,
+    install_from_env,
     uninstall,
 )
 from ray_tpu_torch.chaos.schedule import (
@@ -70,6 +76,10 @@ from ray_tpu_torch.chaos.schedule import (
 def __getattr__(name):
     if name == "ACTIVE":  # convenience mirror of harness.ACTIVE
         return harness.ACTIVE
+    if name == "ChaosRunner":
+        from ray_tpu_torch.chaos.runner import ChaosRunner
+
+        return ChaosRunner
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -80,6 +90,6 @@ __all__ = [
     "PARTIAL_PARTITION", "PARTITION_GCS_PAIR", "PREEMPT_ENGINE", "PREEMPT_NODE",
     "STALL_CHANNEL", "STALL_COLLECTIVE", "STALL_GCS", "STALL_HEARTBEAT",
     "Fault", "FaultSchedule", "FaultSpec", "FaultInjected", "EnginePreempted", "ReplicaCrashed",
-    "active", "corrupt_frame",
-    "fault_log", "fire", "harness", "install", "uninstall",
+    "ChaosRunner", "ENV_VAR", "active", "corrupt_frame",
+    "fault_log", "fire", "harness", "install", "install_from_env", "uninstall",
 ]

@@ -12,14 +12,19 @@ Fired faults land in the schedule's ``log`` and in this package's flight
 recorder as zero-duration ``chaos.<kind>`` spans under the ambient trace,
 so a request's trace shows which fault fired inside it.
 
-Not ported: ``install(propagate_env=True)`` and ``install_from_env``,
-which hand a schedule to cluster worker processes, and the blocked-peer
-set of the control-plane partition faults; both come with the cluster's
-chaos runner (ROADMAP.md Queue 1, item 6, part 3b).
+Across processes: ``install(schedule, propagate_env=True)`` exports the
+schedule as JSON in ``RAY_TPU_TORCH_CHAOS`` (the reference's variable is
+``RAY_TPU_CHAOS``; the two packages' schedules never cross), and node
+daemons and cluster workers call ``install_from_env()`` at start, so they
+inherit the driver's schedule (each process holds its own decision
+counters: determinism is over per-process call order). ``BLOCKED_PEERS``
+is the set of endpoints the chaos runner's ``PARTITION_GCS_PAIR`` makes
+unreachable from this process.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
@@ -42,9 +47,17 @@ from ray_tpu_torch.chaos.schedule import (  # noqa: F401 — the kinds the hook 
     FaultSpec,
 )
 
+ENV_VAR = "RAY_TPU_TORCH_CHAOS"
+
 # the fast-path guard: hook sites read this attribute and skip everything
 # when it is None. An installed schedule is process-wide.
 ACTIVE: Optional[FaultSchedule] = None
+
+# PARTITION_GCS_PAIR: endpoints unreachable from this process (the chaos
+# runner blocks the driver's view of the primary while the standby holds
+# its own partition window). Clients of several GCS endpoints read it on
+# every dial and call, behind a truthiness test.
+BLOCKED_PEERS: set[tuple[str, int]] = set()
 
 
 class FaultInjected(Exception):
@@ -64,16 +77,38 @@ class EnginePreempted(FaultInjected):
     ``recover(rebuild_kv=False)``."""
 
 
-def install(schedule: FaultSchedule) -> FaultSchedule:
-    """Activate a schedule in this process."""
+def install(schedule: FaultSchedule, *, propagate_env: bool = False) -> FaultSchedule:
+    """Activate a schedule in this process. ``propagate_env`` exports it,
+    so processes spawned from here (node daemons, cluster workers) adopt it
+    through ``install_from_env``."""
     global ACTIVE
     ACTIVE = schedule
+    if propagate_env:
+        os.environ[ENV_VAR] = schedule.to_wire()
     return schedule
 
 
 def uninstall() -> None:
     global ACTIVE
     ACTIVE = None
+    BLOCKED_PEERS.clear()
+    os.environ.pop(ENV_VAR, None)
+
+
+def install_from_env() -> Optional[FaultSchedule]:
+    """A daemon's or worker's start: adopt the schedule the driver exported,
+    if any. A malformed value is ignored (it must not stop the process)."""
+    global ACTIVE
+    if ACTIVE is not None:
+        return ACTIVE
+    wire = os.environ.get(ENV_VAR)
+    if not wire:
+        return None
+    try:
+        ACTIVE = FaultSchedule.from_wire(wire)
+    except Exception:  # noqa: BLE001 — a bad value must not kill the daemon
+        return None
+    return ACTIVE
 
 
 def active() -> Optional[FaultSchedule]:

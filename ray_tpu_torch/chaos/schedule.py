@@ -15,10 +15,11 @@ DELAY_RPC), ``disagg.kv_transfer`` (DROP_KV_TRANSFER, CORRUPT_KV_TRANSFER,
 DELAY_RPC), ``llm.kvtier.spill`` (DROP_KV_TRANSFER, CORRUPT_KV_TRANSFER),
 ``llm.kvfetch`` (DROP_KV_TRANSFER, CORRUPT_KV_TRANSFER, DELAY_RPC) and
 ``process_pool.task`` (KILL_WORKER: the worker process of a
-``worker_mode="process"`` task is killed). The orchestrated kinds and the runner
-that executes them against a cluster wait for the cluster runtime
-(ROADMAP.md Queue 1, B8); ``to_wire`` / ``from_wire`` keep the schedule's
-JSON form.
+``worker_mode="process"`` task is killed), and the cluster's ``rpc.call``,
+``rpc.frame``, ``gcs.call``, ``node.heartbeat`` and ``cluster.push``.
+The orchestrated kinds run through ``chaos.runner.ChaosRunner`` against a
+``LocalCluster`` or a Serve controller; ``to_wire`` / ``from_wire`` carry a
+schedule to a cluster's processes (``harness.install(propagate_env=True)``).
 """
 
 from __future__ import annotations

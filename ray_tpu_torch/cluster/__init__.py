@@ -7,13 +7,13 @@ runtime in ``ray_tpu_torch.core`` stays the fast path of the process that
 owns the card; this package is the cross-process / cross-host tier, and
 ``ray_tpu_torch.init(address=...)`` attaches the public API to it. A
 ``num_gpus`` lease runs in a worker pinned to the cards of the node that
-holds it. Also here: the KV prefix index table and the frame RPC under
-the transfer planes.
+holds it. The GCS may run with a warm standby that promotes when the
+primary dies (``cluster/ha.py``, ``LocalCluster(standby=True)``), and it
+aggregates the cluster's telemetry (``obs/telemetry.py``). Also here: the
+KV prefix index table and the frame RPC under the transfer planes.
 
-Not ported yet (ROADMAP.md Queue 1, item 6): the GCS's high availability,
-the telemetry plane and the chaos runner (part 3b); Serve, the datasets'
-locality, the GCS prefix index and ``build_fabric`` on the cluster (part
-3c).
+Not ported yet (ROADMAP.md Queue 1, item 6, part 3c): Serve, the datasets'
+locality, the GCS prefix index and ``build_fabric`` on the cluster.
 """
 
 import importlib

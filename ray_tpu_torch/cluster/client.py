@@ -20,9 +20,11 @@ reference uses cloudpickle, ``num_gpus`` leases ride the ``"GPU"``
 resource, and actor methods' ``.bind`` waits for the DAG nodes (ROADMAP.md
 Queue 1, item 6, part 6). Left out: the reference's client-side lease
 cache (``RAY_TPU_LEASE_CACHE_TTL``, off by default there and measured
-slower than the daemon's queue): a lease is released when its task ends. The telemetry queries (``cluster_metrics``,
-``slo_report``, ``telemetry_status``) wait for part 3b and the KV prefix
-index's (``kvtier_*``) for part 3c: the GCS raises for them.
+slower than the daemon's queue): a lease is released when its task ends.
+Given a primary GCS and its standby (``ClusterClient(((h1, p1), (h2, p2)),
+daemon)``), the GCS client follows the primary across a failover. The KV
+prefix index's queries (``kvtier_*``) wait for part 3c: the GCS raises for
+them.
 """
 
 from __future__ import annotations
@@ -1296,7 +1298,7 @@ class ClusterClient:
     def nodes(self) -> list:
         return self.gcs.call("list_nodes", None)
 
-    # -- telemetry plane (part 3b: the GCS raises for these) ------------------
+    # -- telemetry plane ------------------------------------------------------
 
     def cluster_metrics(self) -> dict:
         """GCS-aggregated cluster metrics: counter sums + windowed rates,

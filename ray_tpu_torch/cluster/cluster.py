@@ -10,10 +10,15 @@ death the GCS detects by heartbeat timeout.
 A copy of ``ray_tpu/cluster/cluster.py`` that spawns ``python -m
 ray_tpu_torch.cluster.{gcs_service,node_daemon}``. A node given ``"GPU"``
 leases whole cards to its workers (``node_daemon.py``); the GCS and the
-daemons never import torch. ``shutdown`` kills and reaps every process it
-started and removes the daemons' store, spill and runtime-env files. A
-standby GCS (``standby=True``, ``kill_gcs_primary``) waits for ROADMAP.md
-Queue 1, item 6, part 3b.
+daemons never import torch. With ``standby=True`` a warm-standby GCS
+(``python -m ray_tpu_torch.cluster.ha``) tails the primary, every client
+is given both endpoints (``gcs_endpoints``, ``address`` is
+``"h1:p1,h2:p2"``), and ``kill_gcs_primary`` SIGKILLs the primary with no
+restart so the standby promotes. ``shutdown`` kills and reaps every
+process it started (the standby too) and removes the daemons' store,
+spill and runtime-env files and the half-written snapshot files a killed
+GCS may leave (``<persist>.tmp``); the snapshots themselves are the
+caller's durable state and stay.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from typing import Optional
 
 from ray_tpu_torch.cluster.client import ClusterClient
 from ray_tpu_torch.cluster.node_daemon import STORE_PREFIX
-from ray_tpu_torch.cluster.rpc import PART_3B, format_gcs_addr
+from ray_tpu_torch.cluster.rpc import format_gcs_addr
 from ray_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("ray_tpu_torch.cluster.cluster")
@@ -112,12 +117,13 @@ class LocalCluster:
     def __init__(self, node_death_timeout_s: float = 2.0,
                  gcs_persist_path: Optional[str] = None,
                  standby: bool = False):
-        if standby:
-            raise NotImplementedError(f"LocalCluster(standby=True) waits for {PART_3B}")
         self._death_timeout = node_death_timeout_s
         self._persist_path = gcs_persist_path
+        self._standby_requested = standby
         self.gcs_proc: Optional[subprocess.Popen] = None
         self.gcs_addr: Optional[tuple] = None
+        self.standby_proc: Optional[subprocess.Popen] = None
+        self.standby_addr: Optional[tuple] = None
         self.nodes: dict[str, NodeProc] = {}
         self._client: Optional[ClusterClient] = None
         self._head: Optional[NodeProc] = None
@@ -146,15 +152,38 @@ class LocalCluster:
         host, port_s = host_port.rsplit(":", 1)
         self.gcs_addr = (host, int(port_s))
 
+    def _spawn_standby(self) -> None:
+        assert self.gcs_addr is not None, "spawn the primary first"
+        cmd = [
+            sys.executable, "-m", "ray_tpu_torch.cluster.ha",
+            "--primary", f"{self.gcs_addr[0]}:{self.gcs_addr[1]}",
+            "--death-timeout", str(self._death_timeout),
+            "--port", "0",
+        ]
+        if self._persist_path:
+            cmd += ["--persist", self._persist_path + ".standby"]
+        self.standby_proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, text=True, env=self._child_env(),
+            start_new_session=True,
+        )
+        self._groups.add(self.standby_proc.pid)
+        host_port = _read_banner(self.standby_proc, "GCS_ADDRESS")[0]
+        host, port_s = host_port.rsplit(":", 1)
+        self.standby_addr = (host, int(port_s))
+
     def start(self) -> "LocalCluster":
         self._spawn_gcs()
+        if self._standby_requested:
+            self._spawn_standby()
         return self
 
     @property
     def gcs_endpoints(self) -> tuple:
-        """Ordered endpoint list (one endpoint: the standby waits for part
-        3b)."""
+        """Ordered endpoint list for multi-endpoint clients: the primary
+        first, the standby second (when there is one)."""
         assert self.gcs_addr is not None, "start() first"
+        if self.standby_addr is not None:
+            return (self.gcs_addr, self.standby_addr)
         return (self.gcs_addr,)
 
     def kill_gcs(self) -> None:
@@ -164,8 +193,19 @@ class LocalCluster:
             self.gcs_proc = None
 
     def kill_gcs_primary(self) -> None:
-        """SIGKILL the primary so a standby promotes: waits for part 3b."""
-        raise NotImplementedError(f"kill_gcs_primary (a standby GCS) waits for {PART_3B}")
+        """SIGKILL the primary with no restart (KILL_GCS_PRIMARY): the
+        standby's lease expires and it promotes in place, the failover path
+        (``restart_gcs`` is the blackout-then-replay one)."""
+        if self.standby_addr is None:
+            raise RuntimeError("kill_gcs_primary needs a standby GCS (LocalCluster(standby=True))")
+        self.kill_gcs()
+
+    def _persist_files(self) -> list:
+        """The snapshot paths of this cluster's GCS processes (the primary's
+        and the standby's ``.standby``), when it was given a persist path."""
+        if not self._persist_path:
+            return []
+        return [self._persist_path, self._persist_path + ".standby"]
 
     def restart_gcs(self) -> None:
         """Restart the GCS at the SAME address; with a persist path it
@@ -233,7 +273,8 @@ class LocalCluster:
 
     @property
     def address(self) -> str:
-        """GCS address for ray_tpu_torch.init(address=...): "h:p"."""
+        """GCS address for ray_tpu_torch.init(address=...): "h:p", or
+        "h1:p1,h2:p2" with a standby."""
         assert self.gcs_addr is not None, "start() first"
         return format_gcs_addr(self.gcs_endpoints)
 
@@ -269,20 +310,22 @@ class LocalCluster:
         raise TimeoutError(f"node {node_id} still alive after {timeout}s")
 
     def pids(self) -> list:
-        """The GCS's and the daemons' pids (the daemons' workers run in
-        their daemon's process group)."""
-        procs = [self.gcs_proc] + [n.proc for n in self.nodes.values()]
+        """The GCS's, the standby's and the daemons' pids (the daemons'
+        workers run in their daemon's process group)."""
+        procs = [self.gcs_proc, self.standby_proc] + [n.proc for n in self.nodes.values()]
         return [p.pid for p in procs if p is not None]
 
     def leftovers(self, wait_s: float = 10.0) -> dict:
         """What of this cluster is still there: live processes (not
-        zombies) of the process groups it started — the GCS, the daemons
-        and their workers — and the daemons' store files. Polls up to
-        ``wait_s`` for SIGKILLed processes to go. Empty lists after
+        zombies) of the process groups it started — the GCS, the standby,
+        the daemons and their workers — the daemons' store files, and the
+        GCS processes' half-written snapshots (``<persist>.tmp``). Polls up
+        to ``wait_s`` for SIGKILLed processes to go. Empty lists after
         ``shutdown()`` mean it left nothing."""
         from ray_tpu_torch.utils.shm import shm_dir as _shm_dir
 
         deadline = time.monotonic() + wait_s
+        torn = [p + ".tmp" for p in self._persist_files()]
         while True:
             procs = []
             for name in os.listdir("/proc"):
@@ -300,6 +343,7 @@ class LocalCluster:
                     procs.append({"pid": int(name), "pgrp": pgrp, "cmd": cmd})
             files = [f"{STORE_PREFIX}{node}-{pid}" for node, pid in self._daemons
                      if os.path.exists(os.path.join(_shm_dir(), f"{STORE_PREFIX}{node}-{pid}"))]
+            files += [p for p in torn if os.path.exists(p)]
             if (not procs and not files) or time.monotonic() >= deadline:
                 return {"processes": procs, "store_files": files}
             time.sleep(0.1)
@@ -312,6 +356,16 @@ class LocalCluster:
             node.kill()
         self.nodes.clear()
         self.kill_gcs()
+        if self.standby_proc is not None:
+            _kill_group(self.standby_proc)
+            self.standby_proc = None
+        for p in self._persist_files():
+            # a snapshot write SIGKILLed midway leaves its .tmp; the
+            # snapshot itself (os.replace'd whole) is the caller's state
+            try:
+                os.unlink(p + ".tmp")
+            except OSError:
+                pass
 
     def __enter__(self) -> "LocalCluster":
         return self

@@ -14,15 +14,22 @@ Event feed: monotonically numbered events (node_added / node_dead /
 actor_update / pg_update); clients poll `events_since` — the long-poll
 pubsub of the reference (src/ray/pubsub/) collapsed to cursor polling.
 
+High availability (``cluster/ha.py``): every critical mutation is
+appended to a replication log of ``(seq, term, op, data)`` entries that a
+warm standby tails over ``repl_since`` (bootstrapped and resynced by
+``repl_snapshot``); ``promote`` turns a standby into the primary at a
+bumped fencing term, and ``ha_fence`` / ``ha_term`` are the hooks through
+which ``RpcServer`` fences a deposed primary. The telemetry store
+(``obs/telemetry.py``) takes heartbeat piggybacks, ``telemetry_push`` and
+the coalesced ``heartbeat_batch`` frame, and answers the ``telemetry_*``
+queries and ``ha_status``.
+
 A copy of ``ray_tpu/cluster/gcs_service.py`` without what later parts of
 ROADMAP.md Queue 1, item 6 bring; each of those RPCs raises
-``NotImplementedError`` naming its part: the HA role, fencing term and
-replication log (``repl_*``, ``ha_status``) and the telemetry plane
-(``telemetry_*``, and no telemetry on heartbeats) wait for part 3b, the
-KV prefix index (``kvtier_*``) for part 3c, and the autoscaler's inputs
-(``autoscale_signals``, ``cluster_demand``) for part 8, and with them the
-coalesced frames (``heartbeat_batch``, ``batch``) only the autoscaler's
-control plane sends. This process never imports torch.
+``NotImplementedError`` naming its part: the KV prefix index
+(``kvtier_*``) waits for part 3c, and the autoscaler's inputs
+(``autoscale_signals``, ``cluster_demand``) for part 8. This process
+never imports torch.
 """
 
 from __future__ import annotations
@@ -36,18 +43,52 @@ from dataclasses import dataclass, field
 from typing import Any, Optional
 
 from ray_tpu_torch.cluster.lockstats import TimedRLock
-from ray_tpu_torch.cluster.rpc import ClientPool, RemoteError, RpcError, RpcServer
+from ray_tpu_torch.cluster.rpc import (
+    ClientPool,
+    NotPrimaryError,
+    RemoteError,
+    RpcError,
+    RpcServer,
+)
+from ray_tpu_torch.obs.telemetry import SLOThresholds, TelemetryStore
 from ray_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("ray_tpu_torch.cluster.gcs")
 
-PART_3B = "ROADMAP.md Queue 1, item 6, part 3b"
 PART_3C = "ROADMAP.md Queue 1, item 6, part 3c"
 PART_8 = "ROADMAP.md Queue 1, item 6, part 8"
 
 
 def _unported(what: str, part: str):
     raise NotImplementedError(f"GCS {what} is not ported to ray_tpu_torch yet ({part})")
+
+
+_ha_metrics_cache: Optional[tuple] = None
+
+
+def register_metrics() -> tuple:
+    """The control plane's HA series. Plain process-registry metrics, not
+    aggregated by the telemetry plane: each GCS process (primary or
+    standby) exports its own view."""
+    global _ha_metrics_cache
+    if _ha_metrics_cache is None:
+        from ray_tpu_torch.util.metrics import Counter, Gauge
+
+        _ha_metrics_cache = (
+            Gauge(
+                "ray_tpu_gcs_replication_lag_seconds",
+                description="how far the standby's replication-log tail "
+                "trails the primary's mutation head (0 = fully caught up; "
+                "measured at the long-poll ack on the primary and at the "
+                "tail loop on the standby)",
+            ),
+            Counter(
+                "ray_tpu_gcs_failovers_total",
+                description="control-plane failovers: standby promotions "
+                "to primary after the primary's lease expired",
+            ),
+        )
+    return _ha_metrics_cache
 
 
 @dataclass
@@ -93,11 +134,36 @@ class GcsService:
     """RPC handler. All methods take (payload, peer)."""
 
     def __init__(self, node_death_timeout_s: float = 5.0,
-                 persist_path: Optional[str] = None):
+                 persist_path: Optional[str] = None,
+                 role: str = "primary"):
         # one RLock domain serializes every table (the sharding roadmap's
         # bottleneck); TimedRLock feeds hold/wait histograms when
         # lockstats.enable_lock_timing() is on, raw-RLock cost otherwise
         self._lock = TimedRLock("gcs")
+        # -- HA identity (cluster/ha.py) ----------------------------------
+        # role/term/fenced under their own small lock so the RPC layer's
+        # per-request ha_fence/ha_term checks never contend on the table
+        # lock. Lock order: table lock OUTER, _ha_lock INNER — never the
+        # reverse.
+        self._ha_lock = threading.Lock()
+        self._ha = {
+            "role": role,
+            "term": 0,
+            "fenced": False,
+            "failovers_total": 0,
+            "fenced_writes_total": 0,
+            "fenced_persists_total": 0,
+        }
+        # replication log: every critical mutation as (seq, term, op,
+        # data), tailed by the warm standby over repl_since. Bounded like
+        # the event ring; a tailer that falls off the retained window is
+        # told to resync from a snapshot.
+        self._repl: list[tuple[int, int, str, dict]] = []
+        self._repl_seq = itertools.count(1)
+        self._repl_head = 0
+        self._repl_dropped = 0    # highest seq trimmed out of the log
+        self._repl_acked = 0      # highest seq any tailer has consumed
+        self._repl_synced_ts: Optional[float] = None
         self._events_dropped = -1  # highest event seq trimmed from the ring
         self._nodes: dict[str, NodeEntry] = {}
         self._actors: dict[bytes, ActorEntry] = {}
@@ -149,6 +215,12 @@ class GcsService:
         # dedicated worker and the copy with it)
         self._stale_copies: list[tuple] = []
         self._restore_t: Optional[float] = None
+        # the cluster-wide metrics plane (obs/telemetry.py): bounded
+        # time-series per (reporter, metric, labels), fed by heartbeat
+        # piggybacks and telemetry_push. Not persisted and not replicated:
+        # metrics are a freshness surface, repopulated within one
+        # reporting interval of a restart or a failover.
+        self.telemetry = TelemetryStore()
         if persist_path:
             self._load_snapshot()
 
@@ -172,6 +244,11 @@ class GcsService:
         self._pgs = snap.get("pgs", {})
         self._kv = snap.get("kv", {})
         self.ft["gcs_restarts_total"] = int(snap.get("restarts_total", 0)) + 1
+        with self._ha_lock:
+            # the fencing term is durable: a restarted primary comes back
+            # at its old term (still fenceable by a promoted standby), never
+            # at term 0 where every zombie check would pass
+            self._ha["term"] = max(self._ha["term"], int(snap.get("ha_term", 0)))
         # restored nodes are CLAIMS until they re-register: keep them
         # visible (their daemons are usually still alive and serving) but
         # answer their first heartbeat with `reregister` so the node
@@ -264,6 +341,7 @@ class GcsService:
                 for e in self._nodes.values() if e.alive
             },
             "restarts_total": self.ft["gcs_restarts_total"],
+            "ha_term": self.ha_term(),
         }
 
     def _write_snapshot(self, gen: int, doc: dict) -> None:
@@ -282,6 +360,16 @@ class GcsService:
         with self._persist_io:
             if gen <= self._persisted:
                 return
+            with self._ha_lock:
+                if self._ha["fenced"]:
+                    # a deposed primary must not install snapshots: the
+                    # promoted one owns the durable state, and a late
+                    # persist here would bring pre-failover tables back on
+                    # the next restart (split brain on disk)
+                    self._ha["fenced_persists_total"] += 1
+                    logger.warning("GCS fenced at term %d: snapshot persist rejected",
+                                   self._ha["term"])
+                    return
             tmp = self._persist_path + ".tmp"
             try:
                 with open(tmp, "wb") as f:
@@ -332,16 +420,329 @@ class GcsService:
             gen, doc = self._snapshot_state_locked()
         self._write_snapshot(gen, doc)
 
-    # -- HA (part 3b) ---------------------------------------------------------
+    # -- HA: fencing term + replication log (cluster/ha.py) -------------------
+
+    # methods a fenced/standby GCS still answers: diagnostics and the
+    # replication plane itself (the standby must be able to tail a
+    # primary that was just fenced, and status must stay queryable)
+    _FENCE_EXEMPT = frozenset({
+        "ha_status", "repl_since", "repl_snapshot", "gcs_ft",
+        "telemetry_status", "telemetry_prometheus", "events_since",
+    })
+    # read-only methods: rejected when fenced (stale data) but not
+    # counted as fenced WRITES — the split-brain acceptance gate counts
+    # rejected mutations, not rejected reads
+    _FENCE_READS = frozenset({
+        "get_actor", "get_named_actor", "list_actors", "list_nodes",
+        "list_pgs", "kv_get", "kv_keys", "kv_wait", "locate_object",
+        "locate_many", "telemetry_slo", "telemetry_perf",
+        "kvtier_lookup", "kvtier_stats", "cluster_demand",
+        "autoscale_signals",
+    })
+
+    def ha_term(self) -> int:
+        """Current fencing term — stamped into every RPC response by
+        RpcServer._dispatch."""
+        with self._ha_lock:
+            return self._ha["term"]
+
+    def ha_fence(self, hterm: int, method: str):
+        """Envelope-level fencing check, called by RpcServer BEFORE the
+        handler runs. A request carrying a term above ours proves a
+        standby was promoted while we were alive: we are the zombie half
+        of a split brain and must stop mutating. Returns None to admit
+        the call, or the exception to answer with."""
+        with self._ha_lock:
+            if hterm > self._ha["term"]:
+                if not self._ha["fenced"]:
+                    logger.warning(
+                        "GCS fenced: request carries term %d > own term %d "
+                        "— a standby promoted; this process is a zombie",
+                        hterm, self._ha["term"],
+                    )
+                self._ha["fenced"] = True
+            if not self._ha["fenced"] or method in self._FENCE_EXEMPT:
+                return None
+            if method not in self._FENCE_READS:
+                self._ha["fenced_writes_total"] += 1
+            term = self._ha["term"]
+        return NotPrimaryError(
+            f"GCS fenced at term {term}: {method!r} rejected "
+            f"(a newer primary holds term >= {hterm})",
+            term=term,
+        )
+
+    def _repl_append_locked(self, op: str, data: dict) -> None:
+        """Append one mutation to the replication log (caller holds the
+        table lock) and wake long-polling tailers."""
+        seq = next(self._repl_seq)
+        with self._ha_lock:
+            term = self._ha["term"]
+        self._repl.append((seq, term, op, data))
+        self._repl_head = seq
+        if len(self._repl) > 20000:
+            self._repl_dropped = self._repl[9999][0]
+            del self._repl[:10000]
+        self._events_cv.notify_all()
+
+    def _repl_from_event_locked(self, kind: str, data: dict) -> None:
+        """Translate an emitted event into a replication-log entry. The
+        event stream says *something changed*; the log entry carries the
+        full row so the standby can apply it without a read-back."""
+        if kind == "actor_update":
+            a = self._actors.get(data["actor_id"])
+            if a is not None:
+                self._repl_append_locked("actor_put", self._actor_info(a))
+        elif kind == "node_added":
+            e = self._nodes.get(data["node_id"])
+            if e is not None:
+                self._repl_append_locked("node_put", {
+                    "node_id": e.node_id,
+                    "addr": tuple(e.addr),
+                    "resources": dict(e.resources),
+                    "labels": dict(e.labels),
+                })
+        elif kind in ("node_dead", "node_draining"):
+            self._repl_append_locked(kind, dict(data))
+        elif kind == "pg_update":
+            pg = self._pgs.get(data["pg_id"])
+            if pg is None or pg["state"] == "REMOVED":
+                self._repl_append_locked(
+                    "pg_remove", {"pg_id": data["pg_id"]}
+                )
+            else:
+                self._repl_append_locked("pg_put", self._pg_repl(pg))
+
+    def _pg_repl(self, pg: dict) -> dict:
+        """PG row as shipped on the replication log: the client-facing
+        info plus the reserve bookkeeping a promoted standby needs to
+        keep running the pg_reserve_sweep."""
+        info = self._pg_info(pg)
+        info["needs_reserve"] = bool(pg.get("needs_reserve"))
+        info["reserve_gen"] = int(pg.get("reserve_gen", 0))
+        return info
 
     def rpc_repl_since(self, payload, peer):
-        _unported("replication log tail (repl_since)", PART_3B)
+        """Replication-log long-poll: the standby's tail. Same cursor
+        contract as events_since, plus the resync verdict — a tailer
+        whose cursor fell off the retained window must re-bootstrap from
+        repl_snapshot instead of silently skipping the gap."""
+        cursor = int(payload["cursor"])
+        wait = min(float(payload.get("wait", 0.0)), 10.0)
+        deadline = time.monotonic() + wait
+        with self._lock:
+            if cursor <= self._repl_dropped:
+                return {
+                    "entries": [], "cursor": self._repl_head + 1,
+                    "resync": True, "term": self.ha_term(),
+                    "head": self._repl_head,
+                }
+            while True:
+                out = [e for e in self._repl if e[0] >= cursor]
+                if out or wait <= 0:
+                    break
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._events_cv.wait(remaining)
+            next_cursor = out[-1][0] + 1 if out else cursor
+            self._repl_acked = max(self._repl_acked, next_cursor - 1)
+            if self._repl_acked >= self._repl_head:
+                self._repl_synced_ts = time.monotonic()
+            head = self._repl_head
+        self._set_lag_metric_locked_free()
+        return {
+            "entries": out, "cursor": next_cursor, "resync": False,
+            "term": self.ha_term(), "head": head,
+        }
 
     def rpc_repl_snapshot(self, payload, peer):
-        _unported("replication snapshot (repl_snapshot)", PART_3B)
+        """Snapshot bootstrap/resync for a standby tailer: full durable
+        tables + the cursor at which the log continues them."""
+        with self._lock:
+            _gen, doc = self._snapshot_state_locked()
+            cursor = self._repl_head + 1
+            self._repl_acked = self._repl_head
+            self._repl_synced_ts = time.monotonic()
+        return {"doc": doc, "cursor": cursor, "term": self.ha_term()}
+
+    def _replication_lag_s(self) -> Optional[float]:
+        """None = no tailer has ever synced; 0.0 = caught up; else the
+        age of the last moment the tail was at head."""
+        with self._lock:
+            if self._repl_synced_ts is None:
+                return None
+            if self._repl_acked >= self._repl_head:
+                return 0.0
+            return time.monotonic() - self._repl_synced_ts
+
+    def _set_lag_metric_locked_free(self) -> None:
+        lag = self._replication_lag_s()
+        if lag is not None:
+            register_metrics()[0].set(lag)
 
     def rpc_ha_status(self, payload, peer):
-        _unported("HA status (ha_status)", PART_3B)
+        """Role/term/replication view for `ray_tpu status` and the HA
+        tests: who is primary, at what term, how far any tailer trails."""
+        with self._lock:
+            head = self._repl_head
+            acked = self._repl_acked
+        with self._ha_lock:
+            out = {
+                "role": self._ha["role"],
+                "term": self._ha["term"],
+                "fenced": self._ha["fenced"],
+                "failovers_total": self._ha["failovers_total"],
+                "fenced_writes_total": self._ha["fenced_writes_total"],
+                "fenced_persists_total": self._ha["fenced_persists_total"],
+            }
+        out["replication_lag_s"] = self._replication_lag_s()
+        out["repl_head"] = head
+        out["repl_acked"] = acked
+        return out
+
+    # -- HA: standby-side application + promotion -----------------------------
+
+    def repl_install_snapshot(self, doc: dict, cursor: int, term: int) -> None:
+        """Install a primary's snapshot wholesale (standby bootstrap or
+        post-gap resync). Nodes come in as reconcile CLAIMS, exactly like
+        a restart restore — on promotion their daemons re-register and
+        ground truth converges."""
+        with self._lock:
+            self._actors = dict(doc.get("actors", {}))
+            self._named = dict(doc.get("named", {}))
+            self._pgs = {k: dict(v) for k, v in doc.get("pgs", {}).items()}
+            self._kv = {ns: dict(kv) for ns, kv in doc.get("kv", {}).items()}
+            self.ft["gcs_restarts_total"] = int(doc.get("restarts_total", 0))
+            self._nodes = {}
+            for node_id, rec in doc.get("nodes", {}).items():
+                self._nodes[node_id] = NodeEntry(
+                    node_id=node_id,
+                    addr=tuple(rec["addr"]),
+                    resources=dict(rec["resources"]),
+                    available=dict(rec["resources"]),
+                    labels=dict(rec.get("labels", {})),
+                    pending_reconcile=True,
+                )
+            with self._ha_lock:
+                self._ha["term"] = max(
+                    self._ha["term"], int(term), int(doc.get("ha_term", 0))
+                )
+            self._mark_dirty()
+
+    def repl_apply(self, entries) -> int:
+        """Apply tailed log entries in order; observes each entry's term
+        so the standby's own term never trails the primary's."""
+        applied = 0
+        with self._lock:
+            for _seq, term, op, data in entries:
+                self._repl_apply_one_locked(op, data)
+                with self._ha_lock:
+                    if term > self._ha["term"]:
+                        self._ha["term"] = int(term)
+                applied += 1
+            if applied:
+                self._mark_dirty()
+        return applied
+
+    def _repl_apply_one_locked(self, op: str, data: dict) -> None:
+        if op == "actor_put":
+            aid = data["actor_id"]
+            a = ActorEntry(
+                actor_id=aid,
+                name=data.get("name"),
+                namespace=data.get("namespace", "default"),
+                node_id=data.get("node_id"),
+                worker_addr=tuple(data["worker_addr"])
+                if data.get("worker_addr") else None,
+                state=data.get("state", "PENDING"),
+                max_restarts=int(data.get("max_restarts", 0)),
+                num_restarts=int(data.get("num_restarts", 0)),
+                creation_spec=data.get("creation_spec"),
+                owner_addr=tuple(data["owner_addr"])
+                if data.get("owner_addr") else None,
+                lease_resources=dict(
+                    data.get("lease_resources") or {"num_cpus": 1}
+                ),
+                lease_id=data.get("lease_id"),
+                node_addr=tuple(data["node_addr"])
+                if data.get("node_addr") else None,
+            )
+            self._actors[aid] = a
+            if a.name:
+                self._named[(a.namespace, a.name)] = aid
+        elif op == "node_put":
+            self._nodes[data["node_id"]] = NodeEntry(
+                node_id=data["node_id"],
+                addr=tuple(data["addr"]),
+                resources=dict(data["resources"]),
+                available=dict(data["resources"]),
+                labels=dict(data.get("labels", {})),
+                pending_reconcile=True,
+            )
+        elif op == "node_dead":
+            e = self._nodes.get(data["node_id"])
+            if e is not None:
+                e.alive = False
+        elif op == "node_draining":
+            e = self._nodes.get(data["node_id"])
+            if e is not None:
+                e.draining = True
+        elif op == "pg_put":
+            self._pgs[data["pg_id"]] = {
+                "pg_id": data["pg_id"],
+                "bundles": [dict(b) for b in data["bundles"]],
+                "strategy": data["strategy"],
+                "state": data["state"],
+                "name": data.get("name"),
+                "needs_reserve": bool(data.get("needs_reserve")),
+                "reserve_gen": int(data.get("reserve_gen", 0)),
+            }
+        elif op == "pg_remove":
+            self._pgs.pop(data["pg_id"], None)
+        elif op == "kv_put":
+            self._kv.setdefault(data["ns"], {})[data["key"]] = data["value"]
+            self._events_cv.notify_all()
+        elif op == "kv_del":
+            self._kv.get(data["ns"], {}).pop(data["key"], None)
+        # unknown ops are skipped: forward compatibility with a newer
+        # primary shipping ops this standby build doesn't know
+
+    def promote(self, term: Optional[int] = None) -> int:
+        """Standby -> primary. Bumps the fencing term past everything
+        seen, then runs the restart-restore discipline over the
+        replicated tables: every node becomes a reconcile claim with a
+        fresh heartbeat lease, every ALIVE actor awaits confirmation, and
+        the grace clock starts — the reconcile sweep converges whatever
+        the log missed. Persists critically so the new term is durable
+        before the first client is acked at it."""
+        with self._lock:
+            with self._ha_lock:
+                new_term = max(self._ha["term"] + 1, int(term or 0))
+                self._ha["term"] = new_term
+                self._ha["role"] = "primary"
+                self._ha["fenced"] = False
+                self._ha["failovers_total"] += 1
+            now = time.monotonic()
+            for e in self._nodes.values():
+                e.pending_reconcile = True
+                e.last_hb = now  # fresh lease: death clock starts NOW
+            self._needs_confirm = {
+                a.actor_id for a in self._actors.values()
+                if a.state == "ALIVE"
+            }
+            self._reserve_placed_bundles_locked()
+            self._restore_t = now
+            self._mark_dirty()
+            self._events_cv.notify_all()
+        self.persist_critical()
+        register_metrics()[1].inc()
+        logger.warning(
+            "GCS standby PROMOTED to primary at term %d (%d nodes pending "
+            "reconcile, %d actors pending confirm)",
+            new_term, len(self._nodes), len(self._needs_confirm),
+        )
+        return new_term
 
     # -- events ---------------------------------------------------------------
 
@@ -350,6 +751,9 @@ class GcsService:
         if len(self._events) > 10000:
             self._events_dropped = self._events[4999][0]
             del self._events[:5000]
+        # critical mutations surface as events; mirror them onto the
+        # replication log (full-row entries) before waking subscribers
+        self._repl_from_event_locked(kind, data)
         self._events_cv.notify_all()
 
     def rpc_events_since(self, payload, peer):
@@ -489,6 +893,9 @@ class GcsService:
                     a.lease_id = rec["lease_id"]
                 a.node_addr = e.addr
                 self.ft["reconcile_actors_confirmed"] += 1
+                # no event fires for a silent confirm, but the binding
+                # (node/worker/lease) may have changed: replicate it
+                self._repl_append_locked("actor_put", self._actor_info(a))
             self._needs_confirm.discard(aid)
         # snapshot-ALIVE actors homed on THIS node that it did not report
         # are gone with the outage: normal node-death treatment, now
@@ -517,6 +924,7 @@ class GcsService:
             b = pg["bundles"][idx]
             b["node_id"] = e.node_id  # daemon-held reservation wins
             self.ft["reconcile_bundles_adopted"] += 1
+            self._repl_append_locked("pg_put", self._pg_repl(pg))
         self.ft["reconcile_leases_reported"] += len(payload.get("leases", ()))
 
     def _bury_or_restart_locked(self, a: ActorEntry) -> None:
@@ -537,9 +945,11 @@ class GcsService:
         )
 
     def _heartbeat_locked(self, payload) -> dict:
-        """Table-side of one heartbeat; caller holds ``self._lock``. A
-        telemetry piggyback waits for part 3b: a beat carrying one is
-        accepted and the snapshot dropped."""
+        """Table-side of one heartbeat; caller holds ``self._lock``.
+        Telemetry piggybacks are the CALLER's job (outside the table
+        lock: the store has its own) — and only for accepted beats, so a
+        node told to re-register never sneaks metrics in under a stale
+        registration."""
         e = self._nodes.get(payload["node_id"])
         if e is None or not e.alive:
             # unknown/dead node: tell it to re-register (GCS restart or
@@ -562,30 +972,78 @@ class GcsService:
 
     def rpc_heartbeat(self, payload, peer):
         with self._lock:
-            return self._heartbeat_locked(payload)
+            out = self._heartbeat_locked(payload)
+        snap = payload.get("telemetry")
+        if snap and out.get("ok"):
+            # piggybacked metrics snapshot (outside the table lock: the
+            # store has its own); a STALL_HEARTBEAT partition shows up as
+            # telemetry staleness for exactly the stalled node
+            self.telemetry.ingest(
+                payload["node_id"], snap, {"kind": "node"}
+            )
+        return out
 
-    # -- telemetry plane (part 3b) --------------------------------------------
+    def rpc_heartbeat_batch(self, payload, peer):
+        """Coalesced heartbeat frame (control-plane batching): N
+        heartbeats under ONE table-lock acquisition, their telemetry
+        piggybacks under ONE store-lock acquisition
+        (TelemetryStore.ingest_batch). Per-beat semantics — reregister
+        demands, draining transitions, stale-seq drops — are identical
+        to N individual ``heartbeat`` calls; results keep frame order."""
+        beats = list(payload.get("heartbeats", ()))
+        with self._lock:
+            results = [self._heartbeat_locked(hb) for hb in beats]
+        telem = [
+            (hb["node_id"], hb["telemetry"], {"kind": "node"})
+            for hb, r in zip(beats, results)
+            if r.get("ok") and hb.get("telemetry")
+        ]
+        if telem:
+            self.telemetry.ingest_batch(telem)
+        return {"ok": True, "results": results}
+
+    # -- telemetry plane ------------------------------------------------------
 
     def rpc_telemetry_push(self, payload, peer):
-        _unported("telemetry (telemetry_push)", PART_3B)
-
-    def rpc_telemetry_push_batch(self, payload, peer):
-        _unported("telemetry (telemetry_push_batch)", PART_3B)
+        """Dedicated push path for engine hosts / serving processes (node
+        daemons piggyback on heartbeats instead). Drops/delays of this
+        RPC may only cost freshness: snapshots carry monotonic totals."""
+        return self.telemetry.ingest(
+            payload["reporter_id"],
+            payload["snapshot"],
+            {"kind": payload.get("kind", ""), "role": payload.get("role", "")},
+        )
 
     def rpc_telemetry_cluster(self, payload, peer):
-        _unported("telemetry (telemetry_cluster)", PART_3B)
+        """GCS-aggregated cluster metrics (ClusterClient.cluster_metrics):
+        counter sums and rates, gauge rollups, merged histograms,
+        per-reporter staleness."""
+        return self.telemetry.cluster_metrics()
 
     def rpc_telemetry_slo(self, payload, peer):
-        _unported("telemetry (telemetry_slo)", PART_3B)
+        th = SLOThresholds.from_dict((payload or {}).get("thresholds"))
+        return self.telemetry.slo_report(th)
 
     def rpc_telemetry_prometheus(self, payload, peer):
-        _unported("telemetry (telemetry_prometheus)", PART_3B)
+        return self.telemetry.prometheus_text()
 
     def rpc_telemetry_perf(self, payload, peer):
-        _unported("telemetry (telemetry_perf)", PART_3B)
+        """Sampled-profiling rollup (obs.perfwatch): per-step times,
+        coverage, MFU, overlap, regression grades — the dashboard
+        /api/perf surface."""
+        return self.telemetry.perf_health()
 
     def rpc_telemetry_status(self, payload, peer):
-        _unported("telemetry (telemetry_status)", PART_3B)
+        """One-query cluster status (rendered by ``format_status``): node
+        table + reporters + pool rollups + utilization + SLO grades +
+        control-plane FT counters (restart/reconcile deltas — a blackout
+        shows as a counted restart, not phantom-zero metrics)."""
+        th = SLOThresholds.from_dict((payload or {}).get("thresholds"))
+        out = {"nodes": self.rpc_list_nodes(None, peer)}
+        out.update(self.telemetry.status_payload(th))
+        out["gcs_ft"] = self.rpc_gcs_ft(None, peer)
+        out["gcs_ha"] = self.rpc_ha_status(None, peer)
+        return out
 
     def rpc_autoscale_signals(self, payload, peer):
         _unported("autoscaler signals (autoscale_signals)", PART_8)
@@ -608,10 +1066,15 @@ class GcsService:
         _unported("KV prefix index (kvtier_stats)", PART_3C)
 
     def rpc_gcs_ft(self, payload, peer):
-        """Control-plane FT counters: restarts + reconcile deltas."""
+        """Control-plane FT counters: restarts and reconcile deltas, and the
+        HA failover and fence counters."""
         with self._lock:
             out = dict(self.ft)
             out["actors_pending_confirm"] = len(self._needs_confirm)
+        with self._ha_lock:
+            out["gcs_failovers_total"] = self._ha["failovers_total"]
+            out["gcs_fenced_writes_total"] = self._ha["fenced_writes_total"]
+            out["gcs_fenced_persists_total"] = self._ha["fenced_persists_total"]
         return out
 
     def rpc_drain_node(self, payload, peer):
@@ -884,6 +1347,13 @@ class GcsService:
                 return {"ok": False}
             ns[payload["key"]] = payload["value"]
             self._mark_dirty()
+            if ns_name != "__collective__":
+                # the collective rendezvous namespace is ephemeral and
+                # multi-MB (see _snapshot_state_locked); everything else
+                # replicates, so a promoted standby serves the same KV
+                self._repl_append_locked("kv_put", {
+                    "ns": ns_name, "key": payload["key"], "value": payload["value"],
+                })
             self._events_cv.notify_all()  # wake kv_wait long-pollers
         return {"ok": True}
 
@@ -916,6 +1386,8 @@ class GcsService:
             ns_name = payload.get("ns", "default")
             self._kv.get(ns_name, {}).pop(payload["key"], None)
             self._mark_dirty()
+            if ns_name != "__collective__":
+                self._repl_append_locked("kv_del", {"ns": ns_name, "key": payload["key"]})
         return {"ok": True}
 
     def rpc_kv_keys(self, payload, peer):
@@ -1005,6 +1477,7 @@ class GcsService:
             if name:
                 self._named[(ns, name)] = a.actor_id
             self._mark_dirty()
+            self._repl_append_locked("actor_put", self._actor_info(a))
         # write-ahead ack: the registration must be durable BEFORE the
         # client sees ok — killing the GCS between this ack and the next
         # debounced sweep used to silently lose the actor
@@ -1093,6 +1566,7 @@ class GcsService:
             self._pgs[pg["pg_id"]] = pg
             self._try_place_pg(pg)
             self._mark_dirty()
+            self._repl_append_locked("pg_put", self._pg_repl(pg))
             info = self._pg_info(pg)
         # write-ahead ack (same contract as register_actor): the
         # reservation the client is about to make against this placement
@@ -1217,8 +1691,9 @@ class GcsService:
                 self._try_place_pg(pg)  # retry on demand (nodes may have joined)
                 if pg["state"] != prev:
                     # an on-demand placement is the same durable mutation
-                    # a create is: persist it (debounced)
+                    # a create is: persist (debounced) and replicate it
                     self._mark_dirty()
+                    self._repl_append_locked("pg_put", self._pg_repl(pg))
             return self._pg_info(pg) if pg else None
 
     def rpc_list_pgs(self, payload, peer):
@@ -1237,8 +1712,10 @@ class GcsService:
 
 def start_sweeper(service: GcsService, stop: threading.Event,
                   pool=None, period_s: float = 0.25) -> threading.Thread:
-    """The GCS's background loop: health leases, reconcile convergence,
-    actor restarts, PG re-reservation, debounced persist."""
+    """The serving primary's background loop: health leases, reconcile
+    convergence, actor restarts, PG re-reservation, debounced persist.
+    Shared by ``GcsServer`` and a promoted standby (``cluster/ha.py``): a
+    promotion starts exactly this loop."""
     if pool is None:
         pool = ClientPool(timeout=120.0)
 

@@ -29,8 +29,13 @@ and by that value. A GPU lease on a daemon that sees fewer cards than its
 ``"GPU"`` resource claims fails, never runs on the CPU. The daemon itself
 never imports torch. Its store file is ``ray_tpu_torch-store-{node}-{pid}``
 (the reference's daemons, which may run beside it, use
-``ray_tpu-store-``). The telemetry piggyback on heartbeats waits for
-ROADMAP.md Queue 1, item 6, part 3b, and is off.
+``ray_tpu-store-``). Every ``telemetry_interval_s`` a heartbeat carries
+a snapshot of the node's own gauges (``ray_tpu_node_*``, tagged with its
+node id) to the GCS's telemetry store. The GCS address may name a primary
+and its standby (``--gcs h1:p1,h2:p2``): the daemon's GCS client, and the
+workers it spawns, follow the primary across a failover. A schedule the
+driver exported (``chaos.install(propagate_env=True)``) is adopted at
+start.
 """
 
 from __future__ import annotations
@@ -91,7 +96,51 @@ def visible_cards() -> int:
     return max(count("/dev", lambda d: d.startswith("nvidia") and d[6:].isdigit()),
                count("/proc/driver/nvidia/gpus", lambda d: True))
 
+
 CHUNK = 4 << 20  # object transfer chunk size
+
+
+def _node_gauges() -> dict:
+    """Per-node utilization gauges (tagged by node so in-process test
+    daemons sharing one registry stay distinguishable). Aggregation kinds
+    ride telemetry snapshots to the GCS (obs/telemetry.py)."""
+    from ray_tpu_torch.obs.telemetry import cluster_gauge
+
+    return {
+        "workers": cluster_gauge(
+            "node_workers",
+            description="worker processes attached to this node daemon",
+            tag_keys=("node",),
+        ),
+        "leases": cluster_gauge(
+            "node_leases",
+            description="worker leases currently granted on this node",
+            tag_keys=("node",),
+        ),
+        "queued_leases": cluster_gauge(
+            "node_queued_leases",
+            description="lease requests parked in this node's grant queue "
+            "(the autoscaler's per-node demand signal)",
+            tag_keys=("node",),
+        ),
+        "object_bytes": cluster_gauge(
+            "node_object_store_bytes",
+            description="bytes resident in this node's object-store memory "
+            "tier (dict tier; shm tier reports via stats())",
+            tag_keys=("node",),
+        ),
+        "oom_kills": cluster_gauge(
+            "node_oom_kills",
+            description="workers killed by this node's memory monitor "
+            "since daemon start",
+            tag_keys=("node",),
+        ),
+    }
+
+
+def register_metrics() -> None:
+    """Force the node gauges to register (the metrics lint's hook)."""
+    _node_gauges()
 
 
 class ObjectService:
@@ -543,6 +592,7 @@ class NodeDaemon:
         worker_rss_limit_mb: int = 0,       # 0 = no per-worker cap
         memory_usage_threshold: float = 0.95,  # node pressure kill point
         memory_monitor_interval_s: float = 1.0,  # 0 = monitor disabled
+        telemetry_interval_s: float = 2.0,  # 0 = no heartbeat piggyback
     ):
         self.node_id = node_id or f"node-{uuid.uuid4().hex[:8]}"
         self.gcs_addr = gcs_addr
@@ -555,6 +605,8 @@ class NodeDaemon:
         self._mem_threshold = float(memory_usage_threshold)
         self._mem_interval = float(memory_monitor_interval_s)
         self._oom_kills = 0
+        self._telemetry_interval = float(telemetry_interval_s)
+        self._last_telemetry = 0.0
         # whole cards for GPU leases, over the cards the "GPU" resource claims
         total_gpus = float(resources.get("GPU", 0))
         self._cards = CardGrants(int(total_gpus) if total_gpus > 0 else 0)
@@ -771,6 +823,23 @@ class NodeDaemon:
         ).start()
         return {"ok": True, "draining": True}
 
+    def rpc_chaos_kill_worker(self, payload, peer):
+        """Fault-injection surface (chaos.runner): SIGKILL the newest
+        leased worker — the deterministic stand-in for a worker OOM/crash
+        mid-task."""
+        with self._res_lock:
+            leased = sorted(
+                (ls for ls in self._leases.values()
+                 if ls.get("worker") is not None and ls["worker"].alive()),
+                key=lambda ls: -ls.get("t", 0.0),
+            )
+        if not leased:
+            return {"ok": False, "error": "no leased worker to kill"}
+        w = leased[0]["worker"]
+        logger.warning("chaos: killing worker %s (pid %s)", w.worker_id, w.proc.pid)
+        w.kill()
+        return {"ok": True, "worker_id": w.worker_id}
+
     def stop(self) -> None:
         self._stop.set()
         with self._wlock:
@@ -814,6 +883,16 @@ class NodeDaemon:
                 hb = {"node_id": self.node_id, "available": avail,
                       "pending": self._pending_specs,
                       "draining": self._draining}
+                if (self._telemetry_interval > 0
+                        and time.monotonic() - self._last_telemetry >= self._telemetry_interval):
+                    # the node's gauges as absolute values: a beat a chaos
+                    # STALL drops costs only freshness, which the GCS
+                    # reports as this node's staleness
+                    try:
+                        hb["telemetry"] = self._telemetry_snapshot()
+                        self._last_telemetry = time.monotonic()
+                    except Exception:  # noqa: BLE001 — never break heartbeats
+                        logger.exception("telemetry snapshot failed")
                 r = self.gcs.call("heartbeat", hb, timeout=5)
                 if not r.get("ok") and r.get("reregister"):
                     # a restarted/partition-recovered GCS asked for ground
@@ -1419,6 +1498,30 @@ class NodeDaemon:
         return [s for s in list(self._spans)
                 if float(s.get("end", 0.0)) >= since]
 
+    def _telemetry_snapshot(self) -> dict:
+        """Refresh this node's utilization gauges, then snapshot ONLY the
+        series this daemon owns (name prefix + node tag): a test daemon
+        colocated with other subsystems in one process must not re-ship
+        their series under its own reporter id (double count)."""
+        from ray_tpu_torch.obs.telemetry import annotated_snapshot
+
+        g = _node_gauges()
+        tags = {"node": self.node_id}
+        with self._wlock:
+            num_workers = len(self._all_workers)
+        with self._res_lock:
+            num_leases = len(self._leases)
+        g["workers"].set(num_workers, tags=tags)
+        g["leases"].set(num_leases, tags=tags)
+        g["queued_leases"].set(self._num_queued, tags=tags)
+        g["object_bytes"].set(self.objects.stats()["bytes"], tags=tags)
+        g["oom_kills"].set(self._oom_kills, tags=tags)
+        node_id = self.node_id
+        return annotated_snapshot(
+            lambda name, t: name.startswith("ray_tpu_node_")
+            and t.get("node") == node_id
+        )
+
     def rpc_stats(self, payload, peer):
         # invariant: _all_workers is _wlock state — snapshot it under its
         # own lock BEFORE _res_lock (never nested: lock-order discipline)
@@ -1452,8 +1555,11 @@ def main() -> None:
                         "(>=1.0 disables the pressure trigger)")
     p.add_argument("--memory-monitor-interval", type=float, default=1.0,
                    help="memory monitor tick seconds (0 disables entirely)")
+    p.add_argument("--telemetry-interval", type=float, default=2.0,
+                   help="seconds between metrics snapshots piggybacked on "
+                        "heartbeats (0 disables)")
     args = p.parse_args()
-    gcs_addr = parse_gcs_addr(args.gcs)  # "h:p"
+    gcs_addr = parse_gcs_addr(args.gcs)  # "h:p" or a primary and its standby "h1:p1,h2:p2"
     resources: dict[str, float] = {}
     for kv in args.resources.split(","):
         if kv:
@@ -1464,12 +1570,14 @@ def main() -> None:
         if kv:
             k, v = kv.split("=", 1)
             worker_env[k] = v
+    _chaos.install_from_env()  # adopt a schedule the driver exported
     daemon = NodeDaemon(
         gcs_addr, resources, node_id=args.node_id, worker_env=worker_env,
         object_capacity_bytes=args.object_capacity,
         worker_rss_limit_mb=args.worker_rss_limit_mb,
         memory_usage_threshold=args.memory_usage_threshold,
         memory_monitor_interval_s=args.memory_monitor_interval,
+        telemetry_interval_s=args.telemetry_interval,
     )
     addr = daemon.start()
     print(f"NODE_ADDRESS {addr[0]}:{addr[1]} {daemon.node_id}", flush=True)

@@ -3,8 +3,17 @@
 Length-prefixed pickled frames over asyncio TCP:
 
     frame    := uint32 length | pickled body
-    request  := (msg_id, method: str, payload)
-    response := (msg_id, ok: bool, payload | exception)
+    request  := (msg_id, method: str, payload[, hterm])
+    response := (msg_id, ok: bool, payload | exception[, term])
+
+The optional fourth field is the fencing-term envelope of a replicated
+GCS (``cluster/ha.py``): a GCS-bound request carries the highest term its
+client has seen, and a GCS stamps its own term on every response. A
+server whose handler has ``ha_fence`` / ``ha_term`` rejects a mutation
+carrying a newer term than its own (it is a deposed primary), and a client
+that reads a success stamped below its own high-water mark discards it
+(``StaleTermError``: the ack of a stale primary). Servers without a term,
+and requests without one, use the three-field forms.
 
 A server runs an asyncio loop on a thread of its own and dispatches each
 method to the function registered with ``route``, else to its handler
@@ -18,7 +27,9 @@ holding a lock. With ``RAY_TPU_NATIVE_FRAMING=1`` both threads move their
 frames through ``native/framing.py``'s C loop. Every call is bounded by a
 timeout, and a peer that stalls mid-frame reads as a lost connection.
 ``ClientPool`` caches one client per address and re-dials a dead one;
-``ReconnectingRpcClient`` re-dials a GCS restarted at the same address.
+``ReconnectingRpcClient`` re-dials a GCS restarted at the same address and,
+given several endpoints (a primary and its standby), follows the primary
+across ``NotPrimaryError`` and ``StaleTermError``.
 
 A handler's exception reaches the caller as ``RemoteError``, which names
 the remote type (``type_name``) even when the exception itself does not
@@ -26,10 +37,7 @@ pickle.
 
 The transfer planes (``llm/disagg/connector.RpcKVConnector``,
 ``llm/kvfetch/plane.RpcFetchServer`` / ``RpcFetchClient``) chunk their
-payloads under ``MAX_FRAME``. Not ported yet, with the GCS's high
-availability (ROADMAP.md Queue 1, item 6, part 3b): the fencing-term
-envelope of a replicated control plane and the client that fails over
-across several GCS endpoints.
+payloads under ``MAX_FRAME``.
 
 Peers are trusted (same-user local processes, cluster hosts): a frame is
 unpickled as it arrives.
@@ -87,29 +95,78 @@ class RemoteError(Exception):
                           else type(cause).__name__)
 
 
-PART_3B = "the GCS's high availability (ROADMAP.md Queue 1, item 6, part 3b)"
+class NotPrimaryError(RpcError):
+    """The peer is not the serving GCS primary: an unpromoted standby, or a
+    deposed (fenced) primary. A client holding several endpoints moves to
+    the next one instead of surfacing this."""
+
+    def __init__(self, message: str, term: int = 0):
+        super().__init__(message)
+        self.term = int(term)
+
+
+class StaleTermError(RpcError):
+    """A success arrived stamped with a fencing term below this client's
+    high-water mark: the ack of a deposed primary, whose write the promoted
+    one never sees."""
+
+
+class TermTracker:
+    """The highest GCS fencing term a process has seen. Shared by the
+    clients of one control plane, so a term learned from the promoted
+    standby fences requests sent to the old primary at once."""
+
+    def __init__(self) -> None:
+        self._term = 0
+        self._lock = threading.Lock()
+
+    @property
+    def current(self) -> int:
+        return self._term
+
+    def observe(self, term) -> int:
+        if term is None:
+            return self._term
+        with self._lock:
+            if term > self._term:
+                self._term = int(term)
+            return self._term
+
+
+def _normalize_endpoints(host, port=None, extra=()) -> list[tuple[str, int]]:
+    """Every shape a GCS address travels in, as an ordered endpoint list:
+    ``("h", p)``, a ``(h, p)`` tuple, or ``((h1, p1), (h2, p2), ...)``
+    (the primary and its standby splat through the same ``Client(*addr)``
+    call sites the one-endpoint form uses)."""
+    if isinstance(host, str):
+        if port is None:
+            raise ValueError(f"endpoint {host!r} needs a port")
+        return [(host, int(port))] + [(h, int(p)) for h, p in extra]
+    first = tuple(host)
+    if len(first) == 2 and isinstance(first[0], str):
+        eps = [(first[0], int(first[1]))]
+    else:
+        eps = [(h, int(p)) for h, p in first]
+    if port is not None:
+        eps.append((port[0], int(port[1])))
+    eps.extend((h, int(p)) for h, p in extra)
+    return eps
 
 
 def format_gcs_addr(addr) -> str:
-    """``"host:port"``: the ``--gcs`` flag form of a GCS address (a
-    ``(host, port)`` pair, or a one-endpoint list of pairs)."""
-    if isinstance(addr, str):
-        return addr
-    addr = tuple(addr)
-    if len(addr) == 2 and isinstance(addr[0], str):
-        return f"{addr[0]}:{int(addr[1])}"
-    if len(addr) == 1:
-        return format_gcs_addr(addr[0])
-    raise NotImplementedError(f"a GCS of {len(addr)} endpoints waits for {PART_3B}")
+    """``"h1:p1[,h2:p2...]"``: the ``--gcs`` flag form of a GCS address of
+    one or several endpoints."""
+    return ",".join(f"{h}:{p}" for h, p in _normalize_endpoints(addr))
 
 
-def parse_gcs_addr(s: str) -> tuple:
-    """Inverse of ``format_gcs_addr``: ``"host:port"`` -> ``(host, port)``."""
-    parts = s.split(",")
-    if len(parts) != 1:
-        raise NotImplementedError(f"GCS address {s!r}: several endpoints wait for {PART_3B}")
-    host, port = parts[0].rsplit(":", 1)
-    return host, int(port)
+def parse_gcs_addr(s: str):
+    """Inverse of ``format_gcs_addr``: one endpoint parses to ``(host,
+    port)``, several to an ordered tuple of them."""
+    eps = []
+    for part in s.split(","):
+        h, p = part.rsplit(":", 1)
+        eps.append((h, int(p)))
+    return eps[0] if len(eps) == 1 else tuple(eps)
 
 
 def _dump(obj: Any) -> bytes:
@@ -223,14 +280,17 @@ class RpcServer:
                     raise RpcError(f"frame too large: {n}")
                 body = await reader.readexactly(n)
                 try:
-                    msg_id, method, payload = pickle.loads(body)[:3]
+                    rec = pickle.loads(body)
+                    msg_id, method, payload = rec[0], rec[1], rec[2]
+                    hterm = rec[3] if len(rec) > 3 else None
                 except Exception as e:  # noqa: BLE001 — a torn or corrupted frame
                     # the framing offsets are gone: drop the CONNECTION, not
                     # the server (the peer re-dials)
                     logger.warning("dropping connection from %s: undecodable frame (%r)", peer, e)
                     break
                 # concurrent dispatch: a slow handler must not block the connection
-                self._spawn(self._dispatch(msg_id, method, payload, peer, writer, write_lock))
+                self._spawn(self._dispatch(msg_id, method, payload, hterm, peer, writer,
+                                           write_lock))
         except (asyncio.IncompleteReadError, ConnectionError, RpcError):
             pass
         finally:
@@ -244,9 +304,29 @@ class RpcServer:
             raise RpcError(f"no route {method!r} on this server")
         return fn
 
-    async def _dispatch(self, msg_id, method, payload, peer, writer, write_lock) -> None:
+    def _response(self, msg_id, ok: bool, result) -> bytes:
+        """The response frame, stamped with the handler's current fencing
+        term (read after the handler ran: a promotion mid-call shows)."""
+        term_of = getattr(self._handler, "ha_term", None)
+        term = None
+        if term_of is not None:
+            try:
+                term = term_of()
+            except Exception:  # noqa: BLE001 — an unstamped answer is still an answer
+                term = None
+        return _dump((msg_id, ok, result) if term is None else (msg_id, ok, result, term))
+
+    async def _dispatch(self, msg_id, method, payload, hterm, peer, writer, write_lock) -> None:
         t0 = time.perf_counter()
         try:
+            fence = getattr(self._handler, "ha_fence", None)
+            if fence is not None and hterm is not None:
+                # the term check runs before the handler: a request carrying
+                # a newer term proves this server was deposed, and its
+                # mutation must be refused, not run
+                verdict = fence(hterm, method)
+                if verdict is not None:
+                    raise verdict
             fn = self._lookup(method)
             if asyncio.iscoroutinefunction(fn):
                 result = await fn(payload, peer)
@@ -254,14 +334,14 @@ class RpcServer:
                 result = await asyncio.get_running_loop().run_in_executor(None, fn, payload, peer)
                 if asyncio.iscoroutine(result):
                     result = await result
-            body = _dump((msg_id, True, result))
+            body = self._response(msg_id, True, result)
         except asyncio.CancelledError:
             raise
         except Exception as e:  # noqa: BLE001 — serialized to the caller
             try:
-                body = _dump((msg_id, False, e))
+                body = self._response(msg_id, False, e)
             except Exception:  # noqa: BLE001 — an exception that does not pickle
-                body = _dump((msg_id, False, RemoteFailure(type(e).__name__, repr(e))))
+                body = self._response(msg_id, False, RemoteFailure(type(e).__name__, repr(e)))
         # handler latency including executor queueing (part of what a
         # caller waits for), excluding the response write
         self._latency_hist.observe((time.perf_counter() - t0) * 1e3, {"method": str(method)})
@@ -295,6 +375,9 @@ class RpcClient:
         self._closed = False
         self._dead = False  # the peer vanished or a send failed
         self._native = None  # the framing library, when RAY_TPU_NATIVE_FRAMING is on
+        # set by ReconnectingRpcClient: every stamped response feeds its
+        # shared TermTracker
+        self.on_term: Optional[Callable[[int], Any]] = None
 
     def connect(self, retries: int = 0, delay: float = 0.1) -> "RpcClient":
         last: Optional[BaseException] = None
@@ -342,7 +425,10 @@ class RpcClient:
     def connected(self) -> bool:
         return self._sock is not None and not self._closed and not self._dead
 
-    def call(self, method: str, payload: Any = None, timeout: Optional[float] = None) -> Any:
+    def call(self, method: str, payload: Any = None, timeout: Optional[float] = None,
+             hterm: Optional[int] = None) -> Any:
+        """``hterm``: the fencing term to send (GCS-bound calls); a success
+        stamped below it raises ``StaleTermError``."""
         if self._sock is None:
             raise RpcError("not connected")
         if self._dead:
@@ -365,7 +451,8 @@ class RpcClient:
             msg_id = self._next_id
             self._next_id += 1
             self._pending[msg_id] = ev
-        body = _dump((msg_id, method, payload))
+        body = _dump((msg_id, method, payload) if hterm is None
+                     else (msg_id, method, payload, hterm))
         if len(body) > MAX_FRAME:
             # the server's read-side limit, checked before the uint32 length
             # prefix overflows: an oversized frame fails loudly here instead
@@ -389,11 +476,18 @@ class RpcClient:
             with self._plock:
                 self._pending.pop(msg_id, None)
             raise RpcError(f"rpc {method} to {self.addr} timed out")
-        ok, result = ev[1]
+        ok, result, term = ev[1]
+        if term is not None and self.on_term is not None:
+            self.on_term(term)
         if isinstance(result, RpcError) and not ok:
             raise result
         if not ok:
             raise RemoteError(result)
+        if hterm is not None and term is not None and term < hterm:
+            # a zombie primary's late ack: its write is discarded when the
+            # promoted standby reconciles, so it must not read as success
+            raise StaleTermError(f"rpc {method}: ack from {self.addr} at stale term "
+                                 f"{term} < {hterm}")
         return result
 
     def _write_loop(self, sock: socket.socket) -> None:
@@ -459,11 +553,12 @@ class RpcClient:
                 else:
                     (n,) = _LEN.unpack(self._recv_exact(sock, _LEN.size, mid_frame=False))
                     body = self._recv_exact(sock, n, mid_frame=True)
-                msg_id, ok, result = pickle.loads(body)[:3]
+                rec = pickle.loads(body)
+                msg_id, ok, result = rec[0], rec[1], rec[2]
                 with self._plock:
                     ev = self._pending.pop(msg_id, None)
                 if ev is not None:
-                    ev[1][:] = [ok, result]
+                    ev[1][:] = [ok, result, rec[3] if len(rec) > 3 else None]
                     ev[0].set()
         except (ConnectionError, OSError, MemoryError, pickle.UnpicklingError) as e:
             self._fail_all(RpcError(f"connection to {self.addr} lost: {e}"))
@@ -474,7 +569,7 @@ class RpcClient:
             pending = list(self._pending.values())
             self._pending.clear()
         for ev, slot in pending:
-            slot[:] = [False, err]
+            slot[:] = [False, err, None]
             ev.set()
 
 
@@ -484,32 +579,41 @@ class ReconnectingRpcClient:
     (reference: raylets reconnect to a restored GCS). A call on a dead
     connection gets up to ``redial_attempts`` fresh dials with jittered
     backoff; a timeout on a live connection is raised as it is, since the
-    request may still run and a resend would repeat a mutation. One
-    endpoint only: the failover across several waits for part 3b."""
+    request may still run and a resend would repeat a mutation.
+
+    Given an ordered endpoint list (``ReconnectingRpcClient((h1, p1), (h2,
+    p2))``, or the splatted ``*gcs_addr`` of a primary and its standby),
+    it moves on to the next endpoint on a refused dial, a dead peer, and on
+    ``NotPrimaryError`` / ``StaleTermError`` (up to ``failover_attempts``
+    hops with backoff, which cover a lease-expiry promotion). Every call
+    carries the highest fencing term seen (``term``, a ``TermTracker``
+    shareable between clients) and every stamped response feeds it."""
 
     def __init__(self, host, port=None, *extra, timeout: float = 30.0, retries: int = 20,
-                 redial_attempts: int = 3):
-        if port is None and not isinstance(host, str):
-            host, port = parse_gcs_addr(format_gcs_addr(host))
-        if extra:
-            raise NotImplementedError(f"a GCS of several endpoints waits for {PART_3B}")
-        self.addr = (host, int(port))
+                 redial_attempts: int = 3, failover_attempts: int = 10,
+                 term_tracker: Optional[TermTracker] = None):
+        self._endpoints = _normalize_endpoints(host, port, extra)
+        self._active = 0
+        self.addr = self._endpoints[0]
         self._timeout = timeout
         self._retries = retries
         self._redial_attempts = max(1, int(redial_attempts))
+        self._failover_attempts = max(1, int(failover_attempts))
+        self.term = term_tracker if term_tracker is not None else TermTracker()
         self._lock = threading.Lock()
         self._client: Optional[RpcClient] = None
         self._closed = False
 
-    def _get(self) -> RpcClient:
-        with self._lock:
-            if self._closed:
-                raise RpcError(f"client to {self.addr} closed")
-            c = self._client
-            if c is not None and c.connected:
-                return c
-        # dial outside the lock: a connect timeout must not hold every caller
-        c = RpcClient(*self.addr, timeout=self._timeout).connect(retries=self._retries)
+    @property
+    def endpoints(self) -> tuple:
+        return tuple(self._endpoints)
+
+    def _dial(self, ep: tuple, retries: int) -> RpcClient:
+        c = RpcClient(ep[0], ep[1], timeout=self._timeout).connect(retries=retries)
+        c.on_term = self.term.observe
+        return c
+
+    def _commit(self, c: RpcClient, idx: int) -> RpcClient:
         with self._lock:
             if self._closed:
                 c.close()
@@ -519,9 +623,54 @@ class ReconnectingRpcClient:
                 c.close()  # another thread won the dial race; keep theirs
                 return existing
             old, self._client = self._client, c
+            self._active = idx
+            self.addr = self._endpoints[idx]
         if old is not None:
             old.close()
         return c
+
+    def _get(self) -> RpcClient:
+        with self._lock:
+            if self._closed:
+                raise RpcError(f"client to {self.addr} closed")
+            c = self._client
+            if c is not None and c.connected:
+                return c
+            start = self._active
+        # dial outside the lock: a connect timeout must not hold every caller
+        if len(self._endpoints) == 1:
+            return self._commit(self._dial(self._endpoints[0], self._retries), 0)
+        # several endpoints: sweep them round-robin from the last good one,
+        # one dial each per round (a dead primary costs one refused connect)
+        last: Optional[BaseException] = None
+        backoff = ExponentialBackoff(base=0.05, cap=1.0)
+        for _ in range(self._retries + 1):
+            for k in range(len(self._endpoints)):
+                idx = (start + k) % len(self._endpoints)
+                ep = self._endpoints[idx]
+                if _chaos.BLOCKED_PEERS and ep in _chaos.BLOCKED_PEERS:
+                    # chaos PARTITION_GCS_PAIR: unreachable from this process
+                    last = RpcError(f"chaos: peer {ep} partitioned")
+                    continue
+                try:
+                    c = self._dial(ep, 0)
+                except RpcError as e:
+                    last = e
+                    continue
+                return self._commit(c, idx)
+            backoff.sleep()
+        raise RpcError(f"cannot connect to any of {self._endpoints}: {last}")
+
+    def _rotate(self, dead: RpcClient) -> None:
+        """Drop a dead or refusing connection and move to the next endpoint,
+        so the next ``_get`` dials somewhere else first."""
+        with self._lock:
+            if self._client is dead:
+                self._client = None
+                if len(self._endpoints) > 1:
+                    self._active = (self._active + 1) % len(self._endpoints)
+                    self.addr = self._endpoints[self._active]
+        dead.close()
 
     def connect(self, retries: Optional[int] = None) -> "ReconnectingRpcClient":
         if retries is not None:
@@ -537,16 +686,43 @@ class ReconnectingRpcClient:
                                  peer=f"{self.addr[0]}:{self.addr[1]}"):
                 if f.kind == _chaos.STALL_GCS:
                     raise RpcError(f"chaos: GCS stalled — {method!r} to {self.addr} lost")
+        multi = len(self._endpoints) > 1
         backoff = ExponentialBackoff(base=0.05, cap=1.0)
-        redials = 0
+        redials = hops = 0
         while True:
             c = self._get()
+            if _chaos.BLOCKED_PEERS and tuple(c.addr) in _chaos.BLOCKED_PEERS:
+                # partitioned after the dial: the cached connection is unusable
+                self._rotate(c)
+                if redials >= self._redial_attempts:
+                    raise RpcError(f"chaos: peer {c.addr} partitioned")
+                redials += 1
+                backoff.sleep()
+                continue
             try:
-                return c.call(method, payload, timeout)
+                return c.call(method, payload, timeout, hterm=self.term.current)
+            except (NotPrimaryError, StaleTermError):
+                # an unpromoted standby, or a deposed primary whose ack must
+                # be discarded: with several endpoints, hop to the next
+                if not multi or hops >= self._failover_attempts:
+                    raise
+                hops += 1
+                self._rotate(c)
+                backoff.sleep()
             except RpcError:
-                if c.connected or redials >= self._redial_attempts:
+                if c.connected:
+                    # a timeout on a live connection: the request may still
+                    # run, so it is not resent. With several endpoints the
+                    # connection is dropped, so the caller's retry dials the
+                    # next endpoint instead of a wedged primary again.
+                    if multi:
+                        self._rotate(c)
+                    raise
+                if redials >= self._redial_attempts:
                     raise
                 redials += 1
+                if multi:
+                    self._rotate(c)
                 backoff.sleep()
 
     def close(self) -> None:

@@ -22,7 +22,9 @@ worker with ``CUDA_VISIBLE_DEVICES`` set to its lease's cards ("" for a
 CPU lease), so torch, imported only by the code a task runs, sees exactly
 those. Two framework methods of the reference's process actors are not
 ported yet: ``__ray_tpu_collective_init__`` (ROADMAP.md Queue 1, item 10,
-D4) and ``__ray_tpu_dag_exec_loop__`` (item 6, part 6).
+D4) and ``__ray_tpu_dag_exec_loop__`` (item 6, part 6). The ``--gcs`` address
+may name a primary and its standby; a schedule the driver exported
+(``chaos.install(propagate_env=True)``) is adopted at start.
 """
 
 from __future__ import annotations
@@ -372,10 +374,13 @@ def main() -> None:
     p.add_argument("--worker-id", required=True)
     p.add_argument("--gcs", default=None)
     args = p.parse_args()
+    from ray_tpu_torch.chaos import harness as _chaos
+
+    _chaos.install_from_env()  # adopt a schedule the driver exported
     host, port = args.daemon.rsplit(":", 1)
     gcs = None
     if args.gcs:
-        gcs = parse_gcs_addr(args.gcs)  # "h:p"
+        gcs = parse_gcs_addr(args.gcs)  # "h:p" or a primary and its standby "h1:p1,h2:p2"
     rt = WorkerRuntime((host, int(port)), args.worker_id, gcs_addr=gcs)
     rt.start()
     try:

@@ -12,8 +12,9 @@ arguments and results by value (core/process_pool.py). The accelerator
 resource is ``num_gpus`` -> ``"GPU"``; in process mode a task that holds
 it runs in a worker pinned to its cards.
 
-``init(address="host:port")`` (or ``"ray://host:port"``) attaches this
-driver to a running GCS (``ray_tpu_torch.cluster``) instead: tasks and
+``init(address="host:port")`` (or ``"ray://host:port"``, or a primary GCS
+and its standby, ``"h1:p1,h2:p2"``) attaches this driver to a running GCS
+(``ray_tpu_torch.cluster``) instead: tasks and
 actors then run in worker processes leased from node daemons, objects live
 in the nodes' shared-memory stores, and every call below goes through the
 cluster backend (``core/cluster_backend.py``), as in the reference.
@@ -107,8 +108,10 @@ def init(
     "process" (tasks in worker processes, ``core/process_pool.py``).
 
     With ``address="host:port"`` (a GCS address; ``"ray://host:port"`` is
-    an alias), attaches this driver to that cluster: tasks and actors
-    become leases on node daemons, run in worker processes cluster-wide.
+    an alias; ``"h1:p1,h2:p2"`` names a primary and its standby, and calls
+    follow the primary across a failover), attaches this driver to that
+    cluster: tasks and actors become leases on node daemons, run in worker
+    processes cluster-wide.
     """
     if address is not None:
         if address.startswith("ray://"):

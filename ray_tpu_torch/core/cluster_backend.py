@@ -111,14 +111,17 @@ class ClusterBackend:
                     namespace: str = "default") -> "ClusterBackend":
         """Wrap an existing ClusterClient (worker processes: their
         ambient client already points at the local daemon)."""
+        from ray_tpu_torch.cluster.rpc import format_gcs_addr
+
         self = cls.__new__(cls)
         self.client = client
         self.namespace = namespace
-        self.address = "%s:%d" % client.gcs.addr
+        self.address = format_gcs_addr(client.gcs.endpoints)
         return self
 
     def __init__(self, address: str, namespace: str = "default"):
-        # "h:p" (a GCS of several endpoints waits for part 3b)
+        # "h:p" (one GCS) or "h1:p1,h2:p2" (a primary first and its
+        # standby second: calls fail over when the primary dies)
         from ray_tpu_torch.cluster.rpc import ReconnectingRpcClient, parse_gcs_addr
 
         gcs_addr = parse_gcs_addr(address)

@@ -455,6 +455,46 @@ class ServeController:
         # the caller holds _lock (every stop runs inside a locked update)
         self._drains = [d for d in self._drains if d.is_alive()] + [t]
 
+    def kill_replica(self, app_name: str, dep_name: Optional[str] = None,
+                     replica_id: Optional[str] = None) -> Optional[str]:
+        """Fault injection (chaos KILL_REPLICA, run by ``ChaosRunner``):
+        crash one replica without any bookkeeping, as a preempted replica
+        looks. The health sweep finds the corpse (``ActorDiedError`` on its
+        ping), evicts it and starts a replacement; routers fail over
+        meanwhile. Returns the killed replica's id, or None when nothing
+        ran (an unknown deployment name kills nothing)."""
+        import ray_tpu_torch
+
+        with self._lock:
+            app = self._apps.get(app_name)
+            if app is None:
+                return None
+            if dep_name:
+                if dep_name not in app.deployments:
+                    return None
+                deps = [app.deployments[dep_name]]
+            else:
+                deps = list(app.deployments.values())
+            victim = None
+            for ds in deps:
+                pool = [r for r in ds.replicas if r.state == ReplicaState.RUNNING] \
+                    or list(ds.replicas)
+                for r in pool:
+                    if replica_id in (None, r.replica_id):
+                        victim = r
+                        break
+                if victim is not None:
+                    break
+        if victim is None:
+            return None
+        logger.warning("chaos: killing replica %s", victim.replica_id)
+        try:
+            ray_tpu_torch.kill(victim.handle)
+        except Exception:  # noqa: BLE001 — reported as nothing killed
+            logger.exception("chaos replica kill failed")
+            return None
+        return victim.replica_id
+
     def _poll_replicas(self) -> None:
         """Health-check + metrics sweep (outside the lock for the RPCs).
         Fan out all pings first, then collect — one wedged replica must not

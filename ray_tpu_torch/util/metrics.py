@@ -5,9 +5,8 @@ One registry for this package, separate from the reference's even in a
 process that imports both. Names, types, tag keys and histogram
 boundaries follow the reference's, so the two packages' Prometheus texts
 compare line for line. ``snapshot_meta`` is the restart-detection header
-``/v1/stats`` carries; ``snapshot_registry`` the serializable snapshot a
-telemetry plane would ship (the plane itself waits for the cluster
-runtime, ROADMAP.md Queue 1, B8).
+``/v1/stats`` carries; ``snapshot_registry`` the serializable snapshot the
+telemetry plane (``obs/telemetry.py``) ships to the GCS.
 """
 
 from __future__ import annotations
@@ -17,7 +16,7 @@ import threading
 import time
 import uuid
 from bisect import bisect_right
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 _REGISTRY_LOCK = threading.Lock()
 _REGISTRY: dict[str, "Metric"] = {}
@@ -173,10 +172,12 @@ def snapshot_meta() -> dict:
     }
 
 
-def snapshot_registry() -> dict:
+def snapshot_registry(series_filter: Optional[Callable[[str, dict], bool]] = None) -> dict:
     """Serializable point-in-time snapshot of the whole registry: counters
     as monotonic totals, histograms as full bucket vectors, so a consumer
-    that misses snapshots loses freshness, never counts."""
+    that misses snapshots loses freshness, never counts.
+    ``series_filter(name, tags_dict) -> bool`` narrows it to the series a
+    reporter owns (a node daemon ships only its own node's gauges)."""
     out = snapshot_meta()
     out["metrics"] = []
     for m in registry_snapshot():
@@ -190,10 +191,14 @@ def snapshot_registry() -> dict:
         if isinstance(m, Histogram):
             entry["boundaries"] = list(m.boundaries)
             for k, (buckets, total, count) in m.hist_data().items():
+                if series_filter is not None and not series_filter(m.name, dict(zip(m.tag_keys, k))):
+                    continue
                 series.append({"tags": list(k), "buckets": list(buckets),
                                "sum": total, "count": count})
         else:
             for k, v in m.series().items():
+                if series_filter is not None and not series_filter(m.name, dict(zip(m.tag_keys, k))):
+                    continue
                 series.append({"tags": list(k), "value": v})
         if series:
             entry["series"] = series

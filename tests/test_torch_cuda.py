@@ -2086,3 +2086,103 @@ def test_cluster_cuda_tensor_returned_through_the_store_bit_for_bit():
     want = make(n)
     assert got.is_cuda and got.dtype == torch.bfloat16 and got.shape == (n,)
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+class _CardHolder:
+    """A GPU actor holding a CUDA tensor, and a tiny fp32 engine on the card
+    whose SLO samples a reporter ships to both GCS endpoints."""
+
+    def __init__(self, endpoints):
+        import dataclasses
+
+        import torch
+
+        from ray_tpu_torch.llm import EngineConfig, LLMEngine
+        from ray_tpu_torch.models.llama import LLAMA_TINY
+        from ray_tpu_torch.obs.telemetry import TelemetryReporter
+
+        self.t = torch.arange(1 << 20, dtype=torch.float32, device="cuda")
+        # head_dim 64: a width the serving kernels take
+        cfg = dataclasses.replace(LLAMA_TINY, dtype=torch.float32, d_model=256, n_heads=4,
+                                  n_kv_heads=2)
+        self.eng = LLMEngine(EngineConfig(model=cfg, num_blocks=64, block_size=4, max_num_seqs=4,
+                                          max_prefill_len=32), device="cuda")
+        self.eng.model_tag = "ha-card"
+        self.reporter = TelemetryReporter(tuple(map(tuple, endpoints)), reporter_id="ha-card",
+                                          kind="engine", interval_s=0.5).start()
+
+    def serve(self, prompts):
+        from ray_tpu_torch.llm import SamplingParams
+
+        return self.eng.generate(prompts, SamplingParams(max_tokens=6, temperature=0.0,
+                                                         ignore_eos=True))
+
+    def checksum(self):
+        return float(self.t.sum().item()), str(self.t.device)
+
+    def flush(self):
+        from ray_tpu_torch.obs import slo
+
+        landed = any(self.reporter.push_once() for _ in range(10))
+        b, _s, n = slo.ttft_histogram().hist_data()[("ha-card",)]
+        return landed, list(b), n
+
+
+def test_cluster_ha_gpu_actor_rides_a_failover_and_leases_through_the_new_primary():
+    """A GPU actor of a cluster whose GCS has a standby keeps its card and
+    its CUDA state across KILL_GCS_PRIMARY: its greedy tokens do not change,
+    the promoted GCS merges its TTFT histogram bucket for bucket, its lease
+    is released there when it is killed, and a GPU task then leases its
+    card through the new primary."""
+    _need_cuda()
+    import sys
+    import time
+
+    import ray_tpu_torch
+    from ray_tpu_torch.cluster import LocalCluster
+    from ray_tpu_torch.core.api import _cluster
+    from ray_tpu_torch.core.serialization import register_pickle_by_value
+
+    register_pickle_by_value(sys.modules[__name__])
+    c = LocalCluster(node_death_timeout_s=5.0, standby=True)
+    try:
+        c.start()
+        c.add_node({"num_cpus": 2, "GPU": 1}, node_id="gpu")
+        c.wait_for_nodes(1)
+        ray_tpu_torch.init(address=c.address)
+        gcs = _cluster().client.gcs
+        prompts = [[5, 6, 7, 8], [9, 10, 11]]
+        holder = ray_tpu_torch.remote(num_gpus=1)(_CardHolder).remote(c.gcs_endpoints)
+        before = ray_tpu_torch.get(holder.serve.remote(prompts), timeout=300)
+        csum = ray_tpu_torch.get(holder.checksum.remote(), timeout=60)
+        c.kill_gcs_primary()
+        deadline = time.monotonic() + 20
+        st = {}
+        while st.get("term") != 1:
+            assert time.monotonic() < deadline, st
+            try:
+                st = gcs.call("ha_status", {}, timeout=5)
+            except Exception:  # noqa: BLE001 — the failover window
+                time.sleep(0.1)
+        after = ray_tpu_torch.get(holder.serve.remote(prompts), timeout=120)
+        assert after == before
+        assert ray_tpu_torch.get(holder.checksum.remote(), timeout=60) == csum
+        landed, buckets, n = ray_tpu_torch.get(holder.flush.remote(), timeout=60)
+        merged = gcs.call("telemetry_cluster", {}, timeout=15)["histograms"][
+            "ray_tpu_llm_ttft_seconds"]["series"]["model=ha-card"]
+        assert landed and merged["buckets"] == buckets and merged["count"] == n == 4
+        ray_tpu_torch.kill(holder)
+        deadline = time.monotonic() + 20
+        while True:
+            row = next(x for x in gcs.call("list_nodes", None, timeout=15) if x["node_id"] == "gpu")
+            if row["available"].get("GPU") == 1 or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        assert row["available"].get("GPU") == 1, row
+        got = ray_tpu_torch.get(ray_tpu_torch.remote(num_gpus=1)(_probe_cards).remote(),
+                                timeout=300)
+        assert got["node"] == "gpu" and got["available"] and got["count"] == 1
+    finally:
+        ray_tpu_torch.shutdown()
+        c.shutdown()
+    assert c.leftovers() == {"processes": [], "store_files": []}

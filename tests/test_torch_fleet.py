@@ -148,9 +148,23 @@ def test_spec_parse_shares_and_lookups():
     assert got[:4] == [("tiny", None), ("tiny", "styleA"), 6, 2] and got[-2:] == [0, "anon"]
 
 
+def _forget_queue_waits(spec) -> None:
+    """Both packages' registries without queue-wait samples for ``spec``'s
+    tenants: a 429's ``retry_after`` is priced from that process-wide
+    history, which an earlier test file in the same process may have
+    filled for one package only."""
+    from ray_tpu.obs import slo as jslo
+    from ray_tpu_torch.obs import slo as tslo
+
+    for mod in (jslo, tslo):
+        for tenant in spec.tenants:
+            mod.queue_wait_histogram().remove_series({"model": tenant.slo_tag})
+
+
 def test_qos_flood_exhausts_own_share_only():
     def run(pkg):
         spec = _spec(pkg, total_queue_budget=8)
+        _forget_queue_waits(spec)
         qos = (JTenantQoSController if pkg == "ref" else TenantQoSController)(spec)
         batch, gold = spec.tenant("batch"), spec.tenant("gold")
         results = [qos.admit(batch) for _ in range(10)]

@@ -170,6 +170,50 @@ print("ok")
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-3000:]
 
 
+def test_ha_telemetry_and_chaos_runner_import_without_jax():
+    """The GCS's standby, the telemetry plane and the chaos runner import
+    with jax, optax, the JAX package and triton blocked, and neither they
+    nor the GCS and its standby load torch; chip_smoke.py imports nothing
+    of the JAX package."""
+    code = """
+import sys
+for name in ("jax", "jaxlib", "optax", "ray_tpu", "triton"):
+    sys.modules[name] = None
+import ray_tpu_torch.cluster.ha, ray_tpu_torch.chaos.runner, ray_tpu_torch.obs.telemetry
+import ray_tpu_torch.cluster.gcs_service
+from ray_tpu_torch import chaos
+assert chaos.ChaosRunner is ray_tpu_torch.chaos.runner.ChaosRunner
+from ray_tpu_torch.cluster.gcs_service import GcsServer
+from ray_tpu_torch.cluster.ha import StandbyGcsServer
+from ray_tpu_torch.cluster.rpc import ReconnectingRpcClient
+primary = GcsServer(port=0)
+paddr = primary.start()
+sb = StandbyGcsServer(paddr, lease_timeout_s=0.5, poll_wait_s=0.1)
+saddr = sb.start()
+rc = ReconnectingRpcClient(paddr, saddr, timeout=5.0).connect(retries=5)
+rc.call("kv_put", {"ns": "iso", "key": "k", "value": b"v"})
+import time
+deadline = time.monotonic() + 10
+# the write is on the standby (its snapshot or its tail) before the kill
+while sb.service.rpc_kv_get({"ns": "iso", "key": "k"}, None) != b"v":
+    assert time.monotonic() < deadline, "the standby never saw the write"
+    time.sleep(0.02)
+primary.stop()
+assert sb.promoted.wait(timeout=10)
+assert rc.call("kv_get", {"ns": "iso", "key": "k"}, timeout=5) == b"v"
+rc.close()
+sb.stop()
+assert "torch" not in sys.modules, "the control plane loaded torch"
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-3000:]
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        assert not [ln for ln in f if FORBIDDEN.match(ln)]
+
+
 def test_data_imports_and_runs_without_pandas_pyarrow_or_pil():
     """``ray_tpu_torch.data`` imports with pandas, pyarrow and PIL blocked
     (the card's host has none of them) as well as JAX, the JAX package and

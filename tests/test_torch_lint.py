@@ -9,6 +9,11 @@ and their locks must be in what the passes see, so the lints cover them.
 
 Also the regression of the orchestrator's ``_PoolEngine.depth()``: a
 posted request stays counted until the loop has added it to the engine.
+And the port's chaos-hook lint: every ``fire`` hook site of the package is
+listed in ``HOOK_SITES`` and sits behind the ``ACTIVE`` fast path (its
+allowlist of unguarded sites is empty); the GCS standby's, the chaos
+runner's and the telemetry store's threads and locks are in what the
+passes see.
 """
 
 import threading
@@ -141,3 +146,95 @@ def test_pool_engine_depth_never_reads_below_posted():
     t.join(timeout=30)
     assert not t.is_alive()
     assert pe.depth() == 1 and pe.pending_adds == 0
+
+
+# ---------------------------------------------------------------------------
+# chaos hook sites
+# ---------------------------------------------------------------------------
+
+# every ``fire`` hook site of the port (outside ``chaos/``): site -> file
+HOOK_SITES = {
+    "llm.engine.step": "llm/engine.py",
+    "disagg.kv_transfer": ("llm/disagg/connector.py", "fabric/transport.py"),
+    "llm.kvtier.spill": "llm/kvtier/tiers.py",
+    "llm.kvfetch": "llm/kvtier/tiers.py",
+    "serve.replica": "serve/replica.py",
+    "process_pool.task": "core/process_pool.py",
+    "rpc.call": "cluster/rpc.py",
+    "rpc.frame": "cluster/rpc.py",
+    "gcs.call": "cluster/rpc.py",
+    "node.heartbeat": "cluster/node_daemon.py",
+    "cluster.push": "cluster/client.py",
+}
+# hook sites audited as safe without the ``ACTIVE`` guard: none
+UNGUARDED_HOOK_ALLOWLIST: dict = {}
+
+
+def _hook_sites() -> list:
+    """(file, line, site, guarded) for every ``<x>.fire("<site>", ...)`` of
+    the port outside ``chaos/``; guarded: the enclosing function tests
+    ``<x>.ACTIVE`` (``is None`` / ``is not None``) before that line."""
+    import ast
+
+    out = []
+    for sf in iter_files(PACKAGES):
+        rel = sf.rel.removeprefix("ray_tpu_torch/")
+        if rel.startswith("chaos/"):
+            continue
+        funcs = [n for n in ast.walk(sf.tree)
+                 if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]
+        for node in ast.walk(sf.tree):
+            if not (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "fire" and isinstance(node.func.value, ast.Name)):
+                continue
+            site = node.args[0].value if node.args and isinstance(node.args[0], ast.Constant) \
+                else None
+            owner = min((f for f in funcs if f.lineno <= node.lineno <= f.end_lineno),
+                        key=lambda f: f.end_lineno - f.lineno, default=None)
+            guarded = owner is not None and any(
+                isinstance(c, ast.Compare) and isinstance(c.left, ast.Attribute)
+                and c.left.attr == "ACTIVE" and c.lineno <= node.lineno
+                and isinstance(c.ops[0], (ast.Is, ast.IsNot))
+                for c in ast.walk(owner))
+            out.append((rel, node.lineno, site, guarded))
+    return out
+
+
+def test_chaos_hook_sites_are_listed_and_guarded():
+    """Every hook site is one of ``HOOK_SITES`` in its file, every listed
+    site exists, and each sits behind the ``ACTIVE`` fast path (the
+    allowlist of unguarded sites is empty)."""
+    sites = _hook_sites()
+    found = {}
+    for rel, line, site, guarded in sites:
+        want = HOOK_SITES.get(site)
+        files = (want,) if isinstance(want, str) else (want or ())
+        assert rel in files, f"{rel}:{line}: hook site {site!r} not in HOOK_SITES"
+        if not guarded:
+            assert (rel, site) in UNGUARDED_HOOK_ALLOWLIST, \
+                f"{rel}:{line}: hook site {site!r} runs without the ACTIVE guard"
+        found.setdefault(site, set()).add(rel)
+    for site, want in HOOK_SITES.items():
+        files = {want} if isinstance(want, str) else set(want)
+        assert found.get(site) == files, (site, found.get(site))
+
+
+def test_ha_telemetry_and_runner_threads_and_locks_are_linted():
+    """The standby's tail thread, the chaos runner's threads and the GCS's
+    and the telemetry store's locks are in what the passes see."""
+    for rel, threads in (("cluster/ha.py", {"gcs-ha-tail"}),
+                         ("chaos/runner.py", {"chaos-runner", "chaos-gcs-restart",
+                                              "chaos-partition-heal"})):
+        m = _model(rel)
+        assert threads <= _thread_names(m), (rel, _thread_names(m))
+        for th in m.threads:
+            assert any(kw.arg == "daemon" and getattr(kw.value, "value", None) is True
+                       for kw in th.node.keywords)
+    m = _model("obs/telemetry.py")
+    assert "TelemetryStore._lock" in m.locks
+    guards = lock_guards.infer_guards(m)
+    for attr in ("_reporters", "_series"):
+        assert guards.get(("TelemetryStore", attr)) == "TelemetryStore._lock", attr
+    m = _model("cluster/gcs_service.py")
+    assert "GcsService._ha_lock" in m.locks
+    assert lock_guards.infer_guards(m).get(("GcsService", "_ha")) == "GcsService._ha_lock"

@@ -8,9 +8,11 @@ on its own in-process runtime: results and HTTP statuses must be equal.
 The port's proxy is the standard library's ``ThreadingHTTPServer``, the
 reference's aiohttp; both are driven with ``urllib.request`` on a free
 port. A ``KILL_REPLICA`` fault at the replica's ``serve.replica`` site
-must be failed over by the router on both.
+must be failed over by the router on both, and a replica the chaos runner
+kills through the controller's ``kill_replica`` must be replaced.
 """
 
+import importlib
 import json
 import os
 import socket
@@ -390,3 +392,44 @@ def test_kill_replica_fails_over(pkg):
     finally:
         chaos.uninstall()
     assert type(ei.value.cause).__name__ == "ReplicaCrashed"
+
+
+def test_orchestrated_kill_replica_controller_replaces_it(pkg):
+    """The scenario of ``tests/test_chaos.py``'s controller replacement:
+    the chaos runner's KILL_REPLICA kills a replica through the
+    controller's ``kill_replica``; requests keep completing, and the health
+    sweep swaps the corpse for a fresh replica (back to 2 running)."""
+    api, serve = pkg
+    name = "ref" if api is ray_tpu else "port"
+    chaos = CHAOS[name]
+    runner_mod = importlib.import_module(f"{'ray_tpu' if name == 'ref' else 'ray_tpu_torch'}"
+                                         ".chaos.runner")
+
+    @serve.deployment(num_replicas=2)
+    class Sq:
+        def __call__(self, x):
+            return x * x
+
+    h = serve.run(Sq.bind(), name="chaos_failover", route_prefix=None)
+    assert [h.remote(i).result(timeout_s=WAIT_S) for i in range(4)] == [0, 1, 4, 9]
+    ctrl = serve.api._get_controller_handle()
+    sched = chaos.FaultSchedule(7, [chaos.FaultSpec(chaos.KILL_REPLICA,
+                                                    target="chaos_failover/Sq", at_s=0.05)])
+    runner = runner_mod.ChaosRunner(sched, controller_handle=ctrl).start()
+    runner.join(timeout=WAIT_S)
+    runner.stop()
+    assert [f.kind for f in runner.executed] == [chaos.KILL_REPLICA]
+    killed = runner.executed[0].attrs["replica_id"]
+    assert killed
+    assert [h.remote(i).result(timeout_s=WAIT_S) for i in range(10)] == [i * i for i in range(10)]
+    deadline = time.time() + 30
+    ids = []
+    while time.time() < deadline:
+        info = api.get(ctrl.get_running_replicas.remote("chaos_failover", "Sq"), timeout=WAIT_S)
+        ids = [x[0] for x in info["replicas"]]
+        if killed not in ids and len(ids) >= 2:
+            break
+        time.sleep(0.2)
+    assert killed not in ids and len(ids) >= 2, ids
+    # an unknown deployment kills nothing
+    assert api.get(ctrl.kill_replica.remote("chaos_failover", "Nope"), timeout=WAIT_S) is None
