@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,flash_kernels   # a short first check of a kernel edit
     python3 chip_smoke.py --phases build,engine,api      # the serving front end alone
     python3 chip_smoke.py --phases build,engine,api,serve  # ... and through a Serve deployment
+    python3 chip_smoke.py --phases build,engine,api,serve_disagg  # ... disaggregated Serve
     python3 chip_smoke.py --phases build,engine,data     # batch inference over a Dataset
     python3 chip_smoke.py --phases build,train,data_feed # the train step fed by a Dataset
     python3 chip_smoke.py --phases build,engine,disagg   # disaggregated, inproc and device legs
@@ -72,9 +73,9 @@ Phases, each printing one JSON line:
            N(0, 1/d_model), B ~ N(0, 0.25^2): a delta about as large as q
            and v themselves, so every adapter changes the greedy stream),
            assigned round robin so a quarter of the rows are base; a first
-           and a warm pass, 4 steady passes in turns with 4 of the requests
-           all on the base model (medians of the passes that captured no
-           graph), then one of each under
+           and a warm pass, 2 steady passes in turns with 2 of the requests
+           all on the base model (cut from 4 and 4 for the smoke's time; medians of the
+           passes that captured no graph), then one of each under
            torch.profiler: the all-base pass runs the engine phase's
            batches with the delta ops, so its busy time less the engine
            phase's is the delta's device time; then one decode step and one
@@ -93,8 +94,8 @@ Phases, each printing one JSON line:
            with method, path and json()): the engine phase's 12 requests
            as text completions (printable ASCII of its token lengths, EOS
            live) with 2 chats and 2 generate_stream requests riding along,
-           a first pass, four more (steady: the median of those that
-           captured no graph) and one under torch.profiler:
+           a first pass, two more (steady: the median of those that
+           captured no graph; cut from four for the smoke's time) and one under torch.profiler:
            client tok/s, engine TTFT and the streams' first-delta TTFT,
            device busy and idle share, beside the engine phase's; the
            kernels' launches counted over the first pass. Fails unless
@@ -118,7 +119,7 @@ Phases, each printing one JSON line:
            request on its own client thread: a first pass (the kernels'
            launches counted over it as in the api phase) and two more, then
            the replica's LLMServer driven directly (the api phase's pass)
-           and through Serve in turns, S D D S S D after a direct warm-up
+           and through Serve in turns, S D S D after a direct warm-up
            pass, on the same engine; steady: the median of the Serve
            passes after the first that captured no graph; client tok/s,
            engine TTFT and the streams' client TTFT beside the api phase's
@@ -134,6 +135,26 @@ Phases, each printing one JSON line:
            with Retry-After and 3 completions, and after serve.shutdown()
            the engine loop has exited and the card's allocated memory fell
            by at least the KV cache's bytes
+  serve_disagg  LLAMA3_8B through build_disagg_openai_app on the in-process
+           runtime: a prefill and a decode replica (role-tagged pools), each
+           engine the api phase's configuration plus the tiered cache
+           (kvtier={}) over the caller's weights (by reference), stepped by
+           its replica's loop thread; KV over the device fabric
+           (connector="device"); an ingress that pins each decode wait and
+           routes by the app's prefix index. The api phase's 12
+           completions through the ingress handle, each on its own client
+           thread: a first pass (K3/K4 counted per engine from its loop
+           thread's tally, eager and in replays), a second, then the two
+           shared-prefix requests again. Fails unless every completion has
+           its 32 tokens or a stop, K4 launched on the prefill engine and
+           K3 on the decode engine, the 12 first-pass handoffs went by the
+           device plane with no stage through host memory, the ingress
+           routed one request or more by prefix, serve.status() tags the
+           roles, both engines hold the caller's tensors, and after
+           serve.shutdown() both loops exited and the card's allocated
+           memory fell by at least the two KV caches' bytes. Reports TTFT
+           (at the prefill engine) and tok/s a pass, captures per engine,
+           send ms per handoff, the greedy streams against the api phase's
   data     offline batch inference at LLAMA3_8B through the port's
            datasets: build_processor(ProcessorConfig(...)) over
            data.from_items of 48 text prompts (64-1536 bytes, numpy seed
@@ -143,7 +164,8 @@ Phases, each printing one JSON line:
            the in-process runtime), its engine and graphs built there,
            handed 16 + 8 rows per bundle of 2 blocks. A direct pass
            (LLMEngine.generate on the same batches), then
-           dataset and direct in turns (S D D S): rows/s, tok/s, peak
+           dataset and direct in turns (S D, cut from S D D S for the
+           smoke's time): rows/s, tok/s, peak
            memory, the stage's graph captures, and the bytes freed once each
            dataset pass's pool is killed; K3/K4 launches counted over the
            first dataset pass. Fails unless each dataset pass's rows come
@@ -236,7 +258,8 @@ Phases, each printing one JSON line:
            replay of a graph per packed-token bucket, bit for bit the
            eager pass): prompt lookup
            with k = 4, then a LLAMA3_1B draft model at full width, random
-           weights; acceptance, tok/s and ragged launches (> 0); then fp32
+           weights, a first and a warm pass each (a steady third was cut for
+           the smoke's time); acceptance, tok/s and ragged launches (> 0); then fp32
            greedy spec == non-spec tokens on the parity model (vocabulary
            cut to 256, prompts holding every id, so prompt lookup always
            drafts), both drafters, and prompt lookup under adapters
@@ -290,7 +313,19 @@ Phases, each printing one JSON line:
            two passes, the actor killed and the card's memory back, a GPU
            worker's cold start, a bf16 CUDA tensor through the store, the
            driver's tensor pulled by the CPU node, a crashed GPU task
-           retried, nothing left after shutdown
+           retried; then Serve on the cluster: a num_gpus=1 replica of a
+           deployment around LLMServer that builds the 8B weights on its own
+           card (params_8b, the actor's seeded generator), its tiered cache
+           publishing into the GCS's prefix index through a GcsPrefixIndex;
+           the api phase's 12 completions through the handle twice, served
+           one at a time as a cluster actor serves its calls (K3/K4 counted
+           in the replica over the first); fails unless the replica
+           is a worker on node "gpu" pinned to card 0, every completion is
+           complete, K3 and K4 launched there, the GCS's kvtier_stats has
+           rows after a flush and a driver-side lookup of the 512-token
+           shared prefix names the replica's key with n_tokens >= 512, and
+           the card's free bytes are back after serve.delete; nothing left
+           after shutdown
   cluster_ha  the cluster phase's nodes under a GCS with a warm standby
            (LocalCluster(standby=True)), attached with both endpoints; a
            seeded DROP_RPC on telemetry_push handed to the cluster's
@@ -1480,11 +1515,12 @@ def _lora_step_costs(eng) -> dict:
 
 def lora_phase(dev, params, engine_res: dict) -> dict:
     """The engine phase's requests through an 8B engine with 3 adapters
-    loaded, a quarter of the rows base: a first and a warm pass, then 4
-    steady passes in turns with 4 of the same requests all on the base
-    model, then one of each under torch.profiler (the all-base one against
-    the engine phase's gives the delta ops' device time), beside the engine
-    phase's numbers from this run."""
+    loaded, a quarter of the rows base: a first and a warm pass, then 2
+    steady passes in turns with 2 of the same requests all on the base
+    model (cut from 4 and 4 for the smoke's time), then one of each under
+    torch.profiler (the all-base one against the engine phase's gives the
+    delta ops' device time), beside the engine phase's numbers from this
+    run."""
     import numpy as np
     import torch
 
@@ -1592,7 +1628,7 @@ def lora_phase(dev, params, engine_res: dict) -> dict:
                    "graphs": _pass_graphs(eng, pmarks),
                    "graphs_captured_so_far": eng._graphs.captures}
     passes = {"adapters": [], "all_base": []}
-    for rnd in range(4):
+    for rnd in range(2):  # cut from four rounds for the smoke's time
         for key, ids, ref in (("adapters", lora_ids, finals), ("all_base", None, base)):
             eng.allocator.drop_prefix_cache()
             c0 = sum(g.captures for g in _families(eng))
@@ -2103,7 +2139,7 @@ def api_phase(dev, params, engine_res: dict) -> dict:
     """LLAMA3_8B served through the port's OpenAI front end (LLMServer over
     the engine phase's configuration and weights, the model resolved by the
     registry): the engine phase's 12 requests as text completions with two
-    chats and two token streams riding along, a first pass, four more (the
+    chats and two token streams riding along, a first pass, two more (the
     steady reading: the median of those that captured no graph) and one
     under torch.profiler; the 12 completions alone through the server and
     through ``LLMEngine.generate`` in turns (``_frontend_ab``); then the
@@ -2169,14 +2205,16 @@ def api_phase(dev, params, engine_res: dict) -> dict:
     summary = lambda p: {k: v for k, v in p.items()  # noqa: E731
                          if k not in ("completions", "chats", "streams")}
     res["first"] = summary(first)
+    # the 12 completions' texts, which the serve_disagg phase reports against
+    res["first_texts"] = [o["choices"][0]["text"] for o in first["completions"]]
     if None in first["stream_ttft_s"]:
         raise AssertionError("api: a stream yielded no delta")
-    # four more passes: the chunk controller may step to a longer chunk in
-    # any of them and capture its graph (seconds of the pass), so "warm" is
-    # the second pass and "steady" the median of the passes that captured
-    # no graph
+    # two more passes (cut from four for the smoke's time): the chunk controller may step to
+    # a longer chunk in either and capture its graph (seconds of the pass),
+    # so "warm" is the second pass and "steady" the median of the passes
+    # that captured no graph
     passes = []
-    for k in range(4):
+    for k in range(2):
         c0 = sum(g.captures for g in _families(eng))
         raw = _api_pass(server, recorded, bodies, chats, streams)
         passes.append({**summary(raw),
@@ -2508,7 +2546,7 @@ def serve_phase(dev, params, api_res: dict) -> dict:
     chats over HTTP from concurrent client threads and the two streams
     through the app handle, a first pass (the kernels' launches counted
     over it as in the api phase) and two more, then the same engine driven
-    directly and through Serve in turns (S D D S S D, after a direct
+    directly and through Serve in turns (S D S D, after a direct
     warm-up pass); steady is the median of the Serve passes after the first
     that captured no graph, beside the api phase's direct LLMServer passes;
     the round trip of /v1/models over HTTP and through the handle. Fails unless every completion has its
@@ -2626,7 +2664,7 @@ def serve_phase(dev, params, api_res: dict) -> dict:
     # one direct pass that captures the direct pattern's buckets; only the
     # passes that captured no graph are read
     direct_pass = lambda: _api_pass(server, recorded, bodies, chats, streams)  # noqa: E731
-    order = "SDDSSD"
+    order = "SDSD"  # cut from S D D S S D for the smoke's time
     ab = {"order": order, "direct_warmup": counted(direct_pass)}
     ab["passes"] = [{"path": k, **counted(serve_pass if k == "S" else direct_pass)}
                     for k in order]
@@ -2692,6 +2730,243 @@ def serve_phase(dev, params, api_res: dict) -> dict:
                        "allocated_freed_bytes": mem_before - mem_after,
                        "allocated_left_over_phase_start_bytes": mem_after - mem_start}
     del server, eng, handle, recorded
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# serve_disagg
+# ---------------------------------------------------------------------------
+
+
+def _disagg_replicas() -> dict:
+    """The serve_disagg phase's replica objects by class name (the
+    in-process runtime's actors are threads of this process)."""
+    from ray_tpu_torch.core import runtime as rt
+
+    out: dict = {}
+    for a in rt.get_runtime().gcs.list_actors():
+        inst = a.instance
+        if type(inst).__name__ == "Replica" and inst._callable is not None:
+            out.setdefault(type(inst._callable).__name__, []).append(inst._callable)
+    return out
+
+
+def _replica_pool(server):
+    """A disaggregated Serve replica as ``_pool_marks`` reads an engine of
+    the orchestrator: its engine and its loop thread's ``call``."""
+    import types
+
+    return types.SimpleNamespace(call=server._loop.call, engine=server.engine)
+
+
+def _disagg_serve_pass(handle, bodies, recorded: dict) -> dict:
+    """One pass of completions through the disaggregated app's ingress
+    handle, each on its own client thread, all started together: client
+    wall and tok/s (completion tokens / wall), TTFT at the prefill engine
+    (first token booked - arrival there)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    recorded.clear()
+
+    def post(body):
+        return handle.remote(ApiRequest("POST", "/v1/completions", body)).result(timeout_s=600)
+
+    torch.cuda.synchronize()
+    with ThreadPoolExecutor(len(bodies)) as pool:
+        t0 = time.perf_counter()
+        outs = [f.result() for f in [pool.submit(post, b) for b in bodies]]
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for o in outs:
+        if "choices" not in o:
+            raise AssertionError(f"serve_disagg: a request failed: {o}")
+        k, reason = o["usage"]["completion_tokens"], o["choices"][0]["finish_reason"]
+        if not (k == 32 or reason == "stop"):
+            raise AssertionError(f"serve_disagg: {k} tokens, finish {reason!r}, not 32 or a stop")
+    if len(recorded) != len(bodies):
+        raise AssertionError(f"serve_disagg: {len(recorded)} prefill requests for "
+                             f"{len(bodies)} sent")
+    tokens = sum(o["usage"]["completion_tokens"] for o in outs)
+    return {"wall_s": wall, "output_tokens": tokens, "output_tok_per_s": tokens / wall,
+            "finished_at_prefill": sum(o["usage"]["completion_tokens"] == 0
+                                       and o["choices"][0]["finish_reason"] == "stop"
+                                       for o in outs),
+            "mean_ttft_s": float(np.mean([r.t_first_token - r.arrival
+                                          for r in recorded.values()])),
+            "texts": [o["choices"][0]["text"] for o in outs]}
+
+
+def serve_disagg_phase(dev, params, api_res: dict) -> dict:
+    """LLAMA3_8B served by ``build_disagg_openai_app`` on the in-process
+    runtime: one prefill and one decode replica, each an engine over the api
+    phase's configuration plus the tiered cache (``kvtier={}``) and the
+    caller's weights (by reference), each stepped by its replica's loop
+    thread, handing KV over the device fabric (``connector="device"``: pages
+    gathered and sealed on the card, moved to the decode engine's cache
+    device by reference) behind an ingress that pins each decode wait to
+    its replica and routes by the app's prefix index. The api phase's 12
+    completions through the ingress handle, each on its own client thread:
+    a first pass (the kernels' counters zeroed just before and read after;
+    each engine's K3/K4 launches, eager and in replays, from its loop
+    thread's tally), a second pass, then the two requests on the 512-token
+    shared prefix again. Fails unless every completion has its 32 tokens or
+    a stop, K4 launched on the prefill engine and K3 on the decode engine,
+    all 12 first-pass handoffs went by the device plane with their pages on
+    the card and no stage through host memory, the ingress routed at least
+    one request by prefix, ``serve.status()`` tags the pools ``prefill`` and
+    ``decode``, both engines hold the caller's tensors, and after
+    ``serve.shutdown()`` both loops have exited and the card's allocated
+    memory fell by at least the two KV caches' bytes. Reports each pass's
+    TTFT (at the prefill engine) and tok/s, captures per engine, each
+    handoff's send ms, and the greedy streams against the api phase's (not
+    gated: another batch shape in bf16)."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import EngineConfig, LLMConfig
+    from ray_tpu_torch.models.llama import sorted_leaves
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from ray_tpu_torch.ops.ragged import ragged_attention_cuda
+    from ray_tpu_torch.serve import build_disagg_openai_app
+
+    t_phase = time.perf_counter()
+    ray_tpu_torch.init()
+    cfg = EngineConfig(model="llama3-8b", **ENGINE_KW, kvtier={})
+    tok = IdTextTokenizer(cfg.model.vocab_size)
+    cfg.eos_token_id = tok.eos_token_id  # as LLMServer sets it on its config
+    t0 = time.perf_counter()
+    handle = build_disagg_openai_app(
+        LLMConfig(model_id="llama3-8b", engine=cfg, params=params, tokenizer=tok,
+                  device=str(dev)),
+        num_prefill=1, num_decode=1, connector="device", name="llm-disagg",
+        route_prefix=None)
+    init_s = time.perf_counter() - t0
+    reps = _disagg_replicas()
+    (prefill,), (decode,) = reps["PrefillServer"], reps["DecodeServer"]
+    model = prefill.engine.config.model
+    res = {"phase": "serve_disagg", "model": "LLAMA3_8B (registry name llama3-8b)",
+           "dtype": "bfloat16", "layers": model.n_layers, "d_model": model.d_model,
+           "path": "DeploymentHandle -> DisaggIngress -> PrefillServer (engine loop: "
+                   "prefill, export on the card) -> device fabric -> DecodeServer (engine "
+                   "loop: import, decode) <- pinned wait_finish",
+           "app_init_s": init_s}
+    mine = sorted_leaves(params)
+    for name, srv in (("prefill", prefill), ("decode", decode)):
+        theirs = sorted_leaves(srv.engine.params)
+        if len(mine) != len(theirs) or any(a.data_ptr() != b.data_ptr()
+                                           for a, b in zip(mine, theirs)):
+            raise AssertionError(f"serve_disagg: the {name} engine's weights are not the "
+                                 "caller's tensors")
+    res["weights_by_reference"] = {"tensors": len(mine), "engines": 2, "same_data_ptr": True}
+    roles = {n: d.get("role") for a in serve.status()["applications"].values()
+             for n, d in a["deployments"].items()}
+    if roles.get("Prefill:llama3-8b") != "prefill" or roles.get("Decode:llama3-8b") != "decode":
+        raise AssertionError(f"serve_disagg: serve.status() roles {roles}")
+    res["roles"] = roles
+    endpoint = decode.connector.transport.endpoint_device(decode.index_key())
+    if endpoint != decode.engine.kv_cache_device():
+        raise AssertionError(f"serve_disagg: the device endpoint {endpoint} is not the "
+                             "decode cache's device")
+
+    bodies, _, _ = _api_traffic()
+    recorded = _record_requests(prefill.engine)
+    sends = _record_sends(prefill.connector)
+    sends["keep"] = True  # the first pass's handoffs, read after it
+
+    def captures(srv):
+        return sum(g.captures for g in _families(srv.engine))
+
+    # the main path: the counters zeroed just before the first pass, read
+    # just after (eager launches + those of graph replays, both engines)
+    paged_attention_cuda.launches = 0
+    ragged_attention_cuda.launches = 0
+    pools = {"prefill": _replica_pool(prefill), "decode": _replica_pool(decode)}
+    before = {r: _pool_marks(p) for r, p in pools.items()}
+    caps = {"prefill": captures(prefill), "decode": captures(decode)}
+    first = _disagg_serve_pass(handle, bodies, recorded)
+    per_engine = {r: _pool_launches(before[r], _pool_marks(p)) for r, p in pools.items()}
+    total = {n: f.launches + sum(g.launches.get(n, 0) - g.captured_launches.get(n, 0)
+                                 for srv in (prefill, decode) for g in _families(srv.engine))
+             for n, f in (("paged_attention", paged_attention_cuda),
+                          ("ragged_attention", ragged_attention_cuda))}
+    first["captures"] = {r: captures(srv) - caps[r]
+                         for r, srv in (("prefill", prefill), ("decode", decode))}
+    if per_engine["prefill"]["ragged_attention"]["device"] <= 0 or \
+            per_engine["decode"]["paged_attention"]["device"] <= 0 or min(total.values()) <= 0:
+        raise AssertionError(f"serve_disagg: K4 on the prefill engine and K3 on the decode "
+                             f"engine must launch: {per_engine}, total {total}")
+    res["kernel_launches"] = total
+    res["kernel_launches_per_engine"] = per_engine
+    hand = list(sends["sent"].values())
+    sends["keep"], sends["sent"] = False, {}
+    backends = {prefill.connector.name: len(hand)} if hand else {}
+    # a device handoff staged through host memory has a pin, d2h or h2d
+    # stage, pages off the card or a host checksum
+    staged = [h.request_id for h in hand
+              if any(k in h.timings for k in ("pin_ms", "d2h_ms", "h2d_ms"))
+              or h.k_pages.device.type != dev.type or h.checksum_kind != "device_u32"]
+    # a request whose first token is EOS finishes at its prefill: no handoff
+    at_prefill = first["finished_at_prefill"]
+    if backends != {"device": len(bodies) - at_prefill} or staged:
+        raise AssertionError(f"serve_disagg: first-pass handoffs {backends}, staged "
+                             f"through host memory: {staged}")
+    send_ms = [sends["send_ms"][h.request_id] for h in hand]
+    first["handoffs"] = {"backends": backends, "staged": 0, "finished_at_prefill": at_prefill,
+                         "bytes": sum(h.nbytes for h in hand),
+                         "send_ms": {"mean": float(np.mean(send_ms)), "min": min(send_ms),
+                                     "max": max(send_ms), "total": float(sum(send_ms))}}
+    texts = first.pop("texts")
+    want = api_res["first_texts"]
+    same = sum(texts[i] == want[i] for i in range(10))
+    first["greedy_streams_equal_api_phase"] = f"{same}/10"
+    res["first"] = first
+
+    caps = {"prefill": captures(prefill), "decode": captures(decode)}
+    second = _disagg_serve_pass(handle, bodies, recorded)
+    second["captures"] = {r: captures(srv) - caps[r]
+                          for r, srv in (("prefill", prefill), ("decode", decode))}
+    second["greedy_streams_equal_first_pass"] = (
+        f"{sum(a == b for a, b in zip(second.pop('texts')[:10], texts[:10]))}/10")
+    res["second"] = second
+    # the two requests on the 512-token shared prefix again: the app's index
+    # holds their chains on both engines by now
+    repeat = _disagg_serve_pass(handle, [bodies[0], bodies[11]], recorded)
+    repeat.pop("texts")
+    res["shared_prefix_repeat"] = repeat
+    stats = handle.stats.remote().result(timeout_s=60)
+    res["ingress_stats"] = {k: stats[k] for k in ("mode", "reprefills", "prefix_routed")}
+    if stats["prefix_routed"] < 1 or stats["reprefills"] != 0:
+        raise AssertionError(f"serve_disagg: ingress stats {res['ingress_stats']}")
+    res["handoffs_total"] = len(sends["send_ms"])
+
+    # shutdown: each replica's hook stops its loop and frees its engine's KV
+    # cache and graphs; the weights stay (they are the caller's)
+    kv_bytes = prefill.engine._kv_cache_nbytes + decode.engine._kv_cache_nbytes
+    threads = [prefill._loop.thread, decode._loop.thread]
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    serve.shutdown()
+    ray_tpu_torch.shutdown()
+    shutdown_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serve_disagg: an engine loop outlived serve.shutdown()")
+    if mem_before - mem_after < kv_bytes:
+        raise AssertionError(f"serve_disagg: shutdown freed {mem_before - mem_after} B of the "
+                             f"card, less than the two KV caches' {kv_bytes} B")
+    res["shutdown"] = {"seconds": shutdown_s, "kv_cache_bytes": kv_bytes,
+                       "allocated_freed_bytes": mem_before - mem_after}
+    del prefill, decode, reps, handle, recorded, sends, hand, pools
     torch.cuda.empty_cache()
     res["phase_s"] = time.perf_counter() - t_phase
     emit(res)
@@ -2802,7 +3077,8 @@ def data_phase(dev, params) -> dict:
     its engine and graphs built there; it is handed batches of 16 and 8 rows
     (``_stage_batches``). First a direct pass (LLMEngine.generate on the same
     batches, a fresh engine of the same configuration),
-    then the dataset and direct in turns (S D D S; the direct engine's prefix
+    then the dataset and direct in turns (S D, cut from S D D S for the
+    smoke's time; the direct engine's prefix
     cache dropped before each pass, so each does a fresh engine's work): rows/s,
     output tok/s, peak memory, the stage's construction and graph-capture
     seconds, and after each dataset pass the bytes freed once its pool was
@@ -2905,7 +3181,7 @@ def data_phase(dev, params) -> dict:
             raise AssertionError(f"data: a kernel of the path never launched: {launches}")
         res["kernel_launches"] = launches
         res["dataset_first"] = first
-        order = "SDDS"
+        order = "SD"  # cut from S D D S for the smoke's time
         res["order"] = order
         passes = []
         for k in order:
@@ -4176,10 +4452,11 @@ def spec_phase(dev, params) -> dict:
             "mean_ttft_s": float(np.mean([r.t_first_token - r.arrival for r in reqs.values()])),
             "spec": st, "kernel_launches": launches, "graphs": _pass_graphs(eng, pmarks),
         }
-        # the same requests again, warm and steady (the first pass pays the
-        # mixed and verify graphs' captures), each from an empty prefix cache
+        # the same requests again, warm (the first pass pays the mixed and
+        # verify graphs' captures), from an empty prefix cache; a third,
+        # "steady" pass was cut for the smoke's time
         first = [finals[f"{method[0]}{i}"] for i in range(8)]
-        for key, tag in (("warm", "w"), ("steady", "x")):
+        for key, tag in (("warm", "w"),):
             eng.allocator.drop_prefix_cache()
             pmarks = _pass_marks(eng)
             f, rq, w, _ = _serve(eng, prompts, [sp] * 8, method[0] + tag)
@@ -5605,6 +5882,159 @@ class ClusterServer8B:
         return out
 
 
+class ClusterLLMServer8B:
+    """The cluster phase's Serve leg: a deployment around LLMServer whose
+    replica builds LLAMA3_8B on its own card (``params_8b``, torch seed 0:
+    the seeded generator the phase's actor uses, so nothing 16 GB crosses
+    the store), over the engine phase's configuration plus the tiered cache,
+    which publishes its resident chains through the ``GcsPrefixIndex`` it is
+    given under a key of its own. The decode-chunk controller is held at its
+    initial length, as the phase's actor holds it, so the second pass meets
+    only buckets the first captured."""
+
+    def __init__(self, device: str, index):
+        import os
+
+        import torch
+
+        from ray_tpu_torch.llm import EngineConfig, LLMConfig, LLMServer, pipeline
+
+        pipeline.ChunkController.note_chunk = lambda self, *a, **k: None
+        entered = time.time()
+        dev = torch.device(device)
+        params, params_s = params_8b(dev)
+        cfg = EngineConfig(model="llama3-8b", **ENGINE_KW, kvtier={})
+        t0 = time.perf_counter()
+        self.server = LLMServer(LLMConfig(model_id="llama3-8b", engine=cfg, params=params,
+                                          tokenizer=IdTextTokenizer(cfg.model.vocab_size),
+                                          device=device))
+        self.key = f"serve-{os.environ.get('RAY_TPU_NODE_ID')}-{os.getpid()}"
+        eng = self.server.engine
+        self.server.runner.call(lambda: eng.kvtier.attach_index(index, engine_key=self.key))
+        torch.cuda.synchronize()
+        self.info_ = {"pid": os.getpid(), "node": os.environ.get("RAY_TPU_NODE_ID"),
+                      "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                      "cards_seen": torch.cuda.device_count(), "index_key": self.key,
+                      "entered": entered, "params_s": params_s,
+                      "server_init_s": time.perf_counter() - t0}
+
+    def info(self) -> dict:
+        return self.info_
+
+    async def completions(self, body: dict) -> dict:
+        return await self.server.completions(body)
+
+    def zero_counts(self) -> None:
+        from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+        from ray_tpu_torch.ops.ragged import ragged_attention_cuda
+
+        paged_attention_cuda.launches = 0
+        ragged_attention_cuda.launches = 0
+
+    def marks(self) -> dict:
+        eng = self.server.engine
+        return {"launches": self.server.runner.call(lambda: _launch_marks(eng)),
+                "captures": sum(g.captures for g in _families(eng))}
+
+    def flush(self) -> None:
+        eng = self.server.engine
+        self.server.runner.call(lambda: eng.kvtier.flush_index(force=True))
+
+    def shutdown(self) -> None:
+        self.server.shutdown()
+
+
+def _cluster_serve_leg(dev, bodies) -> dict:
+    """One replica of ``ClusterLLMServer8B`` with ``num_gpus=1`` on the
+    attached cluster: lease to ready, the 12 completions through the handle
+    from the driver, each on its own thread (a first pass, K3/K4 counted in
+    the replica, and a second), the GCS's prefix index after a flush, the
+    card's free bytes after ``serve.delete``. A cluster worker runs an
+    actor's calls one at a time (its per-actor FIFO lock, as the
+    reference's), so the replica serves the 12 one after another."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core import api as core_api
+    from ray_tpu_torch.llm.kvtier import GcsPrefixIndex, chain_hashes
+    from ray_tpu_torch.models.llama import LLAMA3_8B
+
+    out: dict = {}
+    gcs = core_api._cluster().client.gcs
+    index = GcsPrefixIndex(gcs, timeout_s=5)
+    free0 = torch.cuda.mem_get_info()[0]
+    dep = serve.deployment(ClusterLLMServer8B, name="LLMServer8B",
+                           ray_actor_options={"num_gpus": 1})
+    t0 = time.time()
+    handle = serve.run(dep.bind(dev.type, index), name="cluster-llm", route_prefix=None)
+    info = handle.info.remote().result(timeout_s=600)
+    info["lease_to_ready_s"] = time.time() - t0
+    info["submit_to_entry_s"] = info.pop("entered") - t0
+    out["replica"] = info
+    if info["node"] != "gpu" or info["visible"] != "0" or info["cards_seen"] != 1 \
+            or info["pid"] == os.getpid():
+        raise AssertionError(f"cluster serve: the replica is not a worker pinned to the gpu "
+                             f"node's card: {info}")
+
+    def serve_pass() -> dict:
+        def post(body):
+            return handle.completions.remote(body).result(timeout_s=600)
+
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            outs = [f.result() for f in [pool.submit(post, b) for b in bodies]]
+        wall = time.perf_counter() - t1
+        for o in outs:
+            k, reason = o["usage"]["completion_tokens"], o["choices"][0]["finish_reason"]
+            if not (k == 32 or reason == "stop"):
+                raise AssertionError(f"cluster serve: {k} tokens, finish {reason!r}")
+        tokens = sum(o["usage"]["completion_tokens"] for o in outs)
+        return {"wall_s": wall, "output_tokens": tokens, "output_tok_per_s": tokens / wall}
+
+    # the main path in the replica: its counters zeroed just before the
+    # first pass, read just after
+    handle.zero_counts.remote().result(timeout_s=60)
+    m0 = handle.marks.remote().result(timeout_s=60)
+    first = serve_pass()
+    m1 = handle.marks.remote().result(timeout_s=60)
+    first["kernel_launches"] = {n: m1["launches"][n] - m0["launches"][n] for n in m0["launches"]}
+    first["captures"] = m1["captures"] - m0["captures"]
+    if min(first["kernel_launches"].values()) <= 0:
+        raise AssertionError(f"cluster serve: a kernel never launched in the replica: {first}")
+    second = serve_pass()
+    m2 = handle.marks.remote().result(timeout_s=60)
+    second["captures"] = m2["captures"] - m1["captures"]
+    out["passes"] = [first, second]
+    out["kernel_launches"] = first["kernel_launches"]
+
+    # the GCS's prefix index after a flush: the replica's rows, and the
+    # 512-token shared prefix (bodies 0 and 11) under the replica's key
+    handle.flush.remote().result(timeout_s=60)
+    stats = gcs.call("kvtier_stats", None, timeout=10)
+    ids = IdTextTokenizer(LLAMA3_8B.vocab_size).encode(bodies[0]["prompt"])
+    hashes = chain_hashes(ids, ENGINE_KW["block_size"])[:512 // ENGINE_KW["block_size"]]
+    got = index.lookup(hashes)
+    held = (got or {}).get("engines", {}).get(info["index_key"], {})
+    out["gcs_index"] = {"stats": stats, "lookup_512": held, "num_dark": index.num_dark}
+    if stats["rows"] <= 0 or held.get("n_tokens", 0) < 512:
+        raise AssertionError(f"cluster serve: the GCS's prefix index: {out['gcs_index']}")
+
+    # delete the app: the replica's worker goes and the card's bytes come back
+    t1 = time.perf_counter()
+    serve.delete("cluster-llm")
+    free1, wait_s = _free_bytes_back(free0 - CLUSTER_FREE_SLACK)
+    out["delete"] = {"free_before": free0, "free_after": free1, "waited_s": wait_s,
+                     "s": time.perf_counter() - t1}
+    if free1 < free0 - CLUSTER_FREE_SLACK:
+        raise AssertionError(f"cluster serve: the card's free bytes {free1} not back within "
+                             f"64 MB of {free0} after serve.delete")
+    serve.shutdown()
+    return out
+
+
 def _bits_tensor(n: int, device: str):
     """A bf16 tensor of ``n`` elements whose bit patterns cover every int16
     (NaNs and infinities included): equal only bit for bit."""
@@ -5678,8 +6108,10 @@ def cluster_phase(dev, engine_first: dict) -> dict:
     engine phase's greedy streams on two passes, the actor killed and the
     card's memory back, a GPU worker's cold start through a daemon, a bf16
     CUDA tensor returned through the store bit for bit, the driver's
-    tensor pulled by the CPU node, a crashed GPU task retried, and nothing
-    of the cluster left after shutdown."""
+    tensor pulled by the CPU node, a crashed GPU task retried, Serve on the
+    cluster (``_cluster_serve_leg``: LLMServer in a ``num_gpus=1`` replica,
+    its tiered cache published into the GCS's prefix index), and nothing of
+    the cluster left after shutdown."""
     import hashlib
     import os
     import tempfile
@@ -5820,8 +6252,16 @@ def cluster_phase(dev, engine_first: dict) -> dict:
         res["crash_retry"] = retried
         if retried["retry_pid"] == retried["first_pid"] or retried["node"] != "gpu":
             raise AssertionError(f"cluster: the retry: {retried}")
+
+        # (6) Serve on the cluster: LLMServer in a num_gpus=1 replica, its
+        # tiered cache published into the GCS's prefix index
+        bodies, _, _ = _api_traffic()
+        res["serve"] = _cluster_serve_leg(dev, bodies)
         _no_torch_in(c.pids())  # the GCS and the daemons, after all of it
     finally:
+        from ray_tpu_torch import serve
+
+        serve.shutdown()
         ray_tpu_torch.shutdown()
         t0 = time.perf_counter()
         c.shutdown()
@@ -5831,6 +6271,7 @@ def cluster_phase(dev, engine_first: dict) -> dict:
     if left != {"processes": [], "store_files": []}:
         raise AssertionError(f"cluster: left after shutdown: {left}")
     res["kernel_launches"] = first
+    res["serve_kernel_launches"] = res["serve"]["kernel_launches"]
     res["phase_s"] = time.perf_counter() - t_phase
     emit(res)
     return res
@@ -6146,7 +6587,8 @@ def cluster_ha_phase(dev, engine_first: dict) -> dict:
 
 # ---------------------------------------------------------------------------
 
-PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "api", "serve", "data", "disagg",
+PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "api", "serve", "serve_disagg",
+          "data", "disagg",
           "kvtier", "parity", "spec", "fleet", "process", "cluster", "cluster_ha", "train",
           "data_feed", "publish", "train_parity")
 
@@ -6195,8 +6637,9 @@ def main(argv=None) -> int:
             and "engine" not in phases:
         ap.error("the lora, api, data, disagg, process, cluster and cluster_ha phases read the "
                  "engine phase's results: add engine")
-    if "serve" in phases and "api" not in phases:
-        ap.error("the serve phase reads the api phase's results: add engine,api")
+    if {"serve", "serve_disagg"} & set(phases) and "api" not in phases:
+        ap.error("the serve and serve_disagg phases read the api phase's results: add "
+                 "engine,api")
     if "publish" in phases and "train" not in phases:
         ap.error("the publish phase trains on from the train phase's state: add train")
     if not torch.cuda.is_available():
@@ -6224,13 +6667,14 @@ def main(argv=None) -> int:
         timings.update(kernels_phase(dev))
     if "flash_kernels" in phases:
         timings.update(flash_kernels_phase(dev))
-    params, params_s = (params_8b(dev) if {"engine", "spec", "api", "serve", "data", "disagg",
-                                            "kvtier", "fleet"} & set(phases) else (None, 0.0))
+    params, params_s = (params_8b(dev) if {"engine", "spec", "api", "serve", "serve_disagg",
+                                            "data", "disagg", "kvtier", "fleet"} & set(phases)
+                        else (None, 0.0))
     lora_launches, api_launches, disagg_launches, replayed = {}, {}, {}, {}
-    serve_launches, data_launches, feed_launches = {}, {}, {}
+    serve_launches, serve_disagg_launches, data_launches, feed_launches = {}, {}, {}, {}
     disagg_device_launches = {}
     kvtier_launches, fleet_launches, publish_launches, process_launches = {}, {}, {}, {}
-    cluster_launches, cluster_ha_launches = {}, {}
+    cluster_launches, cluster_serve_launches, cluster_ha_launches = {}, {}, {}
     if "engine" in phases:
         engine_res = engine_phase(dev, params, params_s)
         engine_first = engine_res["first_pass_tokens"]  # a few KB, for the process phase
@@ -6243,6 +6687,8 @@ def main(argv=None) -> int:
         api_launches = api_res["kernel_launches"]
     if "serve" in phases:
         serve_launches = serve_phase(dev, params, api_res)["kernel_launches"]
+    if "serve_disagg" in phases:
+        serve_disagg_launches = serve_disagg_phase(dev, params, api_res)["kernel_launches"]
     if "api" in phases:
         del api_res
     if "data" in phases:
@@ -6267,7 +6713,9 @@ def main(argv=None) -> int:
     if "process" in phases:
         process_launches = process_phase(dev, engine_first)["kernel_launches"]
     if "cluster" in phases:
-        cluster_launches = cluster_phase(dev, engine_first)["kernel_launches"]
+        cluster_res = cluster_phase(dev, engine_first)
+        cluster_launches = cluster_res["kernel_launches"]
+        cluster_serve_launches = cluster_res["serve_kernel_launches"]
     if "cluster_ha" in phases:
         cluster_ha_launches = cluster_ha_phase(dev, engine_first)["kernel_launches"]
     if "train" in phases:
@@ -6293,6 +6741,8 @@ def main(argv=None) -> int:
             **({"launches_lora_phase": lora_launches[name]} if name in lora_launches else {}),
             **({"launches_api_phase": api_launches[name]} if name in api_launches else {}),
             **({"launches_serve_phase": serve_launches[name]} if name in serve_launches else {}),
+            **({"launches_serve_disagg_phase": serve_disagg_launches[name]}
+               if name in serve_disagg_launches else {}),
             **({"launches_data_phase": data_launches[name]} if name in data_launches else {}),
             **({"launches_data_feed_phase": feed_launches[name]} if name in feed_launches else {}),
             **({"launches_disagg_phase": disagg_launches[name]}
@@ -6307,6 +6757,8 @@ def main(argv=None) -> int:
                if name in process_launches else {}),
             **({"launches_cluster_phase": cluster_launches[name]}
                if name in cluster_launches else {}),
+            **({"launches_cluster_phase_serve": cluster_serve_launches[name]}
+               if name in cluster_serve_launches else {}),
             **({"launches_cluster_ha_phase": cluster_ha_launches[name]}
                if name in cluster_ha_launches else {}),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],

@@ -10,10 +10,9 @@ owns the card; this package is the cross-process / cross-host tier, and
 holds it. The GCS may run with a warm standby that promotes when the
 primary dies (``cluster/ha.py``, ``LocalCluster(standby=True)``), and it
 aggregates the cluster's telemetry (``obs/telemetry.py``). Also here: the
-KV prefix index table and the frame RPC under the transfer planes.
-
-Not ported yet (ROADMAP.md Queue 1, item 6, part 3c): Serve, the datasets'
-locality, the GCS prefix index and ``build_fabric`` on the cluster.
+KV prefix index table the GCS hosts and the frame RPC under the transfer
+planes. Serve, Datasets (with their exchanges' merges placed on the nodes
+that hold the data) and ``fabric.build_fabric`` run on it unchanged.
 """
 
 import importlib

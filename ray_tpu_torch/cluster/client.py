@@ -22,9 +22,7 @@ Queue 1, item 6, part 6). Left out: the reference's client-side lease
 cache (``RAY_TPU_LEASE_CACHE_TTL``, off by default there and measured
 slower than the daemon's queue): a lease is released when its task ends.
 Given a primary GCS and its standby (``ClusterClient(((h1, p1), (h2, p2)),
-daemon)``), the GCS client follows the primary across a failover. The KV
-prefix index's queries (``kvtier_*``) wait for part 3c: the GCS raises for
-them.
+daemon)``), the GCS client follows the primary across a failover.
 """
 
 from __future__ import annotations

@@ -22,14 +22,14 @@ bumped fencing term, and ``ha_fence`` / ``ha_term`` are the hooks through
 which ``RpcServer`` fences a deposed primary. The telemetry store
 (``obs/telemetry.py``) takes heartbeat piggybacks, ``telemetry_push`` and
 the coalesced ``heartbeat_batch`` frame, and answers the ``telemetry_*``
-queries and ``ha_status``.
+queries and ``ha_status``. The cluster-level KV prefix index
+(``cluster/prefix_index.py``) answers ``kvtier_update`` / ``kvtier_lookup``
+/ ``kvtier_drop`` / ``kvtier_stats``.
 
-A copy of ``ray_tpu/cluster/gcs_service.py`` without what later parts of
-ROADMAP.md Queue 1, item 6 bring; each of those RPCs raises
-``NotImplementedError`` naming its part: the KV prefix index
-(``kvtier_*``) waits for part 3c, and the autoscaler's inputs
-(``autoscale_signals``, ``cluster_demand``) for part 8. This process
-never imports torch.
+A copy of ``ray_tpu/cluster/gcs_service.py`` without what a later part of
+ROADMAP.md Queue 1, item 6 brings: the autoscaler's inputs
+(``autoscale_signals``, ``cluster_demand``) raise ``NotImplementedError``
+naming part 8. This process never imports torch.
 """
 
 from __future__ import annotations
@@ -55,7 +55,6 @@ from ray_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("ray_tpu_torch.cluster.gcs")
 
-PART_3C = "ROADMAP.md Queue 1, item 6, part 3c"
 PART_8 = "ROADMAP.md Queue 1, item 6, part 8"
 
 
@@ -221,6 +220,18 @@ class GcsService:
         # metrics are a freshness surface, repopulated within one
         # reporting interval of a restart or a failover.
         self.telemetry = TelemetryStore()
+        # cluster-level KV prefix index (llm/kvtier): chain hash ->
+        # {engine, tier, n_tokens}, fed by engine snapshots over
+        # kvtier_update and consumed by prefix-aware routing. Like the
+        # telemetry store it is deliberately NOT persisted and not
+        # replicated to a standby: a restarted or promoted GCS repopulates
+        # within one flush interval, and routers fall back to the
+        # queue-depth ladder until it does. (The store lives in
+        # cluster/prefix_index.py so the control plane never imports the
+        # serving stack.)
+        from ray_tpu_torch.cluster.prefix_index import PrefixIndexStore
+
+        self.prefix_index = PrefixIndexStore()
         if persist_path:
             self._load_snapshot()
 
@@ -1043,6 +1054,7 @@ class GcsService:
         out.update(self.telemetry.status_payload(th))
         out["gcs_ft"] = self.rpc_gcs_ft(None, peer)
         out["gcs_ha"] = self.rpc_ha_status(None, peer)
+        out["kvtier_index"] = self.prefix_index.stats()
         return out
 
     def rpc_autoscale_signals(self, payload, peer):
@@ -1051,19 +1063,29 @@ class GcsService:
     def rpc_cluster_demand(self, payload, peer):
         _unported("cluster demand (cluster_demand)", PART_8)
 
-    # -- KV prefix index (part 3c) --------------------------------------------
+    # -- KV prefix index ------------------------------------------------------
 
     def rpc_kvtier_update(self, payload, peer):
-        _unported("KV prefix index (kvtier_update)", PART_3C)
+        """One engine's prefix-index snapshot (epoch-banked, seq-guarded:
+        stale or replayed snapshots are dropped, never merged)."""
+        return self.prefix_index.update(payload)
 
     def rpc_kvtier_lookup(self, payload, peer):
-        _unported("KV prefix index (kvtier_lookup)", PART_3C)
+        """Longest indexed prefix per engine over the request's chain
+        hashes: the prefix-aware routing signal. Engines with stale
+        snapshots are omitted: a router seeing nothing falls back to
+        its queue-depth/p2c ladder."""
+        return self.prefix_index.lookup((payload or {}).get("hashes", []))
 
     def rpc_kvtier_drop(self, payload, peer):
-        _unported("KV prefix index (kvtier_drop)", PART_3C)
+        """Remove one engine's rows outright (orderly teardown). A
+        crashed engine that never calls this is reaped by the store's
+        expire horizon instead."""
+        self.prefix_index.drop_engine(str((payload or {}).get("engine", "")))
+        return {"ok": True}
 
     def rpc_kvtier_stats(self, payload, peer):
-        _unported("KV prefix index (kvtier_stats)", PART_3C)
+        return self.prefix_index.stats()
 
     def rpc_gcs_ft(self, payload, peer):
         """Control-plane FT counters: restarts and reconcile deltas, and the

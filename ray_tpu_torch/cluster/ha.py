@@ -17,8 +17,8 @@ a GCS restarted from its snapshot (nodes as reconcile claims, actors
 pending confirmation, the shared sweeper loop), so what the log missed
 converges through reconciliation.
 
-Not replicated, on purpose: telemetry, the object directory (and the KV
-prefix index, part 3c): freshness surfaces the cluster repopulates within
+Not replicated, on purpose: telemetry, the object directory and the KV
+prefix index: freshness surfaces the cluster repopulates within
 one reporting or heartbeat interval of a failover. During the promotion
 window clients see refused dials or ``NotPrimaryError`` and ride them out
 with the multi-endpoint client's bounded failover.

@@ -3,9 +3,9 @@
 from the JAX package).
 
 The control-plane half of ``ray_tpu_torch.llm.kvtier``: tier codes and the
-table itself. Only the in-process store is ported; the GCS's
-``kvtier_update`` / ``kvtier_lookup`` / ``kvtier_drop`` RPCs that host it
-in a cluster wait for the cluster runtime (ROADMAP.md Queue 1, B8).
+table itself, hosted in-process (``LocalPrefixIndex``) or by the GCS behind
+its ``kvtier_update`` / ``kvtier_lookup`` / ``kvtier_drop`` /
+``kvtier_stats`` RPCs.
 
 Staleness discipline (the telemetry plane's): engines ship FULL
 snapshots stamped (epoch, seq). A replayed or out-of-order snapshot is

@@ -11,8 +11,8 @@ pool topology (counterpart of ``ray_tpu/fabric``).
  * **topology / pool**: role-tagged pools pinned to slices, which pool
    pairs share a device mesh, and per-edge transport selection (device
    where meshes are shared, RPC elsewhere, a fault degrades the edge to
-   its RPC fallback). ``build_fabric`` (placement groups) waits for the
-   cluster runtime (ROADMAP.md, Queue 1, B8).
+   its RPC fallback). ``build_fabric`` reserves each pool as a
+   STRICT_PACK placement group on its slice, all or nothing.
 
 Clients: the ``DisaggOrchestrator`` (per-edge device or RPC KV transfer),
 the fetch plane's ``DeviceFetchClient``, and weight publishing

@@ -8,9 +8,13 @@ were linked (one peer-to-peer domain) get device edges, every other pair
 RPC. That is what an in-process orchestrator consumes, where pools are
 engine lists.
 
-``build_fabric``, which reserves one placement group per pool through the
-cluster runtime, is not ported: the port has no cluster runtime yet
-(ROADMAP.md, Queue 1, B8), and it raises NotImplementedError naming it.
+``build_fabric`` also reserves **one placement group per pool** whose
+bundles all carry the pool's slice resource (``slice:<id>``, a custom
+resource each node advertises for the slice its hosts belong to),
+STRICT_PACK so the whole pool lands inside one slice's host group. It runs
+on the in-process runtime (``ray_tpu_torch.init(resources={"slice:s0":
+...})``) and on a cluster whose nodes advertise ``slice:`` resources, with
+the same placement code.
 """
 
 from __future__ import annotations
@@ -19,6 +23,9 @@ import dataclasses
 from typing import Optional
 
 from ray_tpu_torch.fabric.topology import FabricTopology
+from ray_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("ray_tpu_torch.fabric.pool")
 
 
 def slice_resource(slice_id: str) -> str:
@@ -65,6 +72,16 @@ class FabricPlan:
                                  for name, pg in self.groups.items()},
         }
 
+    def remove(self) -> None:
+        import ray_tpu_torch
+
+        for pg in self.groups.values():
+            try:
+                ray_tpu_torch.remove_placement_group(pg)
+            except Exception:  # noqa: BLE001 — best-effort teardown
+                logger.exception("failed to remove fabric placement group")
+        self.groups.clear()
+
 
 def build_topology(specs: list, links: Optional[list] = None) -> FabricTopology:
     """The topology alone, without reservations: what the in-process
@@ -79,9 +96,29 @@ def build_topology(specs: list, links: Optional[list] = None) -> FabricTopology:
 
 def build_fabric(specs: list, links: Optional[list] = None,
                  ready_timeout_s: float = 30.0) -> FabricPlan:
-    """Reserving placement groups needs the cluster runtime: not ported."""
-    raise NotImplementedError(
-        "build_fabric reserves placement groups through the cluster runtime, which is not "
-        "ported to ray_tpu_torch yet (ROADMAP.md, Queue 1, B8); build_topology gives the "
-        "topology alone"
-    )
+    """Reserve one STRICT_PACK placement group per pool (bundles pinned to
+    the pool's slice resource) and return the plan. Raises
+    ``PlacementGroupUnavailableError`` when a pool's slice can't hold it:
+    a fabric that silently half-places would hand the transfer plane a
+    topology describing pools that don't exist."""
+    import ray_tpu_torch
+    from ray_tpu_torch.core.errors import PlacementGroupUnavailableError
+
+    topo = build_topology(specs, links)
+    plan = FabricPlan(topology=topo, specs=list(specs))
+    try:
+        for spec in specs:
+            pg = ray_tpu_torch.placement_group(spec.bundles(), strategy="STRICT_PACK",
+                                               name=f"fabric-{spec.name}")
+            plan.groups[spec.name] = pg
+            # ready() raises only for INFEASIBLE/REMOVED and returns False
+            # for a group still PENDING at the deadline: a transiently full
+            # slice must fail the fabric too
+            if not pg.ready(timeout=ready_timeout_s):
+                raise PlacementGroupUnavailableError(
+                    f"fabric pool {spec.name!r} still PENDING on slice "
+                    f"{spec.slice_id!r} after {ready_timeout_s}s")
+    except BaseException:
+        plan.remove()  # all-or-nothing: no half-reserved fabric
+        raise
+    return plan

@@ -16,8 +16,8 @@ CRC-sealed with the ``KVHandoff`` seal, so a corrupt copy fails
 A prefix index (``LocalPrefixIndex``, in-process) maps chain hashes to
 {engine, tier, n_tokens} so the disaggregated orchestrator routes each
 request to the engine holding its longest prefix, tier-discounted, falling
-back to its queue-depth ladder when the index holds nothing. The GCS-hosted
-index waits for the cluster runtime (ROADMAP.md Queue 1, B8).
+back to its queue-depth ladder when the index holds nothing. On a cluster,
+``GcsPrefixIndex`` reads and writes the same table hosted by the GCS.
 """
 
 from ray_tpu_torch.llm.kvtier.config import TIER_HBM, TIER_HOST, TIER_OBJECT, KVTierConfig

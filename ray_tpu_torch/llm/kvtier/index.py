@@ -6,8 +6,13 @@
  * ``LocalPrefixIndex`` — the in-process store: same update/lookup
    contract, shared through a process-global namespace registry so the
    engines of one orchestrator meet on it.
- * ``GcsPrefixIndex`` — the reference's RPC client over the GCS; it waits
-   for the cluster runtime (ROADMAP.md Queue 1, B8) and raises naming it.
+ * ``GcsPrefixIndex`` — the RPC client over the GCS's ``kvtier_*`` RPCs
+   that routers use. Every call is bounded and failure-swallowed: a dark
+   or stalled GCS (STALL_GCS chaos) makes ``lookup`` return None ("no
+   information"), so the caller's p2c/queue-depth ladder takes over with
+   no hang and no wrong-replica pin. Like the reference's, the GCS-side
+   table is not persisted and not replicated to a standby: a restarted or
+   promoted GCS repopulates within one flush interval.
 
 ``best_prefix_replica`` is the routing pick over a lookup: tier-discounted,
 bounded by depth slack, with the fetch-cost discount.
@@ -57,15 +62,55 @@ def get_local_index(namespace: str) -> LocalPrefixIndex:
 
 
 class GcsPrefixIndex:
-    """The reference's RPC-backed index client (a GCS over the cluster RPC
-    plane): not ported, it waits for the cluster runtime."""
+    """RPC-backed index client. ``gcs`` is a ReconnectingRpcClient (its
+    ``gcs.call`` hook is where STALL_GCS chaos injects): every call here is
+    bounded by ``timeout_s`` and failure-swallowed, so a control-plane
+    blackout costs routing FRESHNESS, never liveness."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "GcsPrefixIndex: the GCS prefix-index RPCs are not ported to "
-            "ray_tpu_torch yet (the cluster runtime, ROADMAP.md Queue 1, B8); "
-            "use get_local_index(namespace)"
-        )
+    def __init__(self, gcs: Any, timeout_s: float = 2.0):
+        self._gcs = gcs
+        self.timeout_s = timeout_s
+        self.num_dark = 0  # calls answered by a dark/stalled index
+
+    # A copy that crosses to another process (a Serve replica's constructor
+    # argument on a cluster) carries the GCS's endpoints and dials them
+    # there at its first call: a connection does not travel.
+    def __getstate__(self):
+        return {"endpoints": tuple(self._gcs.endpoints), "timeout_s": self.timeout_s}
+
+    def __setstate__(self, state):
+        from ray_tpu_torch.cluster.rpc import ReconnectingRpcClient
+
+        self._gcs = ReconnectingRpcClient(*state["endpoints"], timeout=state["timeout_s"])
+        self.timeout_s = state["timeout_s"]
+        self.num_dark = 0
+
+    def update(self, payload: dict) -> bool:
+        try:
+            got = self._gcs.call("kvtier_update", payload, timeout=self.timeout_s)
+            return bool(got and got.get("ok"))
+        except Exception:  # noqa: BLE001 — the next snapshot supersedes
+            self.num_dark += 1
+            return False
+
+    def lookup(self, hashes: list) -> Optional[dict]:
+        try:
+            return self._gcs.call("kvtier_lookup", {"hashes": list(hashes)},
+                                  timeout=self.timeout_s)
+        except Exception:  # noqa: BLE001 — dark index = no information
+            self.num_dark += 1
+            return None
+
+    def drop_engine(self, engine: str) -> bool:
+        """Orderly removal via the dedicated RPC, never by publishing a
+        poisoned epoch, which would block a restarted engine reusing the
+        key from ever registering again."""
+        try:
+            self._gcs.call("kvtier_drop", {"engine": engine}, timeout=self.timeout_s)
+            return True
+        except Exception:  # noqa: BLE001
+            self.num_dark += 1
+            return False
 
 
 def best_prefix_replica(

@@ -290,10 +290,7 @@ def _drop_routers() -> None:
 
 class DeploymentHandle:
     """Client-side handle to a deployment; cheap to copy; safe to pass into
-    other deployments' constructors (model composition). The reference's
-    ``pin_replica`` / ``prefer_replica`` options (KV-affinity routing for
-    ``serve/disagg.py``) wait with disaggregated Serve (ROADMAP.md Queue 1,
-    item 6, a later part)."""
+    other deployments' constructors (model composition)."""
 
     def __init__(
         self,
@@ -302,6 +299,8 @@ class DeploymentHandle:
         method_name: Optional[str] = None,
         streaming: bool = False,
         system_retries: int = 2,
+        pin_replica: Optional[str] = None,
+        prefer_replica: Optional[str] = None,
     ):
         self.deployment_name = deployment_name
         self.app_name = app_name
@@ -311,6 +310,15 @@ class DeploymentHandle:
         # REPLICA death (user errors never retry). 0 opts a non-idempotent
         # endpoint out via .options(system_retries=0).
         self._system_retries = system_retries
+        # replica pin (KV affinity): route to exactly this replica or
+        # raise ReplicaPinError; pinned calls never failover-retry, the
+        # state they target died with the replica
+        self._pin_replica = pin_replica
+        # soft prefix affinity (prefix-aware routing): PREFER this replica
+        # (it already holds the request's KV prefix in some tier) but fall
+        # back to p2c when it is dead, suspected, or overloaded; unlike a
+        # pin, a stale hint can never fail a call
+        self._prefer_replica = prefer_replica
 
     # Handles carry no live state (the router is process-local, looked up
     # on each dispatch), so pickling is trivially safe.
@@ -321,11 +329,15 @@ class DeploymentHandle:
             "_method_name": self._method_name,
             "_streaming": self._streaming,
             "_system_retries": self._system_retries,
+            "_pin_replica": self._pin_replica,
+            "_prefer_replica": self._prefer_replica,
         }
 
     def __setstate__(self, state):
         self.__dict__.update(state)
         self.__dict__.setdefault("_system_retries", 2)
+        self.__dict__.setdefault("_pin_replica", None)
+        self.__dict__.setdefault("_prefer_replica", None)
 
     def _get_router(self) -> Router:
         return _shared_router(self.app_name, self.deployment_name)
@@ -336,6 +348,8 @@ class DeploymentHandle:
         method_name: Optional[str] = None,
         stream: Optional[bool] = None,
         system_retries: Optional[int] = None,
+        pin_replica: Optional[str] = None,
+        prefer_replica: Optional[str] = None,
         use_new_handle_api: bool = True,  # accepted for reference parity
     ) -> "DeploymentHandle":
         return DeploymentHandle(
@@ -344,6 +358,8 @@ class DeploymentHandle:
             method_name if method_name is not None else self._method_name,
             stream if stream is not None else self._streaming,
             self._system_retries if system_retries is None else system_retries,
+            pin_replica if pin_replica is not None else self._pin_replica,
+            prefer_replica if prefer_replica is not None else self._prefer_replica,
         )
 
     def __getattr__(self, name: str):
@@ -374,17 +390,21 @@ class DeploymentHandle:
             with trace_context.use(child):
                 rid, ref = router.dispatch(
                     self._method_name, args, kwargs, self._streaming,
+                    pin=self._pin_replica, prefer=self._prefer_replica,
                 )
         else:
             rid, ref = router.dispatch(
                 self._method_name, args, kwargs, self._streaming,
+                pin=self._pin_replica, prefer=self._prefer_replica,
             )
         if self._streaming:
             # streaming calls never auto-retry: items may already have
             # been consumed (not idempotent to replay)
             return DeploymentResponseGenerator(router, rid, ref, span_info)
+        # pinned calls never failover-retry either: the replica-resident
+        # state they target (an imported KV sequence) died with the pin
         retry = (
             (self._method_name, args, kwargs, self._system_retries)
-            if self._system_retries > 0 else None
+            if self._system_retries > 0 and self._pin_replica is None else None
         )
         return DeploymentResponse(router, rid, ref, span_info, retry=retry)

@@ -22,6 +22,14 @@ class BackpressureError(Exception):
     serve._private.router queue-length backpressure)."""
 
 
+class ReplicaPinError(Exception):
+    """A pinned dispatch's target replica is gone (dead, evicted, or
+    replaced). Pinning exists for replica-resident state (a KV handoff
+    imported on ONE decode replica), so the router must fail loudly
+    instead of silently re-homing the call onto a replica that doesn't
+    hold the state (disaggregated serving re-prefills on this error)."""
+
+
 class Router:
     def __init__(
         self,
@@ -129,19 +137,29 @@ class Router:
 
     # -- scheduling -----------------------------------------------------------
 
-    def _pick(self, exclude: Optional[set] = None):
+    # prefix-affinity slack: a preferred (cache-holding) replica is only
+    # honored while its in-flight count is within this many requests of
+    # the least-loaded candidate — affinity must not overload one replica
+    PREFER_SLACK = 4
+
+    def _pick(self, exclude: Optional[set] = None, prefer: Optional[str] = None):
         """Power-of-two-choices on local in-flight counts. ``exclude``
         (failover retries) removes replicas this request already died on,
-        falling back to them only when nothing else exists."""
+        falling back to them only when nothing else exists. ``prefer`` is
+        a SOFT affinity hint (prefix-aware routing: that replica already
+        holds this request's KV prefix): honored only when the replica is
+        live, un-suspected, not excluded, and not overloaded past
+        PREFER_SLACK; in every other case the normal ladder decides, so a
+        stale hint can never pin a request onto a corpse."""
         now = time.time()
         with self._lock:
             for rid in [r for r, t in self._suspect.items() if t <= now]:
                 del self._suspect[rid]
             suspects = set(self._suspect)
             replicas = list(self._replicas)
-            # p2c reads its two counts from this snapshot: a heuristic, so a
-            # count that moves before the pick skews one pick, never the
-            # accounting (increments and decrements stay under _lock)
+            # p2c and the prefer check read their counts from this
+            # snapshot: one instant, so the overload check compares counts
+            # taken together (increments and decrements stay under _lock)
             inflight = dict(self._inflight)
 
         def _avoiding(pool):
@@ -163,6 +181,12 @@ class Router:
                 replicas = list(self._replicas)
                 inflight = dict(self._inflight)
             replicas = _avoiding(replicas)
+        if prefer is not None and len(replicas) > 1:
+            preferred = next((r for r in replicas if r[0] == prefer), None)
+            if preferred is not None:
+                counts = [inflight.get(r[0], 0) for r in replicas]
+                if inflight.get(prefer, 0) <= min(counts) + self.PREFER_SLACK:
+                    return preferred
         if len(replicas) == 1:
             return replicas[0]
         a, b = random.sample(replicas, 2)
@@ -170,10 +194,42 @@ class Router:
         nb = inflight.get(b[0], 0)
         return a if na <= nb else b
 
+    def replica_ids(self, refresh: bool = True) -> list[str]:
+        """Current running replica ids (pool enumeration for pool-aware
+        callers, e.g. disaggregated serving discovering decode targets)."""
+        if refresh:
+            self._refresh()
+        with self._lock:
+            return [rid for rid, _, _ in self._replicas]
+
+    def _pick_pinned(self, pin: str):
+        """Hard replica pin: the request must land on ``pin`` (it holds
+        replica-resident state) or fail with ReplicaPinError, suspects
+        included, p2c skipped. One blocking refresh covers the window
+        where the controller just replaced the set."""
+        for attempt in range(2):
+            with self._lock:
+                for r in self._replicas:
+                    if r[0] == pin:
+                        return r
+            if attempt == 0:
+                self._refresh(block=True)
+        raise ReplicaPinError(
+            f"replica {pin!r} of {self._app}/{self._deployment} is gone; "
+            "its replica-resident state died with it"
+        )
+
     def dispatch(self, method_name: Optional[str], args, kwargs, streaming: bool,
-                 exclude: Optional[set] = None):
-        """Route one request by power-of-two-choices; returns (replica_id,
-        ObjectRef-or-generator).
+                 exclude: Optional[set] = None, pin: Optional[str] = None,
+                 prefer: Optional[str] = None):
+        """Route one request; returns (replica_id, ObjectRef-or-generator).
+
+        ``pin`` routes to exactly that replica (replica-resident state: a
+        transferred KV sequence lives on ONE decode replica) or raises
+        ReplicaPinError; ``prefer`` is the soft prefix-affinity variant,
+        honored when healthy and not overloaded and silently ignored
+        otherwise (a dark/stale prefix index degrades to plain p2c, it
+        never mis-pins); otherwise power-of-two-choices picks.
 
         The dispatch wall-clock (refresh + pick + submit: the router's own
         contribution to request latency) lands in the
@@ -194,7 +250,10 @@ class Router:
                 f"deployment {self._app}/{self._deployment}: "
                 f"max_queued_requests={self._max_queued} exceeded"
             )
-        rid, handle, _max_ongoing = self._pick(exclude)
+        if pin is not None:
+            rid, handle, _max_ongoing = self._pick_pinned(pin)
+        else:
+            rid, handle, _max_ongoing = self._pick(exclude, prefer=prefer)
         with self._lock:
             self._inflight[rid] = self._inflight.get(rid, 0) + 1
         try:

@@ -1775,6 +1775,75 @@ def test_openai_app_on_card_serves_the_callers_weights():
     assert over_http["choices"][0]["text"] == alone["choices"][0]["text"]
 
 
+def test_serve_disagg_app_on_card_matches_colocated():
+    """build_disagg_openai_app on the card (fp32, a small model of head_dim
+    64, one prefill and one decode replica, KV over the device fabric): the
+    completions' text equals the colocated LLMServer's on the card and on
+    the CPU, every handoff went by the device plane, the pools are
+    role-tagged, and shutdown stops both engine loops."""
+    _need_cuda()
+    import asyncio
+    import dataclasses
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import EngineConfig, LLMConfig, LLMServer
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_tpu_torch.serve import build_disagg_openai_app
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = LlamaConfig(**GRAPH_MODEL, dtype=torch.float32)
+    params = init_params(model, torch.Generator().manual_seed(0), device="cpu")
+    on_card = {k: (v.cuda() if torch.is_tensor(v) else {n: t.cuda() for n, t in v.items()})
+               for k, v in params.items()}
+    cfg = EngineConfig(model=model, num_blocks=64, block_size=4, max_num_seqs=4,
+                       max_prefill_len=64)
+    tok = _IdText(model.vocab_size)
+    bodies = [{"prompt": p, "max_tokens": 12, "temperature": 0.0}
+              for p in ("serve disagg on the card", "a second prompt, longer than the first",
+                        "x" * 40)]
+
+    class _Req:
+        method, path = "POST", "/v1/completions"
+
+        def __init__(self, body):
+            self.body = body
+
+        def json(self):
+            return self.body
+
+    colocated = {}
+    for dev, p in (("cpu", params), ("cuda", on_card)):
+        srv = LLMServer(LLMConfig(model_id="m", engine=dataclasses.replace(cfg), params=p,
+                                  tokenizer=tok, device=dev))
+        try:
+            colocated[dev] = [asyncio.run(srv(_Req(b)))["choices"][0]["text"] for b in bodies]
+        finally:
+            srv.shutdown()
+    ray_tpu_torch.init()
+    try:
+        dcfg = dataclasses.replace(cfg, eos_token_id=tok.eos_token_id)
+        handle = build_disagg_openai_app(
+            LLMConfig(model_id="m", engine=dcfg, params=on_card, tokenizer=tok),
+            connector="device", name="card-disagg", route_prefix=None)
+        got = [handle.remote(_Req(b)).result(timeout_s=120)["choices"][0]["text"]
+               for b in bodies]
+        stats = handle.stats.remote().result(timeout_s=60)
+        roles = {n: d.get("role") for a in serve.status()["applications"].values()
+                 for n, d in a["deployments"].items()}
+        reps = {type(r).__name__: r for r in _replica_servers()}
+        loops = [reps["PrefillServer"]._loop.thread, reps["DecodeServer"]._loop.thread]
+        conn = reps["PrefillServer"].connector.stats()
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+    assert got == colocated["cuda"] == colocated["cpu"]
+    assert stats["reprefills"] == 0 and roles["Prefill:m"] == "prefill"
+    assert roles["Decode:m"] == "decode"
+    assert conn["connector"] == "device" and conn["num_sent"] == len(bodies)
+    assert not any(t.is_alive() for t in loops)
+
+
 def test_serve_shutdown_frees_the_kv_cache_on_card():
     """serve.shutdown() returns after the replica's shutdown hook: the
     engine loop has exited and the card's allocated memory fell by at least

@@ -38,6 +38,7 @@ from ray_tpu.llm.sampling import SamplingParams as JSamplingParams
 from ray_tpu.models import llama as jllama
 from ray_tpu.obs import slo as jslo
 from ray_tpu.serve.proxy import Request as HttpRequest
+import ray_tpu_torch
 from ray_tpu_torch import chaos, obs
 from ray_tpu_torch.fabric import (
     DeviceKVConnector,
@@ -330,8 +331,18 @@ def test_refusals_name_their_roadmap_items(weights, exported):
     topo = FabricTopology().add_pool("prefill", "prefill", "s0").add_pool("decode", "decode", "s0")
     cfg = DisaggConfig(engine=_cfg(), connector="device", fabric=topo.to_dict())
     assert FabricTopology.from_dict(cfg.fabric).edge_backend("prefill", "decode") == "device"
-    with pytest.raises(NotImplementedError, match="B8"):
-        build_fabric([SlicePoolSpec("prefill", "prefill", "s0")])
+    # build_fabric reserves its pools through the runtime it runs on
+    from ray_tpu_torch.core import runtime as trt
+
+    if trt.is_initialized():
+        trt.shutdown_runtime()
+    ray_tpu_torch.init(num_cpus=2, resources={"slice:s0": 1})
+    try:
+        plan = build_fabric([SlicePoolSpec("prefill", "prefill", "s0")])
+        assert set(plan.groups) == {"prefill"} and plan.describe()["pools"]
+        plan.remove()
+    finally:
+        trt.shutdown_runtime()
     with pytest.raises(ValueError, match="unknown KV connector"):
         DisaggConfig(engine=_cfg(), connector="carrier-pigeon")
     # the tiered cache is ported: an engine config with it builds

@@ -273,14 +273,17 @@ def test_propagated_schedule_rides_the_ports_own_variable(monkeypatch):
 
 
 def test_status_payload_lacks_the_prefix_index_until_part_3c():
-    """Pinned divergence: the reference's ``telemetry_status`` carries
-    ``kvtier_index`` (its GCS prefix index); the port's GCS has none until
-    ROADMAP.md Queue 1, item 6, part 3c, so the key is absent and
-    ``format_status`` prints no index line. Every other key is the
-    reference's."""
+    """The reference's ``telemetry_status`` carries ``kvtier_index`` (its
+    GCS prefix index's stats). The divergence this test pinned closed with
+    part 3c: the port's GCS hosts the index, so the payloads have the same
+    keys and, after one engine's snapshot, the same index stats."""
     from ray_tpu.cluster.gcs_service import GcsService as JGcsService
 
-    ref = JGcsService().rpc_telemetry_status({}, None)
-    port = GcsService().rpc_telemetry_status({}, None)
-    assert set(ref) - set(port) == {"kvtier_index"}
-    assert set(port) <= set(ref)
+    snap = {"engine": "e0", "epoch": 1, "seq": 1, "rows": [[11, 0, 16], [12, 1, 32]]}
+    ref, port = JGcsService(), GcsService()
+    for gcs in (ref, port):
+        gcs.rpc_kvtier_update(dict(snap), None)
+    ref, port = ref.rpc_telemetry_status({}, None), port.rpc_telemetry_status({}, None)
+    assert set(port) == set(ref)
+    assert port["kvtier_index"] == ref["kvtier_index"]
+    assert port["kvtier_index"]["rows"] == 2

@@ -255,3 +255,59 @@ print("ok")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-3000:]
+
+
+def test_serve_disagg_and_the_gcs_prefix_index_import_without_jax():
+    """Disaggregated Serve, the GCS prefix index and ``build_fabric`` import
+    with jax, optax, the JAX package and triton blocked; a GCS that serves
+    ``kvtier_*`` never loads torch; a ``GcsPrefixIndex`` over that GCS
+    reads and drops its rows; and a disaggregated app answers a completion
+    on the CPU in thread mode."""
+    code = """
+import sys
+for name in ("jax", "jaxlib", "optax", "ray_tpu", "triton"):
+    sys.modules[name] = None
+from ray_tpu_torch.cluster.gcs_service import GcsServer
+from ray_tpu_torch.cluster.rpc import ReconnectingRpcClient
+server = GcsServer(port=0)
+host, port = server.start()
+rc = ReconnectingRpcClient(host, port, timeout=5).connect()
+assert rc.call("kvtier_update", {"engine": "e0", "epoch": 1, "seq": 1,
+                                 "rows": [[11, 0, 8], [12, 0, 16]]})["ok"]
+assert rc.call("kvtier_lookup", {"hashes": [11, 12]})["engines"]["e0"]["n_tokens"] == 16
+assert rc.call("kvtier_stats", None)["rows"] == 2
+assert "torch" not in sys.modules, "the GCS's prefix index loaded torch"
+import dataclasses, torch
+import ray_tpu_torch
+import ray_tpu_torch.serve.disagg, ray_tpu_torch.fabric.pool, ray_tpu_torch.llm.kvtier.index
+from ray_tpu_torch import serve
+from ray_tpu_torch.fabric import build_fabric  # noqa: F401
+from ray_tpu_torch.llm import EngineConfig, LLMConfig
+from ray_tpu_torch.llm.kvtier import GcsPrefixIndex
+from ray_tpu_torch.models.llama import LLAMA_TINY
+
+idx = GcsPrefixIndex(rc, timeout_s=5)
+assert idx.lookup([11])["engines"]["e0"]["n_tokens"] == 8 and idx.drop_engine("e0")
+ray_tpu_torch.init(num_cpus=8)
+lc = LLMConfig(model_id="iso-disagg", engine=EngineConfig(
+    model=LLAMA_TINY, num_blocks=32, block_size=4, max_num_seqs=2, max_prefill_len=32),
+    device="cpu")
+h = serve.build_disagg_openai_app(lc, name="iso-disagg", route_prefix=None)
+
+class Req:
+    path, method = "/v1/completions", "POST"
+
+    def json(self):
+        return {"prompt": "hi", "max_tokens": 3, "temperature": 0.0}
+
+assert h.remote(Req()).result(timeout_s=60)["usage"]["completion_tokens"] == 3
+serve.shutdown()
+ray_tpu_torch.shutdown()
+rc.close()
+server.stop()
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-3000:]

@@ -453,7 +453,7 @@ def test_orchestrator_wires_fetch_plane_and_spreads_like_reference(weights):
 
 def test_device_and_rpc_fetch_clients_refused_by_name():
     """The device and RPC fetch clients (C1) build as the reference's do; the
-    GCS-backed prefix index still waits for the cluster runtime (B8)."""
+    GCS-backed prefix index builds against a GCS."""
     from ray_tpu_torch.fabric import DeviceTransport
     from ray_tpu_torch.llm.kvtier import GcsPrefixIndex
 
@@ -470,8 +470,18 @@ def test_device_and_rpc_fetch_clients_refused_by_name():
         assert host == "127.0.0.1" and port > 0
     finally:
         srv.stop()
-    with pytest.raises(NotImplementedError, match="B8"):
-        GcsPrefixIndex()
+    # the GCS-backed prefix index builds against a GCS and answers through it
+    from ray_tpu_torch.cluster.gcs_service import GcsServer
+    from ray_tpu_torch.cluster.rpc import ReconnectingRpcClient
+
+    server = GcsServer(port=0)
+    client = ReconnectingRpcClient(*server.start(), timeout=5).connect()
+    try:
+        idx = GcsPrefixIndex(client, timeout_s=5)
+        assert idx.lookup([1, 2]) == {"engines": {}} and idx.num_dark == 0
+    finally:
+        client.close()
+        server.stop()
     with pytest.raises(ValueError, match="unknown fetch backend"):
         make_fetch_client("carrier-pigeon")
     assert isinstance(make_fetch_client("local", registry=LocalFetchRegistry()), LocalFetchClient)

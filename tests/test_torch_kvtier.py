@@ -576,8 +576,22 @@ def test_best_prefix_replica_equals_reference(i):
 
 
 def test_gcs_index_and_shared_store_refused_naming_b8():
-    with pytest.raises(NotImplementedError, match="B8"):
-        GcsPrefixIndex(object())
+    """The GCS-backed index builds against a GCS (an engine's tiered cache
+    publishes through it); a cross-process object store is still refused
+    naming B8."""
+    from ray_tpu_torch.cluster.gcs_service import GcsServer
+    from ray_tpu_torch.cluster.rpc import ReconnectingRpcClient
+
+    server = GcsServer(port=0)
+    client = ReconnectingRpcClient(*server.start(), timeout=5).connect()
+    try:
+        idx = GcsPrefixIndex(client, timeout_s=5)
+        rows = [[h, 0, (i + 1) * BS] for i, h in enumerate(chain_hashes(SYS, BS))]
+        assert idx.update({"engine": "e0", "epoch": 1, "seq": 1, "rows": rows})
+        assert idx.lookup(chain_hashes(SYS, BS))["engines"]["e0"]["n_tokens"] == len(SYS)
+    finally:
+        client.close()
+        server.stop()
     with pytest.raises(NotImplementedError, match="B8"):
         EngineConfig(model=FP32_TINY, **ENGINE_KW, kvtier={"object_store": "tcp://store:1"})
     # an in-process store shared by engines is fine

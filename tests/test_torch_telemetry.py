@@ -540,8 +540,9 @@ def test_store_aggregates_slo_and_status_equal_the_reference():
             _gauge_metric("ray_tpu_node_workers", 3.0)], ts=1000.0)}, None)
         gcs.rpc_heartbeat_batch({"heartbeats": [{"node_id": "n1", "telemetry": _snap(
             1, "d1", [_gauge_metric("ray_tpu_node_workers", 2.0)], ts=1000.0)}]}, None)
+        gcs.rpc_kvtier_update({"engine": "e0", "epoch": 1, "seq": 1,
+                               "rows": [[11, 0, 16], [12, 1, 32]]}, None)
         status = _timeless(gcs.rpc_telemetry_status({"thresholds": th}, None))
-        status.pop("kvtier_index", None)  # the prefix index is part 3c
         out[name] = {
             "cluster": _timeless(gcs.telemetry.cluster_metrics()),
             "slo": _timeless(gcs.rpc_telemetry_slo({"thresholds": th}, None)),
