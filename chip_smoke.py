@@ -117,7 +117,8 @@ Phases, each printing one JSON line:
            (stdlib proxy -> handle -> router -> replica -> LLMServer) and
            the 2 streams through the app handle's generate_stream, each
            request on its own client thread: a first pass (the kernels'
-           launches counted over it as in the api phase) and two more, then
+           launches counted over it as in the api phase) and one more (cut
+           from two for the smoke's time), then
            the replica's LLMServer driven directly (the api phase's pass)
            and through Serve in turns, S D S D after a direct warm-up
            pass, on the same engine; steady: the median of the Serve
@@ -132,9 +133,13 @@ Phases, each printing one JSON line:
            completion sent alone over HTTP has the text of the same
            completion sent alone through the handle, 24 completions over
            HTTP at max_queue_depth 3 (the engine loop parked) give 21 429s
-           with Retry-After and 3 completions, and after serve.shutdown()
-           the engine loop has exited and the card's allocated memory fell
-           by at least the KV cache's bytes
+           with Retry-After and 3 completions, the 12 completions over
+           HTTP, through the framed-RPC ingress and (where grpc is
+           installed) the gRPC ingress give equal greedy texts, each leg
+           sent to a parked engine loop in one order, and after
+           serve.shutdown() the engine loop has exited, the ingresses'
+           ports are free and the card's allocated memory fell by at least
+           the KV cache's bytes
   serve_disagg  LLAMA3_8B through build_disagg_openai_app on the in-process
            runtime: a prefill and a decode replica (role-tagged pools), each
            engine the api phase's configuration plus the tiered cache
@@ -310,7 +315,12 @@ Phases, each printing one JSON line:
   cluster  LLAMA3_8B in a num_gpus=1 actor of a port cluster (a GCS, node
            "gpu" holding the card and node "cpu"), attached with
            ray_tpu_torch.init(address=...): the engine phase's streams on
-           two passes, the actor killed and the card's memory back, a GPU
+           two passes, then two more through a compiled DAG over the actor
+           (ClusterServer8B.serve bound to an InputNode's fields; one host,
+           so the shm channel), gated 10/10, no capture and pass s's
+           launches all in replays, the actor answering within 30 s of
+           teardown(), and a trivial echo's round trip through .remote and
+           through a DAG; the actor killed and the card's memory back, a GPU
            worker's cold start, a bf16 CUDA tensor through the store, the
            driver's tensor pulled by the CPU node, a crashed GPU task
            retried; then Serve on the cluster: a num_gpus=1 replica of a
@@ -2071,7 +2081,8 @@ def _frontend_ab(server, recorded: dict, bodies) -> dict:
     """The host cost of the front end on like-for-like traffic: the 12
     completions alone, served through the LLMServer and handed to
     ``LLMEngine.generate`` on the runner's loop thread (the same engine,
-    graphs and sampling parameters), in turns S E E S S E, then one pass
+    graphs and sampling parameters), in turns S E E S (cut from S E E S S E
+    for the smoke's time), then one pass
     of each under torch.profiler for the device's idle share. Each pass
     starts from an empty prefix cache; tok/s is every output token the
     engine made over the pass's wall."""
@@ -2114,7 +2125,7 @@ def _frontend_ab(server, recorded: dict, bodies) -> dict:
                 "graphs_captured": sum(g.captures for g in _families(eng)) - c0}
 
     t0 = time.perf_counter()
-    order = "SEESSE"
+    order = "SEES"  # cut from S E E S S E for the smoke's time
     passes = [{"path": k, **run(served if k == "S" else direct)} for k in order]
     res = {"order": order, "passes": passes, "turns_s": time.perf_counter() - t0}
     for k, name in (("S", "server"), ("E", "engine")):
@@ -2538,6 +2549,187 @@ def _serve_burst(base: str, server, bodies) -> dict:
             "shed_429": len(shed), "retry_after_header": shed[0][0]["Retry-After"]}
 
 
+class GrpcCompletions:
+    """The serve phase's bytes-in/bytes-out deployment for the gRPC front
+    door: a JSON completion body -> the app's ``LLMServer.completions`` ->
+    its JSON payload; ``Models`` the same for ``models``."""
+
+    def __init__(self, app: str):
+        self.app = app
+
+    def _llm(self):
+        from ray_tpu_torch import serve
+
+        return serve.get_app_handle(self.app)
+
+    def Completions(self, data: bytes) -> bytes:
+        body = json.loads(data)
+        return json.dumps(self._llm().completions.remote(body).result(timeout_s=600)).encode()
+
+    def Models(self, data: bytes) -> bytes:
+        return json.dumps(self._llm().models.remote().result(timeout_s=60)).encode()
+
+
+def _ordered_leg(server, send, bodies, what: str) -> dict:
+    """The completion bodies sent through ``send`` (a client thread each,
+    all in flight together) while the engine loop is parked on a posted
+    call, each sent once the one before it sits in the loop's inbox: every
+    leg meets the engine with the same requests in the same order before
+    its first step, so the same batches and graph buckets, and bf16 greedy
+    texts can be held equal across front doors. The prefix cache is
+    emptied first. Texts, client wall (from the loop's release), the graphs
+    captured and K3/K4's device launches over the leg."""
+    import concurrent.futures
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    eng = server.engine
+    server.runner.call(lambda: eng.allocator.drop_prefix_cache())
+    gate, parked_at = threading.Event(), threading.Event()
+    parked = concurrent.futures.Future()
+
+    def park():
+        parked_at.set()
+        gate.wait(120)
+
+    server.runner._post(("call", parked, park))
+    if not parked_at.wait(60):
+        raise AssertionError(f"{what}: the engine loop never took the parking call")
+    marks, captures = _launch_marks(eng), sum(g.captures for g in _families(eng))
+    with ThreadPoolExecutor(len(bodies)) as pool:
+        futs = []
+        try:
+            for i, b in enumerate(bodies):
+                futs.append(pool.submit(send, b))
+                deadline = time.time() + 60
+                while len(server.runner._inbox) < i + 1:
+                    if futs[-1].done() or time.time() > deadline:
+                        futs[-1].result(timeout=1)  # its error, if it failed
+                        raise AssertionError(f"{what}: request {i} never reached the engine "
+                                             "loop's inbox")
+                    time.sleep(0.001)
+        finally:
+            t0 = time.perf_counter()
+            gate.set()
+        outs = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    parked.result(timeout=60)
+    torch.cuda.synchronize()
+    launches = _launch_counts(eng, marks)
+    for o in outs:
+        k, reason = o["usage"]["completion_tokens"], o["choices"][0]["finish_reason"]
+        if not (k == 32 or reason == "stop"):
+            raise AssertionError(f"{what}: {k} tokens, finish {reason!r}, not 32 or a stop")
+    tokens = sum(o["usage"]["completion_tokens"] for o in outs)
+    return {"texts": [o["choices"][0]["text"] for o in outs], "wall_s": wall,
+            "output_tokens": tokens, "output_tok_per_s": tokens / wall,
+            "graphs_captured": sum(g.captures for g in _families(eng)) - captures,
+            "kernel_launches": launches}
+
+
+def _rtt_ms(fn, n: int = 21) -> dict:
+    """Round trips of ``fn`` in ms: the median and max of all but the
+    first, and the first."""
+    import numpy as np
+
+    rtt = []
+    for _ in range(n):
+        t1 = time.perf_counter()
+        fn()
+        rtt.append((time.perf_counter() - t1) * 1e3)
+    return {"median": float(np.median(rtt[1:])), "first": rtt[0], "max": float(max(rtt[1:])),
+            "n": n - 1}
+
+
+def _port_free(addr) -> bool:
+    """A fresh bind to ``addr`` succeeds: nothing listens there."""
+    import socket
+
+    with socket.socket() as s:
+        try:
+            s.bind(tuple(addr))
+            return True
+        except OSError:
+            return False
+
+
+def _front_doors(base: str, server, bodies) -> dict:
+    """The serve phase's other front doors on the same app ("llm"), with the
+    decode-chunk controller held so every leg runs one schedule: the 12
+    completions over HTTP, then through the framed-RPC ingress
+    (``rpc_ingress_call(..., method="completions")``) and, where ``grpc``
+    is installed, through the gRPC ingress and a bytes-in/bytes-out
+    deployment around the app; each leg ordered (``_ordered_leg``). Fails
+    unless every greedy text of each leg equals the HTTP leg's. The round
+    trip of ``models`` through each door beside HTTP's."""
+    import importlib.util
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import pipeline
+    from ray_tpu_torch.serve.rpc_ingress import rpc_ingress_call
+
+    greedy = sum(b.get("temperature", 1.0) == 0.0 for b in bodies)
+    out: dict = {}
+
+    def post(body):
+        st, _, raw = _http("POST", base + "/v1/completions", body)
+        if st != 200:
+            raise AssertionError(f"serve http leg: answered {st}: {raw[:300]!r}")
+        return json.loads(raw)
+
+    rpc = serve.start_rpc_ingress(port=0)
+    out["rpc_addr"] = list(rpc.addr)
+    legs = {"http": post,
+            "rpc": lambda b: rpc_ingress_call(rpc.addr, b, app="llm", method="completions",
+                                              timeout=600.0)}
+    out["rpc_models_rtt_ms"] = _rtt_ms(
+        lambda: rpc_ingress_call(rpc.addr, app="llm", method="models", timeout=60.0))
+    if importlib.util.find_spec("grpc") is None:
+        out["grpc"] = "not installed"
+    else:
+        import grpc
+
+        serve.run(serve.deployment(GrpcCompletions, name="GrpcCompletions").bind("llm"),
+                  name="grpc-gateway", route_prefix="/grpc-gateway")
+        gr = serve.start_grpc_ingress(port=0)
+        out["grpc_addr"] = list(gr.addr)
+        chan = grpc.insecure_channel(f"{gr.addr[0]}:{gr.addr[1]}")
+        md = (("application", "grpc-gateway"),)
+
+        def unary(method):
+            return chan.unary_unary(method, request_serializer=lambda b: b,
+                                    response_deserializer=lambda b: b)
+
+        legs["grpc"] = lambda b: json.loads(unary("/openai.Gateway/Completions")(
+            json.dumps(b).encode(), metadata=md, timeout=600))
+        out["grpc_models_rtt_ms"] = _rtt_ms(
+            lambda: unary("/openai.Gateway/Models")(b"{}", metadata=md, timeout=60))
+    note_chunk = pipeline.ChunkController.note_chunk
+    pipeline.ChunkController.note_chunk = lambda self, *a, **k: None
+    try:
+        for name, send in legs.items():
+            out[name] = _ordered_leg(server, send, bodies, f"serve {name} leg")
+    finally:
+        pipeline.ChunkController.note_chunk = note_chunk
+        if "grpc" in legs:
+            chan.close()
+    want = out["http"]["texts"][:greedy]
+    for name in legs:
+        got = out[name]["texts"][:greedy]
+        same = sum(a == b for a, b in zip(got, want))
+        out[name]["greedy_texts_equal_http"] = f"{same}/{greedy}"
+        if same != greedy:
+            raise AssertionError(f"serve {name} leg: {same}/{greedy} greedy texts equal the "
+                                 "HTTP leg's")
+        if min(out[name]["kernel_launches"].values()) <= 0:
+            raise AssertionError(f"serve {name} leg: a kernel never launched: "
+                                 f"{out[name]['kernel_launches']}")
+        del out[name]["texts"]
+    return out
+
+
 def serve_phase(dev, params, api_res: dict) -> dict:
     """LLAMA3_8B served through a Serve deployment: the in-process runtime
     (``ray_tpu_torch.init``), ``serve.start`` on a free loopback port and
@@ -2545,18 +2737,24 @@ def serve_phase(dev, params, api_res: dict) -> dict:
     (the caller's tensors, by reference). The api traffic, completions and
     chats over HTTP from concurrent client threads and the two streams
     through the app handle, a first pass (the kernels' launches counted
-    over it as in the api phase) and two more, then the same engine driven
+    over it as in the api phase) and one more, then the same engine driven
     directly and through Serve in turns (S D S D, after a direct
     warm-up pass); steady is the median of the Serve passes after the first
     that captured no graph, beside the api phase's direct LLMServer passes;
-    the round trip of /v1/models over HTTP and through the handle. Fails unless every completion has its
-    32 tokens or a stop, /v1/models names llama3-8b at 8192, /-/healthz
-    answers and an unknown route is a 404, the replica engine's weights
+    the round trip of /v1/models over HTTP and through the handle; then
+    the 12 completions over HTTP, through the framed-RPC ingress and, where
+    ``grpc`` is installed, through the gRPC ingress (``_front_doors``),
+    with the round trip of ``models`` through each. Fails unless every
+    completion has its 32 tokens or a stop, every greedy text of the RPC
+    and gRPC legs equals the HTTP leg's, /v1/models names llama3-8b at
+    8192, /-/healthz answers and an unknown route is a 404, the replica
+    engine's weights
     are the caller's tensors, a greedy completion sent alone over HTTP
     has the text of the same completion sent alone through the handle, a
     burst past max_queue_depth gives 429s with Retry-After over HTTP, and
-    after ``serve.shutdown()`` the engine loop has exited and the card's
-    allocated memory has fallen by at least the KV cache's bytes."""
+    after ``serve.shutdown()`` the engine loop has exited, the ingresses'
+    ports are free and the card's allocated memory has fallen by at least
+    the KV cache's bytes."""
     import numpy as np
     import torch
 
@@ -2606,23 +2804,14 @@ def serve_phase(dev, params, api_res: dict) -> dict:
     st, _, raw = _http("GET", base + "/v1/no-such-route")
     if st != 404:
         raise AssertionError(f"serve: an unknown route answered {st} {raw!r}")
-    rtt = []
-    for _ in range(21):
-        t1 = time.perf_counter()
-        st, _, raw = _http("GET", base + "/v1/models")
-        rtt.append((time.perf_counter() - t1) * 1e3)
+    answers = []
+    res["http_models_rtt_ms"] = _rtt_ms(
+        lambda: answers.append(_http("GET", base + "/v1/models")))
+    st, _, raw = answers[-1]
     card = json.loads(raw)["data"][0]
     if st != 200 or card["id"] != "llama3-8b" or card["max_model_len"] != 8192:
         raise AssertionError(f"serve: /v1/models says {st} {raw!r}")
-    res["http_models_rtt_ms"] = {"median": float(np.median(rtt[1:])), "first": rtt[0],
-                                 "max": float(max(rtt[1:])), "n": len(rtt) - 1}
-    rtt_h = []
-    for _ in range(21):
-        t1 = time.perf_counter()
-        handle.models.remote().result()
-        rtt_h.append((time.perf_counter() - t1) * 1e3)
-    res["handle_models_rtt_ms"] = {"median": float(np.median(rtt_h[1:])), "first": rtt_h[0],
-                                   "max": float(max(rtt_h[1:])), "n": len(rtt_h) - 1}
+    res["handle_models_rtt_ms"] = _rtt_ms(lambda: handle.models.remote().result())
 
     bodies, chats, streams = _api_traffic()
     # the main path: the counters zeroed just before the first pass, read
@@ -2657,7 +2846,7 @@ def serve_phase(dev, params, api_res: dict) -> dict:
 
     serve_pass = lambda: _serve_pass(base, handle, server, recorded, bodies, chats,  # noqa: E731
                                      streams)
-    passes = [counted(serve_pass) for _ in range(2)]
+    passes = [counted(serve_pass)]  # cut from two for the smoke's time
     res["warm"] = passes[0]
     # the same engine driven directly (the api phase's pass: LLMServer from
     # this thread's event loop) and through Serve over HTTP, in turns, after
@@ -2707,6 +2896,10 @@ def serve_phase(dev, params, api_res: dict) -> dict:
         raise AssertionError(f"serve: HTTP and handle texts differ: {texts}")
     res["http_equals_handle"] = {"tokens": texts[0].count("<"), "equal": True}
 
+    # the 12 completions over HTTP, the framed-RPC ingress and (with grpc)
+    # the gRPC ingress, each leg on one schedule: the greedy texts equal
+    res["front_doors"] = _front_doors(base, server, bodies)
+
     res["burst"] = _serve_burst(base, server, bodies)
 
     # shutdown: the replica's shutdown hook stops the engine loop and frees
@@ -2723,6 +2916,12 @@ def serve_phase(dev, params, api_res: dict) -> dict:
     mem_after = torch.cuda.memory_allocated()
     if thread.is_alive():
         raise AssertionError("serve: the engine loop thread outlived serve.shutdown()")
+    doors = res["front_doors"]
+    freed = {k: _port_free(doors[f"{k}_addr"]) for k in ("rpc", "grpc") if f"{k}_addr" in doors}
+    doors["ports_free_after_shutdown"] = freed
+    if not all(freed.values()):
+        raise AssertionError(f"serve: an ingress's port is still bound after serve.shutdown(): "
+                             f"{freed}")
     if mem_before - mem_after < kv_bytes:
         raise AssertionError(f"serve: shutdown freed {mem_before - mem_after} B of the card, "
                              f"less than the KV cache's {kv_bytes} B")
@@ -5872,6 +6071,9 @@ class ClusterServer8B:
     def info(self) -> dict:
         return self.info_
 
+    def echo(self, x):
+        return x
+
     def serve(self, flat, lens, sps, tag: str) -> dict:
         import torch
 
@@ -6101,11 +6303,83 @@ def _no_torch_in(pids) -> None:
                 raise AssertionError(f"cluster: control-plane process {pid} loaded torch")
 
 
+def _cluster_dag_leg(server, flat, lens, sps, greedy: int, engine_first: dict,
+                     pass_s: dict) -> dict:
+    """``ClusterServer8B.serve`` compiled into a DAG over the cluster actor,
+    bound to an InputNode's fields: one host, so ``channel_mode="auto"``
+    picks the shm channel. The 12 requests twice through it; each pass's
+    greedy streams equal the engine phase's, it captures no graph, and its
+    K3/K4 launches equal pass s's, all in graph replays. After
+    ``teardown()`` the actor answers ``info`` within 30 s. Then the median
+    round trip of a trivial method (``echo``), 200 calls through
+    ``.remote`` and 200 through a compiled DAG."""
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode
+
+    out: dict = {}
+    with InputNode() as inp:
+        node = server.serve.bind(inp.flat, inp.lens, inp.sps, inp.tag)
+    t0 = time.perf_counter()
+    dag = node.experimental_compile()
+    out["compile_s"] = time.perf_counter() - t0
+    out["channel"] = dag.channel_kind
+    passes = []
+    try:
+        if dag.channel_kind != "shm":
+            raise AssertionError(f"cluster dag: one host picked {dag.channel_kind!r}, not shm")
+        for tag in ("d", "e"):
+            t0 = time.perf_counter()
+            got = dag.execute({"flat": flat, "lens": lens, "sps": sps, "tag": tag}).get(
+                timeout=600)
+            got["round_trip_s"] = time.perf_counter() - t0
+            toks = got.pop("tokens")
+            same = sum(toks[f"{tag}{i}"] == engine_first[f"r{i}"] for i in range(greedy))
+            got["greedy_streams_equal_engine_phase"] = f"{same}/{greedy}"
+            passes.append(got)
+            if same != greedy:
+                raise AssertionError(f"cluster dag: pass {tag}: {same}/{greedy} greedy streams "
+                                     "equal the engine phase's")
+            if got["captures"] != 0:
+                raise AssertionError(f"cluster dag: pass {tag} captured {got['captures']} graphs")
+            if got["kernel_launches"] != pass_s["kernel_launches"] \
+                    or got["kernel_launches_in_replays"] != got["kernel_launches"]:
+                raise AssertionError(f"cluster dag: pass {tag}'s launches {got['kernel_launches']} "
+                                     f"({got['kernel_launches_in_replays']} in replays), pass "
+                                     f"s's {pass_s['kernel_launches']}")
+    finally:
+        t0 = time.perf_counter()
+        dag.teardown()
+        out["teardown_s"] = time.perf_counter() - t0
+    out["passes"] = passes
+    t0 = time.perf_counter()
+    ray_tpu_torch.get(server.info.remote(), timeout=30)
+    out["actor_answers_after_teardown_s"] = time.perf_counter() - t0
+
+    def echo_through(call) -> dict:
+        if call(7) != 7:
+            raise AssertionError("cluster dag: echo returned another value")
+        return _rtt_ms(lambda: call(7), n=201)
+
+    out["echo_remote_ms"] = echo_through(
+        lambda x: ray_tpu_torch.get(server.echo.remote(x), timeout=60))
+    with InputNode() as inp:
+        echo = server.echo.bind(inp).experimental_compile()
+    try:
+        out["echo_dag_ms"] = echo_through(lambda x: echo.execute(x).get(timeout=60))
+    finally:
+        echo.teardown()
+    ray_tpu_torch.get(server.info.remote(), timeout=30)
+    out["kernel_launches"] = {n: sum(p["kernel_launches"][n] for p in passes)
+                              for n in pass_s["kernel_launches"]}
+    return out
+
+
 def cluster_phase(dev, engine_first: dict) -> dict:
     """LLAMA3_8B served by a ``num_gpus=1`` actor in a worker process of a
     port cluster (a GCS and two node daemons, ``"gpu"`` holding the card
     and ``"cpu"``), attached with ``ray_tpu_torch.init(address=...)``: the
-    engine phase's greedy streams on two passes, the actor killed and the
+    engine phase's greedy streams on two passes, then on two more through a
+    compiled DAG over the actor (``_cluster_dag_leg``), the actor killed and the
     card's memory back, a GPU worker's cold start through a daemon, a bf16
     CUDA tensor returned through the store bit for bit, the driver's
     tensor pulled by the CPU node, a crashed GPU task retried, Serve on the
@@ -6184,6 +6458,8 @@ def cluster_phase(dev, engine_first: dict) -> dict:
         if passes[1]["captures"] != 0:
             raise AssertionError(f"cluster: the second pass captured {passes[1]['captures']} "
                                  "graphs")
+        # the same actor behind a compiled DAG: two passes, then teardown
+        res["dag"] = _cluster_dag_leg(server, flat, lens, sps, greedy, engine_first, passes[1])
 
         # (2) kill the actor: its lease is released and the card's memory comes back
         t0 = time.perf_counter()
@@ -6272,6 +6548,7 @@ def cluster_phase(dev, engine_first: dict) -> dict:
         raise AssertionError(f"cluster: left after shutdown: {left}")
     res["kernel_launches"] = first
     res["serve_kernel_launches"] = res["serve"]["kernel_launches"]
+    res["dag_kernel_launches"] = res["dag"]["kernel_launches"]
     res["phase_s"] = time.perf_counter() - t_phase
     emit(res)
     return res
@@ -6672,6 +6949,7 @@ def main(argv=None) -> int:
                         else (None, 0.0))
     lora_launches, api_launches, disagg_launches, replayed = {}, {}, {}, {}
     serve_launches, serve_disagg_launches, data_launches, feed_launches = {}, {}, {}, {}
+    serve_rpc_launches, serve_grpc_launches, cluster_dag_launches = {}, {}, {}
     disagg_device_launches = {}
     kvtier_launches, fleet_launches, publish_launches, process_launches = {}, {}, {}, {}
     cluster_launches, cluster_serve_launches, cluster_ha_launches = {}, {}, {}
@@ -6686,7 +6964,11 @@ def main(argv=None) -> int:
         api_res = api_phase(dev, params, engine_res)
         api_launches = api_res["kernel_launches"]
     if "serve" in phases:
-        serve_launches = serve_phase(dev, params, api_res)["kernel_launches"]
+        serve_res = serve_phase(dev, params, api_res)
+        serve_launches, doors = serve_res["kernel_launches"], serve_res["front_doors"]
+        serve_rpc_launches = doors["rpc"]["kernel_launches"]
+        if isinstance(doors.get("grpc"), dict):
+            serve_grpc_launches = doors["grpc"]["kernel_launches"]
     if "serve_disagg" in phases:
         serve_disagg_launches = serve_disagg_phase(dev, params, api_res)["kernel_launches"]
     if "api" in phases:
@@ -6716,6 +6998,7 @@ def main(argv=None) -> int:
         cluster_res = cluster_phase(dev, engine_first)
         cluster_launches = cluster_res["kernel_launches"]
         cluster_serve_launches = cluster_res["serve_kernel_launches"]
+        cluster_dag_launches = cluster_res["dag_kernel_launches"]
     if "cluster_ha" in phases:
         cluster_ha_launches = cluster_ha_phase(dev, engine_first)["kernel_launches"]
     if "train" in phases:
@@ -6741,6 +7024,10 @@ def main(argv=None) -> int:
             **({"launches_lora_phase": lora_launches[name]} if name in lora_launches else {}),
             **({"launches_api_phase": api_launches[name]} if name in api_launches else {}),
             **({"launches_serve_phase": serve_launches[name]} if name in serve_launches else {}),
+            **({"launches_serve_phase_rpc": serve_rpc_launches[name]}
+               if name in serve_rpc_launches else {}),
+            **({"launches_serve_phase_grpc": serve_grpc_launches[name]}
+               if name in serve_grpc_launches else {}),
             **({"launches_serve_disagg_phase": serve_disagg_launches[name]}
                if name in serve_disagg_launches else {}),
             **({"launches_data_phase": data_launches[name]} if name in data_launches else {}),
@@ -6759,6 +7046,8 @@ def main(argv=None) -> int:
                if name in cluster_launches else {}),
             **({"launches_cluster_phase_serve": cluster_serve_launches[name]}
                if name in cluster_serve_launches else {}),
+            **({"launches_cluster_phase_dag": cluster_dag_launches[name]}
+               if name in cluster_dag_launches else {}),
             **({"launches_cluster_ha_phase": cluster_ha_launches[name]}
                if name in cluster_ha_launches else {}),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],

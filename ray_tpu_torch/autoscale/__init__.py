@@ -10,10 +10,10 @@ parts of ``ray_tpu/autoscale`` that need no cluster runtime).
    boundaries the reference's.
 
 The controller, its policy, demand planning, actuators and config
-(``autoscale/{policy,controller,actuators,demand,config}.py``) grade the
-cluster's telemetry, which needs the cluster runtime (ROADMAP.md, Queue 1,
-B8); so does ``FleetPoolActuator`` (drive ``FleetManager.set_pool_target``
-directly).
+(``autoscale/{policy,controller,actuators,demand,config}.py``) and
+``FleetPoolActuator`` are ROADMAP.md Queue 1, item 6, part 8 (drive
+``FleetManager.set_pool_target`` directly until then); the cluster
+telemetry they grade is ported.
 """
 
 from ray_tpu_torch.autoscale.coldstart import (

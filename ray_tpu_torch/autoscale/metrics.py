@@ -4,7 +4,8 @@ descriptions, tags, boundaries and aggregation kinds).
 
 Built per call like ``obs/slo.py``; ``register_metrics`` forces
 registration for the registry parity checks. Only the cold start records
-today; the controller's series wait with it (ROADMAP.md, Queue 1, B8).
+today; the controller's series wait for the controller (ROADMAP.md Queue 1,
+item 6, part 8).
 """
 
 from __future__ import annotations

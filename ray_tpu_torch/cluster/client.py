@@ -16,9 +16,8 @@ reference's task_manager.h:260 retry loop, node-failure edition).
 
 A copy of ``ray_tpu/cluster/client.py``: functions and values go through
 the port's stdlib pickler (``cluster/serialization.py``) where the
-reference uses cloudpickle, ``num_gpus`` leases ride the ``"GPU"``
-resource, and actor methods' ``.bind`` waits for the DAG nodes (ROADMAP.md
-Queue 1, item 6, part 6). Left out: the reference's client-side lease
+reference uses cloudpickle, and ``num_gpus`` leases ride the ``"GPU"``
+resource. Left out: the reference's client-side lease
 cache (``RAY_TPU_LEASE_CACHE_TTL``, off by default there and measured
 slower than the daemon's queue): a lease is released when its task ends.
 Given a primary GCS and its standby (``ClusterClient(((h1, p1), (h2, p2)),
@@ -174,11 +173,10 @@ class _ActorMethod:
         )
 
     def bind(self, *args, **kwargs):
-        """A compiled-graph node (the reference's ClassMethodNode): not
-        ported yet."""
-        raise NotImplementedError(
-            f"actor method {self._name}.bind: the DAG nodes of ray_tpu/dag "
-            "(ROADMAP.md Queue 1, item 6, part 6)")
+        """A compiled-DAG node (``dag/nodes.py``'s ClassMethodNode)."""
+        from ray_tpu_torch.dag.nodes import bind_actor_method
+
+        return bind_actor_method(self._handle, self._name)(*args, **kwargs)
 
     def options(self, num_returns: int = 1):
         method = self

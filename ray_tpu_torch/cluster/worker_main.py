@@ -20,9 +20,10 @@ provider).
 A copy of ``ray_tpu/cluster/worker_main.py``. The daemon starts the
 worker with ``CUDA_VISIBLE_DEVICES`` set to its lease's cards ("" for a
 CPU lease), so torch, imported only by the code a task runs, sees exactly
-those. Two framework methods of the reference's process actors are not
-ported yet: ``__ray_tpu_collective_init__`` (ROADMAP.md Queue 1, item 10,
-D4) and ``__ray_tpu_dag_exec_loop__`` (item 6, part 6). The ``--gcs`` address
+those. Of the reference's framework methods of process actors,
+``__ray_tpu_dag_exec_loop__`` runs a compiled DAG's loop under the actor's
+FIFO lock; ``__ray_tpu_collective_init__`` raises, naming ROADMAP.md Queue
+1, item 10 (D4). The ``--gcs`` address
 may name a primary and its standby; a schedule the driver exported
 (``chaos.install(propagate_env=True)``) is adopted at start.
 """
@@ -44,17 +45,19 @@ from ray_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("ray_tpu_torch.cluster.worker")
 
-_UNPORTED_METHODS = {
-    "__ray_tpu_collective_init__": "the collective groups (ROADMAP.md Queue 1, item 10, D4)",
-    "__ray_tpu_dag_exec_loop__": "compiled DAGs (ROADMAP.md Queue 1, item 6, part 6)",
-}
-
-
 def _framework_actor_method(actor, name: str):
-    """Framework-injected actor methods of process actors: the gang and
-    DAG setup calls of the reference, which wait for their parts."""
-    if name in _UNPORTED_METHODS:
-        raise NotImplementedError(f"{name}: {_UNPORTED_METHODS[name]} is not ported yet")
+    """Framework-injected actor methods of process actors (the in-process
+    twin is ``core/actor_runtime.py``'s ``Actor._framework_method``): a
+    compiled DAG's exec loop, which holds the actor until its channels
+    close. The collective group's setup call waits for its item."""
+    if name == "__ray_tpu_collective_init__":
+        raise NotImplementedError(
+            f"{name}: the collective groups (ROADMAP.md Queue 1, item 10, D4) are not "
+            "ported yet")
+    if name == "__ray_tpu_dag_exec_loop__":
+        from ray_tpu_torch.dag.compiled import _actor_exec_loop
+
+        return lambda plan, input_source: _actor_exec_loop(actor, plan, input_source)
     return None
 
 

@@ -186,6 +186,21 @@ class Actor:
 
     # -- execution -----------------------------------------------------------
 
+    def _framework_method(self, name: str):
+        """Framework-injected actor methods, run on the actor's own executor
+        thread so thread-local state lands where the actor's calls see it:
+        a compiled DAG's exec loop. The collective group's setup call waits
+        for the collective groups (ROADMAP.md Queue 1, item 10, D4)."""
+        if name == "__ray_tpu_collective_init__":
+            raise NotImplementedError(
+                f"{name}: the collective groups (ROADMAP.md Queue 1, item 10, D4) are not "
+                "ported yet")
+        if name == "__ray_tpu_dag_exec_loop__":
+            from ray_tpu_torch.dag.compiled import _actor_exec_loop
+
+            return lambda plan, input_source: _actor_exec_loop(self.instance, plan, input_source)
+        return None
+
     def _execute(self, spec: TaskSpec) -> None:
         # caller's context restored around execution: actor-task events
         # carry the trace, and user code in the method inherits it
@@ -204,7 +219,8 @@ class Actor:
         )
         try:
             args, kwargs = resolve_args(self.runtime, spec.args, spec.kwargs)
-            method = getattr(self.instance, spec.method_name)
+            method = self._framework_method(spec.method_name) or getattr(
+                self.instance, spec.method_name)
             if spec.streaming:
                 from ray_tpu_torch.core.scheduler import _execute_streaming
 
@@ -236,7 +252,8 @@ class Actor:
             )
             try:
                 args, kwargs = resolve_args(self.runtime, spec.args, spec.kwargs)
-                method = getattr(self.instance, spec.method_name)
+                method = self._framework_method(spec.method_name) or getattr(
+                    self.instance, spec.method_name)
                 if spec.streaming:
                     await self._stream_async(spec, method, args, kwargs)
                     return

@@ -18,10 +18,9 @@ and its standby, ``"h1:p1,h2:p2"``) attaches this driver to a running GCS
 actors then run in worker processes leased from node daemons, objects live
 in the nodes' shared-memory stores, and every call below goes through the
 cluster backend (``core/cluster_backend.py``), as in the reference.
-
-Not ported (raises ``NotImplementedError`` naming its ROADMAP.md Queue 1
-item 6 part): ``.bind`` on remote functions and actor methods, the DAG
-nodes of ``ray_tpu/dag``.
+``.bind`` on remote functions and actor methods builds the DAG nodes of
+``ray_tpu_torch.dag`` (``experimental_compile`` lowers actor-method
+graphs to compiled DAGs).
 """
 
 from __future__ import annotations
@@ -78,7 +77,6 @@ __all__ = [
 # ---------------------------------------------------------------------------
 
 
-_DAG = "the DAG nodes of ray_tpu/dag (ROADMAP.md Queue 1, item 6, a later part)"
 _RUNTIME_ENV = ("runtime_env needs process-isolated workers: attach to a cluster first "
                 "(ray_tpu_torch.init(address=...))")
 
@@ -242,9 +240,10 @@ class RemoteFunction:
         return RemoteFunction(self._func, _split_task_options(merged))
 
     def bind(self, *args, **kwargs):
-        """A DAG node for workflows and compiled graphs (the reference's
-        FunctionNode): not ported."""
-        raise NotImplementedError(f"{self._func.__name__}.bind: {_DAG}")
+        """Record a DAG node for workflows and compiled graphs."""
+        from ray_tpu_torch.dag.nodes import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(
@@ -271,9 +270,10 @@ class ActorMethod:
         return ActorMethod(self._handle, self._name, num_returns)
 
     def bind(self, *args, **kwargs):
-        """A compiled-graph node (the reference's ClassMethodNode): not
-        ported."""
-        raise NotImplementedError(f"actor method {self._name}.bind: {_DAG}")
+        """Record a compiled-graph node instead of submitting."""
+        from ray_tpu_torch.dag.nodes import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._name, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(

@@ -3,9 +3,8 @@
 
 Upstream Ray's GCS server (src/ray/gcs/gcs_server/: GcsNodeManager,
 GcsActorManager naming, InternalKVManager gcs_kv_manager.h), in process
-for the in-process runtime. Serving it across processes (the reference's
-``cluster/`` GCS) waits for the cluster runtime (ROADMAP.md Queue 1,
-item 6).
+for the in-process runtime. The GCS served across processes is the
+cluster runtime's (``cluster/gcs_service.py``).
 """
 
 from __future__ import annotations

@@ -16,11 +16,11 @@ ride beside the payload without a copy into it); the reference uses
 ``cloudpickle``, which the card's host is not promised to have, and
 nothing serialized here needs it.
 
-Not ported: a store shared across processes (the reference's
-plasma-shaped boundary, shared-memory segments and the node runtime's
-transport), which waits for the cluster runtime (ROADMAP.md Queue 1, item
-6). Anything but an in-process ``ObjectStore`` handed to
-``KVTierConfig(object_store=...)`` raises naming it (``require_local``).
+``KVTierConfig(object_store=...)`` takes any object with the three
+methods the tier calls (``put_serialized``, ``serialized_get``,
+``remove_ref``), as the reference does; ``tier_store`` refuses one that
+lacks them when the config is built, with a ``TypeError`` naming the
+missing methods, where the reference fails at the first spill.
 """
 
 from __future__ import annotations
@@ -36,11 +36,10 @@ import numpy as np
 from ray_tpu_torch.core.errors import GetTimeoutError
 from ray_tpu_torch.utils.ids import ObjectID
 
-__all__ = ["GetTimeoutError", "ObjectID", "ObjectStore", "deserialize", "require_local",
-           "serialize"]
+__all__ = ["GetTimeoutError", "ObjectID", "ObjectStore", "deserialize", "serialize",
+           "tier_store"]
 
-_CLUSTER = ("a store shared across processes is not ported to ray_tpu_torch yet "
-            "(the cluster runtime, ROADMAP.md Queue 1, item 6, B8)")
+TIER_METHODS = ("put_serialized", "serialized_get", "remove_ref")
 
 
 @dataclass
@@ -70,13 +69,14 @@ def deserialize(payload: bytes, buffers: list) -> Any:
     return pickle.loads(payload, buffers=buffers)
 
 
-def require_local(store: Any) -> "ObjectStore":
-    """``store`` when it is an in-process ObjectStore (None: a new private
-    one); anything else would be a store shared across processes."""
+def tier_store(store: Any) -> Any:
+    """The tiered cache's object store: ``store`` itself when it has the
+    methods the tier calls (None: a new private ObjectStore)."""
     if store is None:
         return ObjectStore()
-    if not isinstance(store, ObjectStore):
-        raise NotImplementedError(f"object store {store!r}: {_CLUSTER}")
+    missing = [m for m in TIER_METHODS if not callable(getattr(store, m, None))]
+    if missing:
+        raise TypeError(f"object store {store!r} lacks {', '.join(missing)}")
     return store
 
 

@@ -8,10 +8,9 @@ scheduler. One node, in process. The accelerator resource is ``"GPU"``:
 ``Runtime(num_gpus=)``, detected by ``_detect_gpus`` when not given.
 ``worker_mode="process"`` runs tasks in worker processes
 (``core/process_pool.py``, built at the first such task), each pinned to
-the cards its task was granted.
-
-Not ported: the cluster transport that attaches remote nodes; it waits
-for the cluster runtime (ROADMAP.md Queue 1, item 6).
+the cards its task was granted. Remote nodes are the cluster runtime's
+(``ray_tpu_torch.cluster``), which ``init(address=...)`` attaches to in
+place of this runtime.
 """
 
 from __future__ import annotations

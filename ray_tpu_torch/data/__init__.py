@@ -3,9 +3,10 @@
 Lazy logical plans over columnar numpy blocks, executed by a pull-based
 streaming executor on the port's in-process runtime (``core``, thread
 mode), terminating in ``iter_device_batches``: pinned host batches copied
-to the card one step ahead of the train step, on a side stream. The
-cluster runtime is not ported (ROADMAP.md Queue 1, item 6, part 3), so
-exchanges place no reduce by locality.
+to the card one step ahead of the train step, on a side stream. With the
+driver attached to a cluster (``init(address=...)``) the tasks and actor
+pools run in its workers, and an exchange places each reduce by the
+locality of its inputs (one batched lookup of their holders).
 """
 
 from ray_tpu_torch.data.aggregate import AggregateFn, Count, Max, Mean, Min, Std, Sum

@@ -35,9 +35,9 @@ class KVTierConfig:
     # serialized through core/object_store.py — the plasma-shaped
     # boundary a multi-process deployment would cross.
     object_bytes: int = 256 << 20
-    # optional in-process ObjectStore shared by engines (default: a private
-    # one); entries are namespaced by engine key either way. A store shared
-    # across processes waits for B8 (core/object_store.py)
+    # optional store shared by engines (default: a private ObjectStore):
+    # any object with put_serialized / serialized_get / remove_ref; entries
+    # are namespaced by engine key either way
     object_store: Any = None
     # routing discount per tier (missing tier = 0.0: never preferred)
     tier_weights: tuple = ((TIER_HBM, 1.0), (TIER_HOST, 0.6), (TIER_OBJECT, 0.35))
@@ -78,10 +78,10 @@ class KVTierConfig:
     fetch_max_blocks: int = 64
 
     def __post_init__(self):
-        from ray_tpu_torch.core.object_store import require_local
+        from ray_tpu_torch.core.object_store import tier_store
 
         if self.object_store is not None:
-            require_local(self.object_store)  # a cross-process store raises (B8)
+            tier_store(self.object_store)  # one lacking the tier's methods raises
 
     def weight(self, tier: Optional[str]) -> float:
         for t, w in self.tier_weights:

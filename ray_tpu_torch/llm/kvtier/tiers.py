@@ -63,7 +63,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.chaos import harness as _chaos
-from ray_tpu_torch.core.object_store import ObjectID, deserialize, require_local, serialize
+from ray_tpu_torch.core.object_store import ObjectID, deserialize, serialize, tier_store
 from ray_tpu_torch.llm.kvtier.config import (
     TIER_CODES,
     TIER_HBM,
@@ -228,7 +228,7 @@ class KVTierManager:
         self._root: dict[int, int] = {}
         self._host: "OrderedDict[int, SpilledBlock]" = OrderedDict()
         self._host_bytes = 0
-        self._store = require_local(c.object_store)
+        self._store = tier_store(c.object_store)
         self._obj: "OrderedDict[int, tuple]" = OrderedDict()  # h -> (oid, nbytes, parent, n_prefix)
         self._obj_bytes = 0
         self._pending: "OrderedDict[int, _PendingSpill]" = OrderedDict()

@@ -24,10 +24,8 @@ or a ``DeploymentHandle``, and the replica's constructor receives the
 caller's ``LLMConfig`` by reference, so the engine serves the caller's
 weight tensors, never a copy. ``LLMServer.shutdown`` (the replica's
 shutdown hook) stops the engine loop and frees the engine's KV cache and
-captured graphs.
-
-Not ported: ``build_disagg_openai_app`` (``ray_tpu/serve/disagg.py``,
-ROADMAP.md Queue 1, item 6, a later part).
+captured graphs. ``serve.build_disagg_openai_app`` (``serve/disagg.py``)
+serves a model as a prefill pool and a decode pool instead.
 
 The engine runner differs from the reference's in one way: callers never
 wait behind a running step. ``submit``, ``abort`` and state reads are

@@ -13,8 +13,9 @@ lifecycle spans (``engine.queue_wait``, ``engine.prefill``,
 ``engine.decode_chunk`` / ``engine.mixed_round`` / ``engine.spec_round``,
 ``engine.preempt``, ``engine.recover``, the ``llm.request`` root) and the
 disaggregated orchestrator ``llm.kv_transfer``; ``/v1/requests`` and
-``/v1/requests/{id}/trace`` answer from it. The telemetry reporter and
-store wait for the cluster runtime (ROADMAP.md, Queue 1, B8).
+``/v1/requests/{id}/trace`` answer from it. ``telemetry``'s
+``TelemetryReporter`` pushes a process's series to the GCS, whose
+``TelemetryStore`` aggregates them for the cluster.
 """
 
 from ray_tpu_torch.obs.context import (

@@ -9,10 +9,9 @@ in-process runtime (``ray_tpu_torch.core``) or, with the driver attached to
 a cluster, on its worker processes. ``llm.build_openai_app`` serves a model
 through it, and ``build_disagg_openai_app`` (``serve/disagg.py``) serves one
 as a prefill pool, a decode pool and an ingress that pins each decode wait
-to the replica holding the request's KV.
-
-Not ported: the gRPC and RPC ingresses (``start_grpc_ingress``,
-``start_rpc_ingress`` raise); ROADMAP.md Queue 1, item 6, part 5.
+to the replica holding the request's KV. ``start_rpc_ingress`` and
+``start_grpc_ingress`` open the framed-RPC and gRPC front doors beside the
+HTTP proxy (``serve/rpc_ingress.py``, ``serve/grpc_ingress.py``).
 """
 
 from ray_tpu_torch.serve.api import (

@@ -6,10 +6,9 @@ Upstream analog: python/ray/serve/api.py (serve.run :591,
 deployment graph binding (Deployment.bind -> Application). The controller
 is a detached named actor (CONTROLLER_NAME) of the in-process runtime,
 found or created on demand. ``ray_actor_options`` takes ``num_gpus``.
-
-Not ported: ``start_grpc_ingress`` and ``start_rpc_ingress`` (the
-reference's gRPC and framed-RPC front doors) raise
-``NotImplementedError`` naming ROADMAP.md Queue 1, item 6 (a later part).
+Beside the HTTP proxy, ``start_rpc_ingress`` and ``start_grpc_ingress``
+open the framed-RPC and gRPC front doors: one of each kind, stopped by
+``shutdown`` before the controller.
 """
 
 from __future__ import annotations
@@ -195,19 +194,46 @@ def start(http_options: Optional[HTTPOptions] = None, **kwargs) -> None:
             _proxy = HTTPProxy(http_options.host, http_options.port, controller)
 
 
-_INGRESSES = ("the gRPC and RPC ingresses are not ported to ray_tpu_torch yet "
-              "(ROADMAP.md Queue 1, item 6, a later part); serve over HTTP "
-              "(serve.start) or a DeploymentHandle")
+_rpc_ingress = None
+_grpc_ingress = None
+
+
+def _get_or_create_ingress(kind: str, factory, host: str, port: int):
+    """One ingress of each kind. Asking for another address than the live
+    one's raises: handing back an ingress elsewhere would leave external
+    clients on a dead port."""
+    global _rpc_ingress, _grpc_ingress
+    controller = _get_controller_handle()
+    with _lock:
+        current = _grpc_ingress if kind == "grpc" else _rpc_ingress
+        if current is None:
+            current = factory(host, port, controller)
+            if kind == "grpc":
+                _grpc_ingress = current
+            else:
+                _rpc_ingress = current
+        elif (host, port) != ("127.0.0.1", 0) and (
+                current.addr[0] != host or (port != 0 and current.addr[1] != port)):
+            raise RuntimeError(f"{kind} ingress already bound at {current.addr}; cannot rebind "
+                               f"to ({host}, {port}); serve.shutdown() first")
+        return current
 
 
 def start_grpc_ingress(host: str = "127.0.0.1", port: int = 0):
-    """The reference's standards-based gRPC front door: not ported."""
-    raise NotImplementedError(f"start_grpc_ingress: {_INGRESSES}")
+    """Start the standards-based gRPC front door: any generated client stub
+    works, deployments exchange serialized protobuf bytes. Returns the
+    ingress; its ``.addr`` is the bound address."""
+    from ray_tpu_torch.serve.grpc_ingress import GrpcIngress
+
+    return _get_or_create_ingress("grpc", GrpcIngress, host, port)
 
 
 def start_rpc_ingress(host: str = "127.0.0.1", port: int = 0):
-    """The reference's framed-RPC front door: not ported."""
-    raise NotImplementedError(f"start_rpc_ingress: {_INGRESSES}")
+    """Start the binary front door over the framed-RPC plane; returns the
+    ingress with its bound ``.addr``."""
+    from ray_tpu_torch.serve.rpc_ingress import RpcIngress
+
+    return _get_or_create_ingress("rpc", RpcIngress, host, port)
 
 
 def _collect_deployments(app: Application):
@@ -348,14 +374,20 @@ def delete(name: str) -> None:
 
 
 def shutdown() -> None:
-    global _controller_handle, _proxy
+    global _controller_handle, _proxy, _rpc_ingress, _grpc_ingress
     import ray_tpu_torch
     from ray_tpu_torch.serve.handle import _drop_routers
 
     _drop_routers()
     with _lock:
         proxy, _proxy = _proxy, None
+        ingress, _rpc_ingress = _rpc_ingress, None
+        gingress, _grpc_ingress = _grpc_ingress, None
         controller, _controller_handle = _controller_handle, None
+    if gingress is not None:
+        gingress.shutdown()
+    if ingress is not None:
+        ingress.shutdown()
     if proxy is not None:
         proxy.shutdown()
     if controller is not None:

@@ -6,10 +6,12 @@ generators, actors, named, killed and restarted actors, async actors) runs
 on both packages, each with its own process-global runtime started and
 torn down by the fixture: the values must be equal and the error types
 must have the same names. Then what is the port's own: tensors through
-``put``/``get`` by reference, the ``"GPU"`` resource, and the unported
-parts that raise ``NotImplementedError`` naming their ROADMAP item
-(``worker_mode="process"`` and ``init(address=...)``, ported since, now
-run a task in a worker process instead).
+``put``/``get`` by reference, the ``"GPU"`` resource, and the parts that
+once raised ``NotImplementedError`` naming their ROADMAP item, each ported
+since: ``worker_mode="process"`` and ``init(address=...)`` run a task in a
+worker process, and ``.bind`` on a remote function and an actor method
+builds the reference's DAG nodes (the actor method's compiled and run on
+both packages).
 """
 
 import asyncio
@@ -466,19 +468,42 @@ def test_unported_parts_raise(port_rt, case):
             c.shutdown()
         assert c.leftovers() == {"processes": [], "store_files": []}
         return
-    port_rt.init(num_cpus=2)
+    # ported since: .bind builds the same DAG nodes as the reference's, and
+    # an actor method's node compiles and runs there
+    answers = {}
+    for name, (api, runtime, serve) in PACKAGES.items():
+        _reset(runtime, serve)
+        api.init(num_cpus=2)
+        try:
+            answers[name] = _bind_case(api, case)
+        finally:
+            _reset(runtime, serve)
+    assert answers["port"] == answers["ref"]
+
+
+def _bind_case(api, case: str) -> tuple:
     if case == "task_bind":
-        with pytest.raises(NotImplementedError, match="ray_tpu/dag"):
-            port_rt.remote(lambda: 1).bind()
-        return
+        def double(x, y=0):
+            return 2 * x + y
 
-    @port_rt.remote
+        node = api.remote(double).bind(3, y=1)
+        return type(node).__name__, node.args, node.kwargs, node.task_name, node.upstream
+
+    import importlib
+
     class A:
-        def m(self):
-            return 1
+        def m(self, x, y=0):
+            return x + y
 
-    with pytest.raises(NotImplementedError, match="ray_tpu/dag"):
-        A.remote().m.bind()
+    dag = importlib.import_module(f"{api.__name__}.dag")
+    with dag.InputNode() as inp:
+        node = api.remote(A).remote().m.bind(inp, y=1)
+    compiled = node.experimental_compile()
+    try:
+        out = [compiled.execute(i).get(timeout=WAIT_S) for i in range(3)]
+    finally:
+        compiled.teardown()
+    return type(node).__name__, node.method_name, node.kwargs, out
 
 
 def test_two_runtimes_in_one_process(port_rt):

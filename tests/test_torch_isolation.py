@@ -311,3 +311,71 @@ print("ok")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-3000:]
+
+
+def test_grpc_is_imported_only_inside_the_grpc_ingress():
+    """The one ``import grpc`` of the package is in ``GrpcIngress.__init__``;
+    ``chip_smoke.py`` imports it only inside its gRPC leg, which runs where
+    ``grpc`` is installed."""
+    pat = re.compile(r"^\s*(import|from)\s+grpc(\.|\s|$)")
+    found = []
+    for path in _port_files():
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                if pat.match(line):
+                    found.append((os.path.relpath(path, REPO), line.startswith((" ", "\t"))))
+    assert found == [("chip_smoke.py", True), ("ray_tpu_torch/serve/grpc_ingress.py", True)], \
+        found
+
+
+def test_dag_and_rpc_ingress_import_and_run_without_jax_or_grpc():
+    """``ray_tpu_torch.dag`` and ``ray_tpu_torch.serve.rpc_ingress`` import
+    with jax, optax, the JAX package, triton and grpc blocked; a compiled
+    DAG runs over in-process actors and a deployment answers through the
+    RPC ingress; only the gRPC ingress needs grpc."""
+    code = """
+import sys
+for name in ("jax", "jaxlib", "optax", "ray_tpu", "triton", "grpc"):
+    sys.modules[name] = None
+import ray_tpu_torch
+import ray_tpu_torch.dag, ray_tpu_torch.dag.shm_channel, ray_tpu_torch.dag.socket_channel
+import ray_tpu_torch.serve.rpc_ingress, ray_tpu_torch.serve.grpc_ingress
+from ray_tpu_torch import serve
+from ray_tpu_torch.dag import InputNode
+from ray_tpu_torch.serve.rpc_ingress import rpc_ingress_call
+ray_tpu_torch.init(num_cpus=4)
+
+@ray_tpu_torch.remote
+class Stage:
+    def __init__(self, k):
+        self.k = k
+
+    def apply(self, x):
+        return x * self.k
+
+a, b = Stage.remote(2), Stage.remote(5)
+with InputNode() as inp:
+    dag = b.apply.bind(a.apply.bind(inp)).experimental_compile()
+assert [dag.execute(i).get(timeout=60) for i in range(3)] == [0, 10, 20]
+dag.teardown()
+
+@serve.deployment
+def double(x):
+    return 2 * x
+
+serve.run(double.bind(), name="d", route_prefix="/d", _start_proxy=False)
+ing = serve.start_rpc_ingress()
+assert rpc_ingress_call(ing.addr, 21, timeout=60) == 42
+try:
+    serve.start_grpc_ingress()
+    raise AssertionError("the gRPC ingress started without grpc")
+except ImportError:
+    pass
+serve.shutdown()
+ray_tpu_torch.shutdown()
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-3000:]

@@ -9,7 +9,7 @@ greedy tokens, ``num_cached_tokens``, ``peek_prefix_tiered``,
 equal the reference's, and a spilled block's pages equal the reference's
 within 2e-5, for the host and the object tier, a corrupt and a dropped
 spill, and mid-chain adoption. The other cases of the reference's file run
-on the port alone (the GCS and serve ones wait for B8): seeded identity,
+on the port alone: seeded identity,
 the mid-gather probe, re-spill accounting, the index flush retry,
 invalidation, the index's staleness, ``best_prefix_replica``, the
 orchestrator's prefix-aware picks (against the reference orchestrator's),
@@ -575,10 +575,34 @@ def test_best_prefix_replica_equals_reference(i):
     assert got == expected
 
 
-def test_gcs_index_and_shared_store_refused_naming_b8():
+class _DuckStore:
+    """A store that is no ObjectStore: the three methods the tier calls,
+    forwarded to a package's own store, the puts counted."""
+
+    def __init__(self, inner):
+        self.inner, self.puts = inner, 0
+
+    def put_serialized(self, obj_id, payload, buffers):
+        self.puts += 1
+        self.inner.put_serialized(obj_id, payload, buffers)
+
+    def serialized_get(self, obj_id, timeout=None):
+        return self.inner.serialized_get(obj_id, timeout=timeout)
+
+    def remove_ref(self, obj_id, n=1):
+        self.inner.remove_ref(obj_id, n)
+
+
+def test_gcs_index_and_shared_store_refused_naming_b8(engines):
     """The GCS-backed index builds against a GCS (an engine's tiered cache
-    publishes through it); a cross-process object store is still refused
-    naming B8."""
+    publishes through it). A shared store that is not an ``ObjectStore``
+    but has the tier's three methods is accepted by both packages, and the
+    object tier spills into it: tokens, cached tokens, prefix counts and
+    tier counts equal the reference's. One that lacks them: the reference
+    accepts it and fails at the first spill, the port refuses it when the
+    config is built, naming the missing methods (ROADMAP.md Queue 3,
+    pinned)."""
+    from ray_tpu.core.object_store import ObjectStore as JObjectStore
     from ray_tpu_torch.cluster.gcs_service import GcsServer
     from ray_tpu_torch.cluster.rpc import ReconnectingRpcClient
 
@@ -592,7 +616,21 @@ def test_gcs_index_and_shared_store_refused_naming_b8():
     finally:
         client.close()
         server.stop()
-    with pytest.raises(NotImplementedError, match="B8"):
+    got, ducks = {}, {}
+    for pkg, cfg, inner in (("ref", JKVTierConfig, JObjectStore), ("port", KVTierConfig,
+                                                                   ObjectStore)):
+        ducks[pkg] = _DuckStore(inner())
+        kvt = cfg(host_bytes=1, object_bytes=256 << 20, object_store=ducks[pkg])
+        assert kvt.object_store is ducks[pkg]
+        got[pkg] = _scenario(engines, pkg, kvtier=kvt)
+    ref, port = got["ref"], got["port"]
+    for key in ("tokens", "cached", "prefix_cache", "kv_tiers", "first"):
+        assert port[key] == ref[key], key
+    assert ducks["port"].puts == ducks["ref"].puts > 0
+    assert port["prefix_cache"]["by_tier"].get("object", 0) >= len(SYS)
+    # lacking the methods: accepted by the reference's config, refused by the port's
+    assert JKVTierConfig(object_store="tcp://store:1").object_store == "tcp://store:1"
+    with pytest.raises(TypeError, match="put_serialized, serialized_get, remove_ref"):
         EngineConfig(model=FP32_TINY, **ENGINE_KW, kvtier={"object_store": "tcp://store:1"})
     # an in-process store shared by engines is fine
     store = ObjectStore()

@@ -12,8 +12,9 @@ posted request stays counted until the loop has added it to the engine.
 And the port's chaos-hook lint: every ``fire`` hook site of the package is
 listed in ``HOOK_SITES`` and sits behind the ``ACTIVE`` fast path (its
 allowlist of unguarded sites is empty); the GCS standby's, the chaos
-runner's and the telemetry store's threads and locks are in what the
-passes see.
+runner's and the telemetry store's threads and locks, and the compiled
+DAG's (its input prefetch, its collective loops, the socket channel's
+accept, close-poll, reader and ack threads), are in what the passes see.
 """
 
 import threading
@@ -68,11 +69,20 @@ def _model(rel_suffix: str) -> lockmodel.FileModel:
 
 
 def _thread_names(model) -> set:
+    """The names the file's threads are started with; an f-string name as
+    its constant head and ``*``."""
+    import ast
+
     out = set()
     for th in model.threads:
         for kw in th.node.keywords:
-            if kw.arg == "name" and isinstance(getattr(kw.value, "value", None), str):
+            if kw.arg != "name":
+                continue
+            if isinstance(getattr(kw.value, "value", None), str):
                 out.add(kw.value.value)
+            elif isinstance(kw.value, ast.JoinedStr) and kw.value.values \
+                    and isinstance(kw.value.values[0], ast.Constant):
+                out.add(kw.value.values[0].value + "*")
     return out
 
 
@@ -104,13 +114,24 @@ def test_tier_workers_and_locks_are_linted(rel, cls, thread, guarded):
     ("serve/router.py", "Router", None,
      {"_replicas": "_lock", "_inflight": "_lock", "_last_refresh": "_lock", "_suspect": "_lock"}),
     ("serve/proxy.py", "HTTPProxy", "serve-http-proxy", {}),
+    ("serve/routes.py", "AppResolver", None, {}),
+    ("dag/compiled.py", "CompiledDAG", "dag-input-prefetch", {"_seq": "_lock", "_fetched": "_lock"}),
+    ("dag/compiled.py", "CompiledDAG", "dag-collective-*", {"_seq": "_lock"}),
+    ("dag/socket_channel.py", "_WriterServer", "dagchan-accept-*",
+     {"buffer": "lock", "acked": "lock", "closed": "lock"}),
+    ("dag/socket_channel.py", "_WriterServer", "dagchan-poll-*", {"closed": "lock"}),
+    ("dag/socket_channel.py", "_WriterServer", "dagchan-reader-*", {"buffer": "lock"}),
+    ("dag/socket_channel.py", "_WriterServer", "dagchan-ack-*", {"acked": "lock"}),
 ])
 def test_runtime_and_serve_threads_and_locks_are_linted(rel, cls, thread, guarded):
-    """The in-process runtime's and Serve's threads and locks are in what
-    the passes see, so the clean gate above covers them."""
+    """The in-process runtime's, Serve's and the compiled DAG's threads and
+    locks (the ingresses' ``AppResolver._lock`` too) are in what the passes
+    see, so the clean gate above covers them."""
     m = _model(rel)
     if thread is not None:
         assert thread in _thread_names(m)
+    if not guarded:
+        assert any(name.startswith(f"{cls}.") for name in m.locks), m.locks
     guards = lock_guards.infer_guards(m)
     for attr, lock in guarded.items():
         assert guards.get((cls, attr)) == f"{cls}.{lock}", attr
@@ -165,6 +186,8 @@ HOOK_SITES = {
     "gcs.call": "cluster/rpc.py",
     "node.heartbeat": "cluster/node_daemon.py",
     "cluster.push": "cluster/client.py",
+    "dag.channel.send": "dag/channels.py",
+    "dag.channel.recv": "dag/channels.py",
 }
 # hook sites audited as safe without the ``ACTIVE`` guard: none
 UNGUARDED_HOOK_ALLOWLIST: dict = {}

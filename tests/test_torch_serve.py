@@ -1,15 +1,17 @@
 """The port's Serve held against ray_tpu's.
 
-The scenarios of ``tests/test_serve.py`` but its RPC and gRPC ingresses
-(deploy, replicas and methods, composition, responses as arguments, user
-config, status and delete, autoscaling, streaming, a broken deployment,
-the shutdown hook, the HTTP proxy end to end) run on both packages, each
-on its own in-process runtime: results and HTTP statuses must be equal.
+The scenarios of ``tests/test_serve.py`` (deploy, replicas and methods,
+composition, responses as arguments, user config, status and delete,
+autoscaling, streaming, a broken deployment, the shutdown hook, the HTTP
+proxy end to end) run on both packages, each on its own in-process
+runtime: results and HTTP statuses must be equal.
 The port's proxy is the standard library's ``ThreadingHTTPServer``, the
 reference's aiohttp; both are driven with ``urllib.request`` on a free
 port. A ``KILL_REPLICA`` fault at the replica's ``serve.replica`` site
 must be failed over by the router on both, and a replica the chaos runner
-kills through the controller's ``kill_replica`` must be replaced.
+kills through the controller's ``kill_replica`` must be replaced. The RPC
+and gRPC ingresses answer a call equally on both; their reference
+scenarios are in ``tests/test_torch_serve_ingress.py``.
 """
 
 import importlib
@@ -353,9 +355,37 @@ def test_http_proxy_end_to_end(pkg):
 
 
 def test_unported_ingresses_raise():
-    for fn in (tserve.start_grpc_ingress, tserve.start_rpc_ingress):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 6"):
-            fn()
+    """Ported since: both front doors start on both packages and answer a
+    deployment's call equally (``tests/test_torch_serve_ingress.py`` holds
+    the reference scenarios)."""
+    import grpc
+
+    from ray_tpu.serve.rpc_ingress import rpc_ingress_call as jcall
+    from ray_tpu_torch.serve.rpc_ingress import rpc_ingress_call as tcall
+
+    answers = {}
+    for name, call in (("ref", jcall), ("port", tcall)):
+        api, serve, runtime = PACKAGES[name]
+        _reset(serve, runtime)
+        api.init(num_cpus=4)
+        try:
+            @serve.deployment
+            def echo(x):
+                return x if isinstance(x, bytes) else {"echo": x}
+
+            serve.run(echo.bind(), name="echo", route_prefix="/echo", _start_proxy=False)
+            rpc, gr = serve.start_rpc_ingress(), serve.start_grpc_ingress()
+            chan = grpc.insecure_channel(f"{gr.addr[0]}:{gr.addr[1]}")
+            try:
+                via_grpc = chan.unary_unary("/e.E/Call", request_serializer=lambda b: b,
+                                            response_deserializer=lambda b: b)(
+                    b"ping", timeout=WAIT_S)
+            finally:
+                chan.close()
+            answers[name] = (call(rpc.addr, 7, timeout=WAIT_S), via_grpc)
+        finally:
+            _reset(serve, runtime)
+    assert answers["port"] == answers["ref"] == ({"echo": 7}, b"ping")
 
 
 CHAOS = {"ref": jchaos, "port": tchaos}
