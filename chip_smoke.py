@@ -149,7 +149,7 @@ Phases, each printing one JSON line:
            routes by the app's prefix index. The api phase's 12
            completions through the ingress handle, each on its own client
            thread: a first pass (K3/K4 counted per engine from its loop
-           thread's tally, eager and in replays), a second, then the two
+           thread's tally, eager and in replays), then the two
            shared-prefix requests again. Fails unless every completion has
            its 32 tokens or a stop, K4 launched on the prefill engine and
            K3 on the decode engine, the 12 first-pass handoffs went by the
@@ -159,7 +159,25 @@ Phases, each printing one JSON line:
            serve.shutdown() both loops exited and the card's allocated
            memory fell by at least the two KV caches' bytes. Reports TTFT
            (at the prefill engine) and tok/s a pass, captures per engine,
-           send ms per handoff, the greedy streams against the api phase's
+           send ms per handoff, the greedy streams against the api phase's.
+           Then its autoscale leg on the same app: a GcsServer in the
+           process fed by a TelemetryReporter, and a PoolAutoscaler over
+           the real autoscale_signals RPC acting through a
+           ServePoolActuator (prefill pool 1-2, decode 1-1). A warm
+           single-request TTFT sets the TTFT threshold (a stated multiple,
+           percentile and count); the 12 completions with their first
+           character shifted (no prefix-cache hit) sent at once breach it;
+           a STALL_GCS window of 3 ticks lands while the breach builds;
+           quiet single requests one at a time follow until the pool has
+           drained back to 1. Fails unless the pool reaches 2 within 60 s
+           of the first breached tick by a scale_up, the decode pool takes
+           no action, the stall gives exactly 3 dark ticks and no action and
+           the window is re-earned after it, the added engine holds the
+           caller's tensors and launches K4 (its loop thread's tally), no
+           request is lost, the drained replica's loop exits, the card's
+           allocated memory is back within 64 MB of its value before the
+           scale-up, and the GCS's autoscale block shows the scale-up, the
+           scale-down and a prefill target of 1
   data     offline batch inference at LLAMA3_8B through the port's
            datasets: build_processor(ProcessorConfig(...)) over
            data.from_items of 48 text prompts (64-1536 bytes, numpy seed
@@ -429,7 +447,14 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}    # dense; fp32 without
 BANDS = {"bfloat16": 2e-2, "float32": 2e-5}
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print ``obj`` as one JSON line; a phase's line gains ``t_s``, the
+    script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1817,12 +1842,13 @@ def _profile_serving(eng, prompts, sps, lora_ids=None) -> dict:
                         for k, t, n in kernels],
         }
     # step windows (host clock of the trace) and kernel intervals
-    steps = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CPU and e.name == "chip_smoke.step")
+    events = _trace_events(prof)
+    steps = sorted((s, e) for name, dt, s, e, _ in events
+                   if dt == DeviceType.CPU and name == "chip_smoke.step")
     if len(steps) != len(kinds):
         raise AssertionError(f"{len(steps)} step ranges in the trace for {len(kinds)} steps")
-    spans = _merged(sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                           if e.device_type == DeviceType.CUDA and e.name not in ANNOTATIONS))
+    spans = _merged(sorted((s, e) for name, dt, s, e, _ in events
+                           if dt == DeviceType.CUDA and name not in ANNOTATIONS))
     mixed = [w for w, k in zip(steps, kinds) if k == "mixed"]
     whole = [(steps[0][0], max(steps[-1][1], spans[-1][1] if spans else steps[-1][1]))]
     whole_us = whole[0][1] - whole[0][0]
@@ -1881,13 +1907,46 @@ GEMM_WORDS = ("nvjet", "gemm", "Gemm", "cutlass", "xmma")
 ANNOTATIONS = ("chip_smoke.step",)
 
 
+def _trace_events(prof) -> list:
+    """The trace's device events and the script's own host ranges, as
+    (name, device type, start us, end us, async), read from the profiler's
+    raw kineto results with ``prof.events()``'s filters, demangled names and
+    times: the same intervals without building its FunctionEvent list,
+    which takes seconds a pass at 8B."""
+    cached = getattr(prof, "_chip_smoke_events", None)
+    if cached is not None:
+        return cached
+    import torch
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name
+
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    names: dict = {}
+    out = []
+    for e in res.events():
+        dt, raw = e.device_type(), e.name()
+        if dt == DeviceType.CPU and raw not in ANNOTATIONS:
+            continue
+        if _filter_name(raw) or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        name = names.get(raw)
+        if name is None:
+            name = names[raw] = torch._C._demangle(raw) if len(raw) > 1 else raw
+        out.append((name, dt, (e.start_ns() - t0) / 1000, (e.end_ns() - t0) / 1000,
+                    e.is_async() or e.start_thread_id() != e.end_thread_id()))
+    prof._chip_smoke_events = out
+    return out
+
+
 def _device_time(prof):
     """(device busy ms as the union of kernel intervals, or None without
     device events; [(kernel name, device ms, calls)] largest first)."""
     from torch.autograd import DeviceType
 
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and e.name not in ANNOTATIONS)
+    dev = [ev for ev in _trace_events(prof)
+           if ev[1] == DeviceType.CUDA and ev[0] not in ANNOTATIONS]
+    spans = sorted((s, e) for _, _, s, e, _ in dev)
     busy_us, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -1897,13 +1956,14 @@ def _device_time(prof):
             cur_e = max(cur_e, e)
     if cur_e is not None:
         busy_us += cur_e - cur_s
-    # device-side entries only (an aten op's entry repeats its kernels' time)
-    by_name = sorted(
-        ((a.key, a.self_device_time_total / 1e3, a.count) for a in prof.key_averages()
-         if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0
-         and a.key not in ANNOTATIONS),
-        key=lambda x: -x[1],
-    )
+    # device time by kernel name (an async entry counts no device time, as
+    # in prof.key_averages())
+    acc: dict = {}
+    for name, _, s, e, is_async in dev:
+        ms_n = acc.setdefault(name, [0.0, 0])
+        ms_n[0] += 0.0 if is_async else (e - s) / 1e3
+        ms_n[1] += 1
+    by_name = sorted(((k, ms, n) for k, (ms, n) in acc.items() if ms > 0), key=lambda x: -x[1])
     return (busy_us / 1e3 if spans else None), by_name
 
 
@@ -3001,6 +3061,383 @@ def _disagg_serve_pass(handle, bodies, recorded: dict) -> dict:
             "texts": [o["choices"][0]["text"] for o in outs]}
 
 
+# the autoscale leg: thresholds from a warm single request's TTFT at the
+# prefill engine (the median of AUTOSCALE_BASE_N), multiplied and then
+# rounded up to the TTFT histogram's next boundary (a percentile over the
+# merged buckets reads a bucket's upper boundary, so a threshold between
+# two boundaries would grade a sample by the boundary above it anyway)
+AUTOSCALE_TTFT_MULT = 2.0
+AUTOSCALE_PERCENTILE = 50.0
+AUTOSCALE_MIN_COUNT = 4
+AUTOSCALE_BASE_N = 3
+AUTOSCALE_QUIET_LEN = 128      # tokens of a warm / quiet request's prompt (BOS included)
+AUTOSCALE_QUIET_MAX = 80       # quiet requests at most before the pool must be back at 1
+AUTOSCALE_QUIET_AFTER = 2      # quiet requests served after the drain
+AUTOSCALE_QUIET_GAP_S = 0.1
+AUTOSCALE_INTERVAL_S = 0.5
+AUTOSCALE_STALL_TICKS = 3
+AUTOSCALE_MEM_SLACK = 64 << 20
+AUTOSCALE_WAIT_S = 60.0        # every wait of the leg fails past this
+
+
+def _salted(body: dict) -> dict:
+    """``body`` with its prompt's first character moved one place along the
+    printable range: same length, so the same batch shapes, and no block of
+    it in any prefix cache."""
+    p = body["prompt"]
+    return {**body, "prompt": chr(32 + (ord(p[0]) - 31) % 95) + p[1:]}
+
+
+def _watch_tally(srv, marks: dict) -> None:
+    """Keep ``marks`` equal to ``srv``'s serving kernels' launches (its loop
+    thread's tally, its graph families' replays and captures) after every
+    step of its loop: they stay readable after the loop has exited and the
+    thread's tally is gone."""
+    from ray_tpu_torch.ops.paged_attention import thread_launches
+
+    loop, step = srv._loop, srv._loop._step_fn
+
+    def counted():
+        try:
+            return step()
+        finally:
+            tally = thread_launches()
+            fams = _families(srv.engine)
+            marks.update({n: {"tally": tally.get(n, 0),
+                              "replayed": sum(g.launches.get(n, 0) for g in fams),
+                              "captured": sum(g.captured_launches.get(n, 0) for g in fams)}
+                          for n in ("paged_attention", "ragged_attention")})
+
+    loop._step_fn = counted
+
+
+def _leg_wait(cond, what: str, timeout_s: float = AUTOSCALE_WAIT_S, poll_s: float = 0.01):
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"serve_disagg autoscale: waited {timeout_s} s for {what}")
+        time.sleep(poll_s)
+
+
+def _stall_watch(auto, out: dict, stop) -> None:
+    """Install STALL_GCS on ``autoscale_signals`` (max_fires 3) right after
+    the first tick at which the prefill pool's up-window started building
+    (its breach or span-sized streak at 1), and take it out once the three
+    stalled ticks have run."""
+    from ray_tpu_torch import chaos
+
+    try:
+        while not stop.is_set():
+            st = auto.policy.state("prefill")
+            if st.breach_streak or st.sized_streak:
+                dark0 = auto.num_dark_ticks
+                chaos.install(chaos.FaultSchedule(22, [chaos.FaultSpec(
+                    chaos.STALL_GCS, site="gcs.call", match={"method": "autoscale_signals"},
+                    max_fires=AUTOSCALE_STALL_TICKS)]))
+                out.update(installed_at_tick=auto.num_ticks, t_installed=time.monotonic(),
+                           streaks=(st.breach_streak, st.sized_streak), dark_before=dark0,
+                           log_len=len(auto.decision_log()))
+                deadline = time.monotonic() + AUTOSCALE_WAIT_S
+                while auto.num_dark_ticks < dark0 + AUTOSCALE_STALL_TICKS:
+                    if time.monotonic() > deadline:
+                        out["error"] = "the stalled ticks never ran"
+                        return
+                    time.sleep(0.005)
+                chaos.uninstall()
+                out.update(uninstalled_at_tick=auto.num_ticks, t_uninstalled=time.monotonic())
+                return
+            time.sleep(0.005)
+    finally:
+        chaos.uninstall()
+
+
+def _autoscale_leg(dev, handle, prefill, decode, params, bodies, recorded) -> dict:
+    """The serve_disagg phase's autoscale leg (see the module docstring).
+    Returns its report, with ``survivor``: the prefill replica left
+    serving."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.autoscale import (
+        ACTION_HOLD, ACTION_SCALE_DOWN, ACTION_SCALE_UP, POOL_DECODE, POOL_PREFILL,
+        AutoscaleConfig, PoolAutoscaler, PoolLimits, ServePoolActuator)
+    from ray_tpu_torch.cluster.gcs_service import GcsServer
+    from ray_tpu_torch.cluster.rpc import ReconnectingRpcClient
+    from ray_tpu_torch.models.llama import sorted_leaves
+    from ray_tpu_torch.obs.slo import ttft_histogram
+    from ray_tpu_torch.obs.telemetry import TelemetryReporter
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from ray_tpu_torch.ops.ragged import ragged_attention_cuda
+    from ray_tpu_torch.util.metrics import clear_registry
+
+    t_leg = time.perf_counter()
+    rng = np.random.default_rng(22)
+
+    def quiet_body():
+        n = AUTOSCALE_QUIET_LEN - 1  # BOS
+        text = rng.integers(32, 127, size=n).astype(np.uint8).tobytes().decode()
+        return {"prompt": text, "max_tokens": 32, "temperature": 0.0}
+
+    def post(body):
+        o = handle.remote(ApiRequest("POST", "/v1/completions", body)).result(timeout_s=600)
+        if "choices" not in o:
+            raise AssertionError(f"serve_disagg autoscale: a request failed: {o}")
+        k, reason = o["usage"]["completion_tokens"], o["choices"][0]["finish_reason"]
+        if not (k == 32 or reason == "stop"):
+            raise AssertionError(f"serve_disagg autoscale: {k} tokens, finish {reason!r}, "
+                                 "not 32 or a stop")
+        return o
+
+    def ttfts(rids):
+        return [recorded[r].t_first_token - recorded[r].arrival for r in rids]
+
+    # warm the single-request buckets on both engines, then start the
+    # telemetry from a registry holding no earlier phase's series (the
+    # grades are the worst over every model tag the GCS holds)
+    for _ in range(2):
+        post(quiet_body())
+    clear_registry()
+    server = GcsServer(port=0)
+    addr = server.start()
+    res: dict = {}
+    reporter = gcs = auto = None
+    stop_watch = threading.Event()
+    try:
+        reporter = TelemetryReporter(addr, reporter_id="serve_disagg", kind="engine",
+                                     interval_s=AUTOSCALE_INTERVAL_S / 2)
+        gcs = ReconnectingRpcClient(*addr, timeout=5).connect()
+        reporter.start()
+        recorded.clear()
+        for _ in range(AUTOSCALE_BASE_N):
+            post(quiet_body())
+        base = float(np.median(ttfts(list(recorded))))
+        want = AUTOSCALE_TTFT_MULT * base
+        bounds = ttft_histogram().boundaries
+        thr = next((b for b in bounds if b >= want), bounds[-1])
+        thresholds = {"ttft_p_s": thr, "percentile": AUTOSCALE_PERCENTILE,
+                      "min_count": AUTOSCALE_MIN_COUNT}
+        res["thresholds"] = {**thresholds, "warm_single_ttft_s": base,
+                             "multiple": AUTOSCALE_TTFT_MULT,
+                             "rule": "multiple x the median warm single-request TTFT at the "
+                                     "prefill engine, rounded up to the next TTFT bucket "
+                                     "boundary"}
+
+        class Actuator(ServePoolActuator):
+            """Reads the card's allocated bytes just before a scale-up."""
+            mem_before_up = None
+
+            def apply(self, decision):
+                if decision.action == ACTION_SCALE_UP and self.mem_before_up is None:
+                    self.mem_before_up = torch.cuda.memory_allocated(dev)
+                super().apply(decision)
+
+        act = Actuator(serve.api._get_controller_handle())
+        auto = PoolAutoscaler(
+            AutoscaleConfig(pools={POOL_PREFILL: PoolLimits(1, 2), POOL_DECODE: PoolLimits(1, 1)},
+                            breach_ticks=2, green_ticks=3, scale_up_cooldown_s=0.0,
+                            scale_down_cooldown_s=2.0, interval_s=AUTOSCALE_INTERVAL_S),
+            act, gcs=gcs, thresholds=thresholds, log_len=1 << 14)
+        pools = {"prefill": _replica_pool(prefill), "decode": _replica_pool(decode)}
+        # the leg's K3/K4: the counters zeroed just before it, read after
+        paged_attention_cuda.launches = 0
+        ragged_attention_cuda.launches = 0
+        before = {r: _pool_marks(p) for r, p in pools.items()}
+        marks1: dict = {}  # the first prefill replica's, readable if it is the one drained
+        _watch_tally(prefill, marks1)
+        fam_before = {n: sum(g.launches.get(n, 0) - g.captured_launches.get(n, 0)
+                             for srv in (prefill, decode) for g in _families(srv.engine))
+                      for n in ("paged_attention", "ragged_attention")}
+        auto.start()
+        watch: dict = {}
+        watcher = threading.Thread(target=_stall_watch, args=(auto, watch, stop_watch),
+                                   name="chip-smoke-stall-watch", daemon=True)
+        watcher.start()
+
+        # the burst: the 12 at once, each on its own client thread
+        recorded.clear()
+        burst = [_salted(b) for b in bodies]
+        torch.cuda.synchronize()
+        with ThreadPoolExecutor(len(burst)) as pool:
+            t0 = time.perf_counter()
+            outs = [f.result() for f in [pool.submit(post, b) for b in burst]]
+            burst_wall = time.perf_counter() - t0
+        tt = ttfts(list(recorded))
+        toks = sum(o["usage"]["completion_tokens"] for o in outs)
+        res["burst"] = {"requests": len(outs), "wall_s": burst_wall, "output_tokens": toks,
+                        "output_tok_per_s": toks / burst_wall,
+                        "ttft_s": {"p50": float(np.percentile(tt, 50)),
+                                   "p95": float(np.percentile(tt, 95)),
+                                   "min": min(tt), "max": max(tt)},
+                        "greedy_streams_vs_api_phase": "not compared: the prompts' first "
+                                                       "character is shifted"}
+
+        # the scale-up, and the stall window while its breach built
+        ups = _leg_wait(lambda: [e for e in auto.decision_log()
+                                 if e["pool"] == "prefill" and e["action"] == ACTION_SCALE_UP],
+                        "a prefill scale_up decision")
+        watcher.join(timeout=AUTOSCALE_WAIT_S)
+        if watcher.is_alive() or "error" in watch or "installed_at_tick" not in watch:
+            raise AssertionError(f"serve_disagg autoscale: the stall window {watch}")
+        log = auto.decision_log()
+        t_first_breach = watch["t_installed"]
+        stall = log[watch["log_len"]:]
+        dark = [e for e in stall if e["gcs_dark"]]
+        after_dark = [e for e in stall if not e["gcs_dark"]]
+        acted_in_dark = [e for e in dark if e["action"] != ACTION_HOLD]
+        n_dark = len({e["t"] for e in dark})
+        pre_up = [e for e in after_dark if e["pool"] == "prefill"]
+        ticks_to_up = next((i + 1 for i, e in enumerate(pre_up)
+                            if e["action"] == ACTION_SCALE_UP), None)
+        if n_dark != AUTOSCALE_STALL_TICKS or acted_in_dark or ticks_to_up is None \
+                or ticks_to_up < auto.config.breach_ticks \
+                or any(e["action"] != ACTION_HOLD for e in log[:watch["log_len"]]):
+            raise AssertionError(f"serve_disagg autoscale: stall window: {n_dark} dark ticks, "
+                                 f"actions in it {acted_in_dark}, scale_up at recovered tick "
+                                 f"{ticks_to_up}")
+        up = ups[0]
+        if up["target"] != 2 or not ("breach" in up["reason"] or "span-sized" in up["reason"]):
+            raise AssertionError(f"serve_disagg autoscale: the scale-up {up}")
+        res["stall"] = {"dark_ticks": n_dark, "actions_in_window": 0,
+                        "streaks_at_install": watch["streaks"],
+                        "recovered_ticks_to_scale_up": ticks_to_up}
+
+        # the added replica: watched from before its first request
+        added = _leg_wait(lambda: [s for s in _disagg_replicas().get("PrefillServer", [])
+                                   if s is not prefill], "the added prefill replica")
+        (added,) = added
+        marks2: dict = {}
+        _watch_tally(added, marks2)
+        _leg_wait(lambda: act.pool_state()["prefill"]["replicas_running"] == 2,
+                  "the prefill pool to run 2 replicas")
+        t_running = time.monotonic()
+        if t_running - t_first_breach > AUTOSCALE_WAIT_S:
+            raise AssertionError("serve_disagg autoscale: 2 prefill replicas ran "
+                                 f"{t_running - t_first_breach:.1f} s after the first breach")
+        mine = sorted_leaves(params)
+        theirs = sorted_leaves(added.engine.params)
+        if len(mine) != len(theirs) or any(a.data_ptr() != b.data_ptr()
+                                           for a, b in zip(mine, theirs)):
+            raise AssertionError("serve_disagg autoscale: the added engine's weights are not "
+                                 "the caller's tensors")
+        res["scale_up"] = {"reason": up["reason"], "decision_to_running_s": t_running - up["t"],
+                           "first_breach_to_running_s": t_running - t_first_breach,
+                           "weights_by_reference": True}
+
+        # quiet traffic, one request at a time, until the pool has drained
+        caps_before = {"prefill": sum(g.captures for g in _families(prefill.engine)),
+                       "decode": sum(g.captures for g in _families(decode.engine))}
+        quiet, n_after, drained_at = [], 0, None
+        t0 = time.perf_counter()
+        while n_after < AUTOSCALE_QUIET_AFTER:
+            if len(quiet) >= AUTOSCALE_QUIET_MAX:
+                raise AssertionError(f"serve_disagg autoscale: the pool was not back at 1 "
+                                     f"after {len(quiet)} quiet requests: "
+                                     f"{[e for e in auto.decision_log() if e['action'] != ACTION_HOLD]}")
+            quiet.append(post(quiet_body()))
+            if drained_at is None and act.pool_state()["prefill"]["replicas_running"] == 1:
+                drained_at = len(quiet)
+            n_after += drained_at is not None
+            time.sleep(AUTOSCALE_QUIET_GAP_S)
+        quiet_wall = time.perf_counter() - t0
+        qtoks = sum(o["usage"]["completion_tokens"] for o in quiet)
+        res["quiet"] = {"requests": len(quiet), "pool_back_at_1_after": drained_at,
+                        "wall_s": quiet_wall, "output_tokens": qtoks,
+                        "output_tok_per_s": qtoks / quiet_wall}
+
+        # the drain: the victim's loop exits, its memory comes back
+        downs = [e for e in auto.decision_log() if e["pool"] == "prefill"
+                 and e["action"] == ACTION_SCALE_DOWN]
+        victims = _leg_wait(lambda: [s for s in (prefill, added)
+                                     if not s._loop.thread.is_alive()],
+                            "the drained replica's loop to exit")
+        t_exit = time.monotonic()
+        if len(downs) != 1 or downs[0]["target"] != 1 or len(victims) != 1:
+            raise AssertionError(f"serve_disagg autoscale: scale-downs {downs}, drained "
+                                 f"{len(victims)} replicas")
+        (victim,) = victims
+        survivor = added if victim is prefill else prefill
+        mem_up = act.mem_before_up
+
+        def mem_back():
+            torch.cuda.synchronize()
+            now = torch.cuda.memory_allocated(dev)
+            return now if now - mem_up <= AUTOSCALE_MEM_SLACK else None
+
+        mem_after = _leg_wait(mem_back, "the card's allocated memory to come back within "
+                                        "64 MB of its value before the scale-up", poll_s=0.1)
+        st = _leg_wait(lambda: (lambda a: a if (a["scale_ups_total"] or 0) >= 1
+                                and (a["scale_downs_total"] or 0) >= 1
+                                and a["pool_targets"].get("prefill") == 1 else None)(
+            gcs.call("telemetry_status", {}, timeout=5)["autoscale"]),
+            "the GCS's autoscale block to show a scale-up, a scale-down and a prefill "
+            "target of 1", poll_s=0.1)
+        log = auto.decision_log()
+        if any(e["pool"] == "decode" and e["action"] != ACTION_HOLD for e in log):
+            raise AssertionError("serve_disagg autoscale: the decode pool took a scale action")
+        if [e["action"] for e in log if e["action"] != ACTION_HOLD] != \
+                [ACTION_SCALE_UP, ACTION_SCALE_DOWN]:
+            raise AssertionError(f"serve_disagg autoscale: actions "
+                                 f"{[e for e in log if e['action'] != ACTION_HOLD]}")
+        res["scale_down"] = {"reason": downs[0]["reason"],
+                             "victim": "added" if victim is added else "first",
+                             "decision_to_loop_exit_s": t_exit - downs[0]["t"],
+                             "memory": {"before_scale_up": mem_up, "after_drain": mem_after,
+                                        "delta_bytes": mem_after - mem_up}}
+        res["gcs_autoscale_block"] = {k: st[k] for k in ("scale_ups_total", "scale_downs_total",
+                                                         "pool_targets", "decisions_by_action",
+                                                         "gcs_dark")}
+        res["ticks"] = {"total": auto.num_ticks, "dark": auto.num_dark_ticks,
+                        "scale_actions": auto.num_scale_actions}
+
+        # every engine's K3/K4 in the leg, eager and in replays
+        zero = {n: {"tally": 0, "replayed": 0, "captured": 0}
+                for n in ("paged_attention", "ragged_attention")}
+        per_engine = {"prefill": _pool_launches(before["prefill"], marks1),
+                      "decode": _pool_launches(before["decode"], _pool_marks(pools["decode"])),
+                      "prefill_added": _pool_launches(zero, marks2)}
+        if per_engine["prefill_added"]["ragged_attention"]["device"] <= 0:
+            raise AssertionError(f"serve_disagg autoscale: K4 never launched on the added "
+                                 f"replica: {per_engine['prefill_added']}")
+        total = {n: f.launches + sum(g.launches.get(n, 0) - g.captured_launches.get(n, 0)
+                                     for srv in (prefill, decode, added)
+                                     for g in _families(srv.engine)) - fam_before[n]
+                 for n, f in (("paged_attention", paged_attention_cuda),
+                              ("ragged_attention", ragged_attention_cuda))}
+        res["kernel_launches"] = total
+        res["kernel_launches_per_engine"] = per_engine
+        fams2 = _families(added.engine)
+        res["added_replica"] = {"captures": sum(g.captures for g in fams2),
+                                "capture_s": sum(g.capture_s for g in fams2),
+                                "quiet_captures_survivors": {
+                                    "prefill": sum(g.captures for g in _families(prefill.engine))
+                                    - caps_before["prefill"],
+                                    "decode": sum(g.captures for g in _families(decode.engine))
+                                    - caps_before["decode"]}}
+        # every request of the leg returned its 32 tokens or a stop (post
+        # raises otherwise)
+        res["requests"] = {"warm_up": 2, "base": AUTOSCALE_BASE_N, "burst": len(outs),
+                           "quiet": len(quiet), "lost": 0}
+        res["survivor"] = survivor
+    finally:
+        stop_watch.set()
+        if auto is not None:
+            auto.stop()
+        if reporter is not None:
+            reporter.stop()
+        if gcs is not None:
+            gcs.close()
+        server.stop()
+    res["leg_s"] = time.perf_counter() - t_leg
+    return res
+
+
 def serve_disagg_phase(dev, params, api_res: dict) -> dict:
     """LLAMA3_8B served by ``build_disagg_openai_app`` on the in-process
     runtime: one prefill and one decode replica, each an engine over the api
@@ -3013,8 +3450,8 @@ def serve_disagg_phase(dev, params, api_res: dict) -> dict:
     completions through the ingress handle, each on its own client thread:
     a first pass (the kernels' counters zeroed just before and read after;
     each engine's K3/K4 launches, eager and in replays, from its loop
-    thread's tally), a second pass, then the two requests on the 512-token
-    shared prefix again. Fails unless every completion has its 32 tokens or
+    thread's tally), then the two requests on the 512-token shared prefix
+    again, then the autoscale leg (``_autoscale_leg``). Fails unless every completion has its 32 tokens or
     a stop, K4 launched on the prefill engine and K3 on the decode engine,
     all 12 first-pass handoffs went by the device plane with their pages on
     the card and no stage through host memory, the ingress routed at least
@@ -3128,15 +3565,9 @@ def serve_disagg_phase(dev, params, api_res: dict) -> dict:
     first["greedy_streams_equal_api_phase"] = f"{same}/10"
     res["first"] = first
 
-    caps = {"prefill": captures(prefill), "decode": captures(decode)}
-    second = _disagg_serve_pass(handle, bodies, recorded)
-    second["captures"] = {r: captures(srv) - caps[r]
-                          for r, srv in (("prefill", prefill), ("decode", decode))}
-    second["greedy_streams_equal_first_pass"] = (
-        f"{sum(a == b for a, b in zip(second.pop('texts')[:10], texts[:10]))}/10")
-    res["second"] = second
     # the two requests on the 512-token shared prefix again: the app's index
-    # holds their chains on both engines by now
+    # holds their chains on both engines by now (the autoscale leg's burst is
+    # the phase's second pass of 12 at once)
     repeat = _disagg_serve_pass(handle, [bodies[0], bodies[11]], recorded)
     repeat.pop("texts")
     res["shared_prefix_repeat"] = repeat
@@ -3145,6 +3576,10 @@ def serve_disagg_phase(dev, params, api_res: dict) -> dict:
     if stats["prefix_routed"] < 1 or stats["reprefills"] != 0:
         raise AssertionError(f"serve_disagg: ingress stats {res['ingress_stats']}")
     res["handoffs_total"] = len(sends["send_ms"])
+
+    leg = _autoscale_leg(dev, handle, prefill, decode, params, bodies, recorded)
+    prefill = leg.pop("survivor")
+    res["autoscale"] = leg
 
     # shutdown: each replica's hook stops its loop and frees its engine's KV
     # cache and graphs; the weights stay (they are the caller's)
@@ -3165,7 +3600,7 @@ def serve_disagg_phase(dev, params, api_res: dict) -> dict:
                              f"card, less than the two KV caches' {kv_bytes} B")
     res["shutdown"] = {"seconds": shutdown_s, "kv_cache_bytes": kv_bytes,
                        "allocated_freed_bytes": mem_before - mem_after}
-    del prefill, decode, reps, handle, recorded, sends, hand, pools
+    del prefill, decode, reps, handle, recorded, sends, hand, pools, leg
     torch.cuda.empty_cache()
     res["phase_s"] = time.perf_counter() - t_phase
     emit(res)
@@ -6311,8 +6746,8 @@ def _cluster_dag_leg(server, flat, lens, sps, greedy: int, engine_first: dict,
     greedy streams equal the engine phase's, it captures no graph, and its
     K3/K4 launches equal pass s's, all in graph replays. After
     ``teardown()`` the actor answers ``info`` within 30 s. Then the median
-    round trip of a trivial method (``echo``), 200 calls through
-    ``.remote`` and 200 through a compiled DAG."""
+    round trip of a trivial method (``echo``), 50 calls through
+    ``.remote`` and 50 through a compiled DAG."""
     import ray_tpu_torch
     from ray_tpu_torch.dag import InputNode
 
@@ -6358,7 +6793,7 @@ def _cluster_dag_leg(server, flat, lens, sps, greedy: int, engine_first: dict,
     def echo_through(call) -> dict:
         if call(7) != 7:
             raise AssertionError("cluster dag: echo returned another value")
-        return _rtt_ms(lambda: call(7), n=201)
+        return _rtt_ms(lambda: call(7), n=51)
 
     out["echo_remote_ms"] = echo_through(
         lambda x: ray_tpu_torch.get(server.echo.remote(x), timeout=60))
@@ -6949,6 +7384,7 @@ def main(argv=None) -> int:
                         else (None, 0.0))
     lora_launches, api_launches, disagg_launches, replayed = {}, {}, {}, {}
     serve_launches, serve_disagg_launches, data_launches, feed_launches = {}, {}, {}, {}
+    serve_disagg_autoscale_launches = {}
     serve_rpc_launches, serve_grpc_launches, cluster_dag_launches = {}, {}, {}
     disagg_device_launches = {}
     kvtier_launches, fleet_launches, publish_launches, process_launches = {}, {}, {}, {}
@@ -6970,7 +7406,10 @@ def main(argv=None) -> int:
         if isinstance(doors.get("grpc"), dict):
             serve_grpc_launches = doors["grpc"]["kernel_launches"]
     if "serve_disagg" in phases:
-        serve_disagg_launches = serve_disagg_phase(dev, params, api_res)["kernel_launches"]
+        sd_res = serve_disagg_phase(dev, params, api_res)
+        serve_disagg_launches = sd_res["kernel_launches"]
+        serve_disagg_autoscale_launches = sd_res["autoscale"]["kernel_launches"]
+        del sd_res
     if "api" in phases:
         del api_res
     if "data" in phases:
@@ -7030,6 +7469,8 @@ def main(argv=None) -> int:
                if name in serve_grpc_launches else {}),
             **({"launches_serve_disagg_phase": serve_disagg_launches[name]}
                if name in serve_disagg_launches else {}),
+            **({"launches_serve_disagg_autoscale": serve_disagg_autoscale_launches[name]}
+               if name in serve_disagg_autoscale_launches else {}),
             **({"launches_data_phase": data_launches[name]} if name in data_launches else {}),
             **({"launches_data_feed_phase": feed_launches[name]} if name in feed_launches else {}),
             **({"launches_disagg_phase": disagg_launches[name]}

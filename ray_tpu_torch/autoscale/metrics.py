@@ -3,9 +3,9 @@
 descriptions, tags, boundaries and aggregation kinds).
 
 Built per call like ``obs/slo.py``; ``register_metrics`` forces
-registration for the registry parity checks. Only the cold start records
-today; the controller's series wait for the controller (ROADMAP.md Queue 1,
-item 6, part 8).
+registration for the registry parity checks. The controller
+(``controller.py``) records the decision, scale, hold, target and dark
+series; the cold start records its histogram.
 """
 
 from __future__ import annotations

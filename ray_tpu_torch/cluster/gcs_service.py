@@ -24,12 +24,13 @@ which ``RpcServer`` fences a deposed primary. The telemetry store
 the coalesced ``heartbeat_batch`` frame, and answers the ``telemetry_*``
 queries and ``ha_status``. The cluster-level KV prefix index
 (``cluster/prefix_index.py``) answers ``kvtier_update`` / ``kvtier_lookup``
-/ ``kvtier_drop`` / ``kvtier_stats``.
+/ ``kvtier_drop`` / ``kvtier_stats``. The pool autoscaler reads its inputs
+in one ``autoscale_signals`` call (the telemetry rollup plus the pending
+lease demand of live nodes); ``cluster_demand`` is the per-node capacity
+and parked-lease view.
 
-A copy of ``ray_tpu/cluster/gcs_service.py`` without what a later part of
-ROADMAP.md Queue 1, item 6 brings: the autoscaler's inputs
-(``autoscale_signals``, ``cluster_demand``) raise ``NotImplementedError``
-naming part 8. This process never imports torch.
+A copy of ``ray_tpu/cluster/gcs_service.py``. This process never imports
+torch.
 """
 
 from __future__ import annotations
@@ -54,13 +55,6 @@ from ray_tpu_torch.obs.telemetry import SLOThresholds, TelemetryStore
 from ray_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("ray_tpu_torch.cluster.gcs")
-
-PART_8 = "ROADMAP.md Queue 1, item 6, part 8"
-
-
-def _unported(what: str, part: str):
-    raise NotImplementedError(f"GCS {what} is not ported to ray_tpu_torch yet ({part})")
-
 
 _ha_metrics_cache: Optional[tuple] = None
 
@@ -1058,10 +1052,43 @@ class GcsService:
         return out
 
     def rpc_autoscale_signals(self, payload, peer):
-        _unported("autoscaler signals (autoscale_signals)", PART_8)
+        """ONE RPC with everything the PoolAutoscaler consumes: per-tag SLO
+        grades + autoscaler_hints, pool rollups, queue depth, the measured
+        prefill-span distribution, per-reporter staleness — plus the
+        pending lease demand parked in live nodes' queues."""
+        th = SLOThresholds.from_dict((payload or {}).get("thresholds"))
+        out = self.telemetry.autoscale_signals(th)
+        with self._lock:
+            out["pending_demand"] = sum(
+                1
+                for e in self._nodes.values()
+                if e.alive
+                for _spec in getattr(e, "pending", ())
+            )
+        return out
 
     def rpc_cluster_demand(self, payload, peer):
-        _unported("cluster demand (cluster_demand)", PART_8)
+        """Aggregate autoscaling view: per-node capacity plus every lease
+        spec currently parked in a daemon's server-side queue (upstream:
+        the resource demand aggregation the GCS feeds the autoscaler)."""
+        with self._lock:
+            return {
+                "nodes": [
+                    {
+                        "node_id": e.node_id,
+                        "resources": dict(e.resources),
+                        "available": dict(e.available),
+                        "alive": e.alive,
+                    }
+                    for e in self._nodes.values()
+                ],
+                "pending": [
+                    spec
+                    for e in self._nodes.values()
+                    if e.alive
+                    for spec in getattr(e, "pending", ())
+                ],
+            }
 
     # -- KV prefix index ------------------------------------------------------
 

@@ -33,7 +33,8 @@ CONTROLLER_NAME = "SERVE_CONTROLLER"
 def replica_gauges() -> dict:
     """Role-tagged replica gauges: the pool view the telemetry plane
     rolls up by DeploymentConfig.role (prefill/decode pools under
-    disaggregated serving) for status readers and the autoscaler."""
+    disaggregated serving) for the GCS's ``telemetry_status`` and
+    ``autoscale_signals``, the pool autoscaler's input."""
     from ray_tpu_torch.obs.telemetry import cluster_gauge
 
     return {
@@ -82,6 +83,9 @@ class _DeploymentState:
     version: int = 0  # bumped when the running replica set changes
     code_version: int = 0  # bumped when replica_config changes (full restart)
     target_replicas: int = 1
+    # pool-level override set by the PoolAutoscaler (set_pool_target);
+    # None = deployment owns its target (num_replicas / autoscaling_config)
+    pool_target: Optional[int] = None
     replicas: list = field(default_factory=list)  # list[_ReplicaInfo]
     status: str = DeploymentStatus.UPDATING
     # consecutive replica deaths with no replica ever reaching RUNNING at
@@ -565,7 +569,14 @@ class ServeController:
     def _autoscale(self, ds: _DeploymentState, now: float) -> None:
         ac = ds.deployment_config.autoscaling_config
         if ac is None:
-            ds.target_replicas = ds.deployment_config.num_replicas
+            # pool-level override (the PoolAutoscaler) wins over the
+            # static num_replicas; scale-down still routes through the
+            # reconcile loop's graceful drain
+            ds.target_replicas = (
+                ds.pool_target
+                if ds.pool_target is not None
+                else ds.deployment_config.num_replicas
+            )
             return
         ds.metrics_window = [
             (t, v) for t, v in ds.metrics_window if now - t <= ac.look_back_period_s
@@ -586,3 +597,49 @@ class ServeController:
             ds.target_replicas = desired
             ds.last_scale_down = now
             ds.status = DeploymentStatus.DOWNSCALING
+
+    # -- pool-level actuator surface (the PoolAutoscaler) ---------------------
+
+    def set_pool_target(self, role: str, target: int) -> dict:
+        """Set the desired replica count on every deployment tagged with
+        ``role`` (prefill/decode pools under disaggregated serving).
+
+        Scale-down routes through the reconcile loop's graceful drain
+        (_stop_replica: prepare_shutdown before kill), never a hard kill.
+        Deployments carrying their own autoscaling_config are skipped:
+        their queue-depth loop owns the target, and two writers would
+        fight."""
+        target = max(0, int(target))
+        touched: list[str] = []
+        with self._lock:
+            for app in self._apps.values():
+                for ds in app.deployments.values():
+                    if (ds.deployment_config.role or "") != role:
+                        continue
+                    if ds.deployment_config.autoscaling_config is not None:
+                        continue
+                    ds.pool_target = target
+                    touched.append(f"{ds.app_name}/{ds.name}")
+        return {"role": role, "target": target, "deployments": touched}
+
+    def pool_state(self, role: Optional[str] = None) -> dict:
+        """Role-keyed replica counts: the actuator's read-back view (the
+        telemetry plane's pool_rollups is the cluster-wide one)."""
+        out: dict = {}
+        with self._lock:
+            for app in self._apps.values():
+                for ds in app.deployments.values():
+                    r = ds.deployment_config.role or "(none)"
+                    if role is not None and r != role:
+                        continue
+                    pool = out.setdefault(r, {
+                        "replicas_running": 0, "replicas_target": 0,
+                        "deployments": [],
+                    })
+                    pool["replicas_running"] += sum(
+                        1 for ri in ds.replicas
+                        if ri.state == ReplicaState.RUNNING
+                    )
+                    pool["replicas_target"] += ds.target_replicas
+                    pool["deployments"].append(f"{ds.app_name}/{ds.name}")
+        return out

@@ -53,10 +53,11 @@ logger = get_logger("ray_tpu_torch.serve.disagg")
 
 def _is_transfer_failure(exc: BaseException) -> bool:
     """Is this (or anything in its cause chain) a transfer-plane loss, a
-    lost/corrupt handoff or a dead pinned replica? Matched by type name
-    because user exceptions cross the actor plane wrapped in
-    TaskError/ClusterTaskError with the original as `.cause`."""
-    names = {"KVTransferError", "ReplicaPinError"}
+    lost/corrupt handoff, a dead pinned replica or one that refused the call
+    because its drain had begun? Matched by type name because user
+    exceptions cross the actor plane wrapped in TaskError/ClusterTaskError
+    with the original as `.cause`."""
+    names = {"KVTransferError", "ReplicaPinError", "ActorUnavailableError"}
     seen: set = set()
     stack: list = [exc]
     while stack:

@@ -43,6 +43,10 @@ class Replica:
         self._request_sem = asyncio.Semaphore(max(1, max_ongoing_requests))
         self._num_ongoing = 0
         self._num_processed = 0
+        # set when the controller begins this replica's drain: from then on
+        # new requests are refused as a system failure (the handle re-routes
+        # them), while those already in flight finish
+        self._draining = False
         self._started_at = time.time()
         cls_or_fn = callable_factory
         if is_function:
@@ -89,7 +93,11 @@ class Replica:
 
     async def prepare_shutdown(self, timeout_s: float) -> None:
         """Drain in-flight requests, then run the user's cleanup hook
-        (graceful_shutdown_timeout_s)."""
+        (graceful_shutdown_timeout_s). A router may still hold this replica
+        until its next refresh, so from here on a new request is refused
+        with ``ActorUnavailableError``: the handle's failover re-dispatches
+        it to another replica instead of it meeting a stopped callable."""
+        self._draining = True
         deadline = time.time() + timeout_s
         while self._num_ongoing > 0 and time.time() < deadline:
             await asyncio.sleep(0.01)
@@ -172,6 +180,14 @@ class Replica:
             "method": method_name or "__call__",
         })
 
+    def _refuse_if_draining(self, method_name: Optional[str]) -> None:
+        if self._draining:
+            from ray_tpu_torch.core.errors import ActorUnavailableError
+
+            raise ActorUnavailableError(
+                f"replica of {self._app_name}/{self._deployment_name} is draining: "
+                f"{method_name or '__call__'} refused")
+
     def _chaos_hook(self, method_name: Optional[str]) -> None:
         """KILL_REPLICA injection: the request dies the way it would if
         this replica's process/actor crashed mid-call — callers see a
@@ -193,6 +209,7 @@ class Replica:
     async def handle_request(self, method_name: Optional[str], args, kwargs):
         """Unary request path. _num_ongoing counts queued + executing — the
         autoscaling signal wants in-replica load, not just active slots."""
+        self._refuse_if_draining(method_name)
         self._num_ongoing += 1
         try:
             async with self._request_sem:
@@ -222,6 +239,7 @@ class Replica:
     async def handle_request_streaming(self, method_name: Optional[str], args, kwargs):
         """Streaming path: the target must return an (a)sync generator;
         items are yielded through the framework's ObjectRefGenerator."""
+        self._refuse_if_draining(method_name)
         self._num_ongoing += 1
         try:
             async with self._request_sem:  # same cap as the unary path

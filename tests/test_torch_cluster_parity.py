@@ -4,8 +4,9 @@ and the slice as a whole on a port cluster.
 - The same sequence of operations on both packages' in-process
   ``GcsService`` (nodes, heartbeats, KV with ``kv_wait``, actors,
   placement groups, the object directory, drain, ``events_since``, the
-  ``--persist`` snapshot replayed) gives equal results; what later parts
-  bring raises naming its part.
+  ``--persist`` snapshot replayed) gives equal results, and so do the
+  RPCs later parts brought (the KV prefix index, the autoscaler's
+  inputs).
 - Frames written by ``ray_tpu/native``'s ``libframing`` are read by the
   port's, and the reverse.
 - The slice: ``LLAMA_TINY`` in fp32 on ``device="cpu"``, served by an
@@ -188,19 +189,80 @@ KVTIER_PAYLOADS = {
 }
 
 
+def _hist(name, tags, obs, bounds=(0.01, 0.05, 0.1, 0.5, 1.0)):
+    import bisect
+
+    series = []
+    for tag, vals in obs.items():
+        buckets = [0] * (len(bounds) + 1)
+        for v in vals:
+            buckets[bisect.bisect_left(bounds, v)] += 1
+        series.append({"tags": [tag], "buckets": buckets, "sum": sum(vals), "count": len(vals)})
+    return {"name": name, "type": "histogram", "description": "d", "tag_keys": list(tags),
+            "boundaries": list(bounds), "agg": "merge", "series": series}
+
+
+def _gauge(name, tag_keys, series, agg="sum"):
+    return {"name": name, "type": "gauge", "description": "d", "tag_keys": list(tag_keys),
+            "agg": agg, "series": [{"tags": list(t), "value": v} for t, v in series]}
+
+
+# the autoscaler's inputs: two live nodes and a dead one, each beat with
+# parked lease specs, and one engine's push (TTFT over the threshold, a
+# role-tagged pool, queue depth, the prefill-span distribution)
+AUTOSCALE_PUSH = {"reporter_id": "eng0", "kind": "engine", "role": "prefill", "snapshot": {
+    "epoch": "eng0-e1", "seq": 1, "ts_monotonic": 1.0, "ts_wall": 1.0, "metrics": [
+        _hist("ray_tpu_llm_ttft_seconds", ("model",), {"m": [0.02, 0.4, 0.6, 0.7]}),
+        _hist("ray_tpu_llm_tpot_seconds", ("model",), {"m": [0.01, 0.02]}),
+        _hist("ray_tpu_llm_prefill_span_seconds", ("model",), {"m": [0.02, 0.3, 0.4]}),
+        _gauge("ray_tpu_llm_queue_depth", ("model",), [(("m",), 3.0)]),
+        _gauge("ray_tpu_serve_replicas_running", ("app", "deployment", "role"),
+               [(("a", "P", "prefill"), 1.0), (("a", "D", "decode"), 1.0)]),
+        _gauge("ray_tpu_serve_replicas_target", ("app", "deployment", "role"),
+               [(("a", "P", "prefill"), 2.0), (("a", "D", "decode"), 1.0)]),
+    ]}}
+
+
+def _autoscale_inputs(gcs) -> None:
+    for node in ("n0", "n1", "n2"):
+        gcs.rpc_register_node({"node_id": node, "addr": ("127.0.0.1", 0),
+                               "resources": {"CPU": 4, "GPU": 1}, "labels": {}}, None)
+    gcs.rpc_heartbeat({"node_id": "n0", "available": {"CPU": 1, "GPU": 0},
+                       "pending": [{"GPU": 1}, {"CPU": 2}]}, None)
+    gcs.rpc_heartbeat({"node_id": "n1", "available": {"CPU": 4, "GPU": 1},
+                       "pending": [{"CPU": 8}]}, None)
+    gcs.rpc_heartbeat({"node_id": "n2", "pending": [{"GPU": 4}]}, None)
+    gcs.rpc_drain_node({"node_id": "n2"}, None)
+    gcs.rpc_telemetry_push(AUTOSCALE_PUSH, None)
+
+
+def _strip_wall(obj):
+    """The answer without its wall-clock fields: ``ts_wall`` dropped, every
+    ``staleness`` map's values (seconds since a push) dropped."""
+    if isinstance(obj, dict):
+        return {k: (sorted(v) if k == "staleness" and isinstance(v, dict) else _strip_wall(v))
+                for k, v in obj.items() if k != "ts_wall"}
+    if isinstance(obj, list):
+        return [_strip_wall(v) for v in obj]
+    return obj
+
+
 @pytest.mark.parametrize("method", ["kvtier_update", "kvtier_drop", "kvtier_stats",
                                     "kvtier_lookup", "autoscale_signals", "cluster_demand"])
 def test_later_parts_raise_naming_their_part(method):
-    """The autoscaler's inputs still raise naming part 8; the KV prefix
-    index's RPCs (ported with part 3c) answer as the reference GCS's do,
-    after one engine's snapshot."""
-    if not method.startswith("kvtier_"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1, item 6, part 8"):
-            getattr(TGcsService(), f"rpc_{method}")({}, None)
-        return
+    """The GCS RPCs later parts brought answer as the reference GCS's do:
+    the KV prefix index's (part 3c), after one engine's snapshot, and the
+    autoscaler's inputs (part 8), after the same node registrations,
+    heartbeats with parked lease specs, a drain and one telemetry push, with
+    the wall-clock fields set aside."""
     answers = {}
     for name, cls in (("ref", JGcsService), ("port", TGcsService)):
         gcs = cls()
+        if not method.startswith("kvtier_"):
+            _autoscale_inputs(gcs)
+            payload = {"thresholds": {"ttft_p_s": 0.1, "min_count": 1}}
+            answers[name] = _strip_wall(getattr(gcs, f"rpc_{method}")(payload, None))
+            continue
         gcs.rpc_kvtier_update({"engine": "e1", "epoch": 1, "seq": 1,
                                "rows": [[11, 0, 8]]}, None)
         got = getattr(gcs, f"rpc_{method}")(KVTIER_PAYLOADS[method], None)
@@ -209,6 +271,15 @@ def test_later_parts_raise_naming_their_part(method):
                 row.pop("age_s")
         answers[name] = (got, gcs.rpc_kvtier_stats(None, None))
     assert answers["port"] == answers["ref"]
+    if method == "autoscale_signals":
+        got = answers["port"]
+        assert got["pending_demand"] == 3  # the drained node's spec is not counted
+        assert got["slo"]["model_tags"]["m"]["autoscaler_hints"]["scale_prefill"] is True
+        assert got["pools"]["prefill"]["replicas_target"] == 2
+        assert got["prefill_span"]["count"] == 3
+    elif method == "cluster_demand":
+        assert sorted(map(str, answers["port"]["pending"])) == sorted(
+            map(str, [{"GPU": 1}, {"CPU": 2}, {"CPU": 8}]))
 
 
 # ---------------------------------------------------------------------------

@@ -8,13 +8,14 @@ bitwise to every replica, with the greedy tokens, versions and payloads of
 the reference; a seeded ``PREEMPT_ENGINE`` mid-canary that loses no
 request while the promote still lands bitwise, in both packages; and
 ``set_pool_target`` with a base publish reaching every replica and a late
-joiner (driven directly: the pool actuator waits for the cluster runtime).
+joiner, driven directly and through each package's ``FleetPoolActuator``.
 Rollbacks are in tests/test_torch_fleet_rollback.py, the other fleet cases
 in tests/test_torch_fleet.py.
 """
 
 import concurrent.futures
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -201,3 +202,37 @@ def test_set_pool_target_and_late_join(jparams):
     ref, got = _both(run)
     assert got == ref
     assert got[1] == [True] * 4 and got[2] == 1
+
+
+def test_set_pool_target_and_actuator(jparams):
+    """tests/test_fleet.py:450 on both packages: ``FleetPoolActuator``
+    grows the pool 1 -> 3, a base publish reaches all three, a scale-down
+    decision drains it to 1, and the survivor serves the reference's greedy
+    tokens."""
+    def run(pkg):
+        A = importlib.import_module("ray_tpu.autoscale" if pkg == "ref" else
+                                    "ray_tpu_torch.autoscale")
+        mgr = _manager(pkg, jparams, replicas=1)
+        try:
+            act = A.FleetPoolActuator(mgr)
+            states = [act.pool_state()]
+            act.apply(A.Decision(pool="tiny", action="scale_up", target=3, reason="test"))
+            states.append(act.pool_state())
+            new = _perturbed(mgr.replicas("tiny")[0].engine.params)
+            mgr.weights.publish_base("tiny", new)
+            same = [PKG[pkg]["fleet"].bitwise_equal(r.engine.params, new)
+                    for r in mgr.replicas("tiny")]
+            act.apply(A.Decision(pool="tiny", action="scale_down", target=1, reason="test"))
+            states.append(act.pool_state())
+            # a scale-to-zero decision keeps the fleet model's last replica
+            act.apply(A.Decision(pool="tiny", action="scale_to_zero", target=0, reason="test"))
+            states.append(act.pool_state())
+            return states, same, _run(mgr, pkg, "tiny")
+        finally:
+            mgr.close()
+
+    ref, got = _both(run)
+    assert got == ref
+    states, same, out = got
+    assert [s["tiny"]["replicas_running"] for s in states] == [1, 3, 1, 1]
+    assert same == [True] * 3 and len(out) == 6

@@ -70,6 +70,9 @@ import ray_tpu_torch.chaos, ray_tpu_torch.obs.slo, ray_tpu_torch.obs.telemetry
 import ray_tpu_torch.fabric, ray_tpu_torch.cluster.rpc, ray_tpu_torch.util.backoff
 import ray_tpu_torch.llm.kvfetch.plane
 import ray_tpu_torch.train.weight_sync, ray_tpu_torch.autoscale, ray_tpu_torch.fleet
+import ray_tpu_torch.autoscale.policy, ray_tpu_torch.autoscale.controller
+import ray_tpu_torch.autoscale.actuators, ray_tpu_torch.autoscale.demand
+import ray_tpu_torch.autoscale.config
 import ray_tpu_torch.utils, ray_tpu_torch.core.api, ray_tpu_torch.core.events
 import ray_tpu_torch.serve, ray_tpu_torch.serve.proxy
 import ray_tpu_torch.native.shm, ray_tpu_torch.core.process_pool

@@ -122,11 +122,13 @@ def test_tier_workers_and_locks_are_linted(rel, cls, thread, guarded):
     ("dag/socket_channel.py", "_WriterServer", "dagchan-poll-*", {"closed": "lock"}),
     ("dag/socket_channel.py", "_WriterServer", "dagchan-reader-*", {"buffer": "lock"}),
     ("dag/socket_channel.py", "_WriterServer", "dagchan-ack-*", {"acked": "lock"}),
+    ("autoscale/controller.py", "PoolAutoscaler", "ray_tpu_torch-pool-autoscaler", {}),
+    ("autoscale/actuators.py", "EnginePoolActuator", None, {"_pools": "_lock"}),
 ])
 def test_runtime_and_serve_threads_and_locks_are_linted(rel, cls, thread, guarded):
-    """The in-process runtime's, Serve's and the compiled DAG's threads and
-    locks (the ingresses' ``AppResolver._lock`` too) are in what the passes
-    see, so the clean gate above covers them."""
+    """The in-process runtime's, Serve's, the compiled DAG's and the pool
+    autoscaler's threads and locks (the ingresses' ``AppResolver._lock``
+    too) are in what the passes see, so the clean gate above covers them."""
     m = _model(rel)
     if thread is not None:
         assert thread in _thread_names(m)
@@ -188,6 +190,7 @@ HOOK_SITES = {
     "cluster.push": "cluster/client.py",
     "dag.channel.send": "dag/channels.py",
     "dag.channel.recv": "dag/channels.py",
+    "autoscale.drain": "autoscale/actuators.py",
 }
 # hook sites audited as safe without the ``ACTIVE`` guard: none
 UNGUARDED_HOOK_ALLOWLIST: dict = {}
