@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases build,train,publish   # train -> publish -> serve
     python3 chip_smoke.py --phases build,engine,process  # 8B in a pinned worker process
     python3 chip_smoke.py --phases build,engine,cluster_ha  # 8B across a GCS failover
+    python3 chip_smoke.py --phases build,engine,operator  # 8B in a job through the CLI
 
 Phases, each printing one JSON line:
 
@@ -377,6 +378,32 @@ Phases, each printing one JSON line:
            torch. Reports the start, lease to ready, each pass, kill to
            promoted, the reporter's counts, staleness after the failover,
            the cold GPU task's round trip and the shutdown
+  operator  the operator's path: `python -m ray_tpu_torch.scripts.cli start
+           --head --resources num_cpus=2,GPU=1 --dashboard-port 0` under a
+           fresh RAY_TPU_TORCH_STATE_DIR (a GCS, the dashboard and node
+           "gpu"); `cli status`; `cli submit --working-dir` of a driver
+           (OPERATOR_DRIVER) that attaches with init(address=), puts the
+           engine phase's 12 requests into a util.Queue, creates LLAMA3_8B
+           in a num_gpus=1 actor (OperatorServer8B, the cluster phase's
+           weights and configuration), which drains the queue into one pass,
+           then serves the 12 once more through ActorPool([actor]).map, and
+           writes its streams and counts to a file; meanwhile the dashboard
+           (urllib) and `python -m ray_tpu_torch.scripts.status` are polled;
+           then a job that exits 3; then `cli stop`. Fails unless the GCS,
+           daemon and dashboard loaded no torch, status shows GPU=1/1, the
+           job ends SUCCEEDED with the driver's log on submit's stdout, the
+           driver saw no card and the actor one card on node "gpu", both
+           passes' 10 greedy streams equal the engine phase's, the first
+           pass launches K3/K4 1 056 / 480 times and the second captures
+           nothing, the dashboard showed /healthz, the actor ALIVE on "gpu",
+           the node's GPU available 0 while it lived, the actor's spans in
+           /api/cluster/timeline and ray_tpu_ series in /metrics/cluster,
+           the failing job exits 1 with FAILED, and after stop no process
+           of the cluster is left, the state file is gone and the card's
+           free bytes are back within 64 MB. Reports cli start, submit to
+           the driver's entry, the actor's lease to ready, each pass's
+           seconds and tok/s, the failing job, stop, and what the watcher
+           saw when
   train    LLAMA_400M at full width and depth (bf16 compute, fp32 params,
            remat "dots", flash attention, AdamW lr 3e-4 wd 1e-4), B 8,
            S 1024, one fixed batch (numpy seed 0), with bench.py's gates:
@@ -7298,11 +7325,349 @@ def cluster_ha_phase(dev, engine_first: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# operator
+# ---------------------------------------------------------------------------
+
+
+OPERATOR_WAIT_S = 60.0      # every control-plane call, poll and stop wait of the phase
+OPERATOR_JOB_S = 900.0      # the served job, submit to its status
+OPERATOR_POLL_S = 0.5       # the dashboard watcher's period
+
+
+class OperatorServer8B(ClusterServer8B):
+    """``ClusterServer8B`` that also drains a ``util.Queue`` of
+    ``(index, prompt, SamplingParams)`` items into one pass."""
+
+    def serve_queue(self, q, tag: str) -> dict:
+        import numpy as np
+
+        items = []
+        while True:
+            try:
+                items.append(q.get_nowait())
+            except Exception as e:  # noqa: BLE001 — the queue's Empty ends the drain
+                if type(e).__name__ != "Empty":
+                    raise
+                break
+        items.sort(key=lambda it: it[0])
+        prompts = [it[1] for it in items]
+        lens = np.asarray([len(p) for p in prompts], np.int64)
+        flat = np.concatenate([np.asarray(p, np.int32) for p in prompts])
+        out = self.serve(flat, lens, [it[2] for it in items], tag)
+        out["drained"] = len(items)
+        return out
+
+
+# The driver the operator phase submits as a job: it runs on the cluster in
+# the job's subprocess (no card), attaches, and serves the engine phase's 12
+# through a num_gpus=1 actor: first drained from a Queue, then once more
+# through an ActorPool. It writes what the smoke checks to --out.
+OPERATOR_DRIVER = '''\
+import argparse, json, os, time
+
+entered = time.time()
+import numpy as np
+import torch
+
+import chip_smoke as cs
+import ray_tpu_torch
+from ray_tpu_torch.models.llama import LLAMA3_8B
+from ray_tpu_torch.util import ActorPool, Queue
+
+ap = argparse.ArgumentParser()
+ap.add_argument("--address", required=True)
+ap.add_argument("--out", required=True)
+ap.add_argument("--device", default="cuda")
+args = ap.parse_args()
+print("operator driver: entered", flush=True)
+imported = time.time()
+ray_tpu_torch.init(address=args.address)
+out = {"entered": entered, "imports_s": imported - entered,
+       "attach_s": time.time() - imported, "pid": os.getpid(),
+       "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+       "cards_seen": torch.cuda.device_count(), "job_id": os.environ.get("RAY_TPU_JOB_ID")}
+prompts, sps = cs._engine_traffic(LLAMA3_8B)
+t0 = time.time()
+q = Queue()
+for i, (p, sp) in enumerate(zip(prompts, sps)):
+    q.put((i, p, sp))
+out["queued"] = q.qsize()
+out["queue_s"] = time.time() - t0
+t0 = time.time()
+server = ray_tpu_torch.remote(num_gpus=1)(cs.OperatorServer8B).remote(args.device)
+info = ray_tpu_torch.get(server.info.remote(), timeout=600)
+info["create_to_ready_s"] = time.time() - t0
+info["submit_to_entry_s"] = info.pop("entered") - t0
+out["actor"] = info
+t0 = time.perf_counter()
+first = ray_tpu_torch.get(server.serve_queue.remote(q, "r"), timeout=600)
+first["round_trip_s"] = time.perf_counter() - t0
+out["left_in_queue"] = q.qsize()
+lens = np.asarray([len(p) for p in prompts], np.int64)
+flat = np.concatenate([np.asarray(p, np.int32) for p in prompts])
+t0 = time.perf_counter()
+pool = ActorPool([server])
+(second,) = pool.map(lambda a, v: a.serve.remote(*v), [(flat, lens, sps, "s")])
+second["round_trip_s"] = time.perf_counter() - t0
+out["passes"] = [first, second]
+ray_tpu_torch.kill(server)
+q.shutdown()
+ray_tpu_torch.shutdown()
+with open(args.out, "w") as f:
+    json.dump(out, f)
+print("operator driver: served", first["drained"], "requests twice", flush=True)
+'''
+
+
+def _operator_cli(env: dict, *argv, timeout: float = OPERATOR_WAIT_S):
+    import subprocess
+
+    return subprocess.run([sys.executable, "-m", "ray_tpu_torch.scripts.cli", *argv],
+                          env=env, capture_output=True, text=True, timeout=timeout)
+
+
+def _group_members(pgrps: set) -> list:
+    """Live processes (not zombies) of the given process groups."""
+    import os
+
+    out = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[2]) in pgrps and fields[0] != "Z":
+            out.append(int(name))
+    return out
+
+
+def _watch_dashboard(base: str, gcs: str, env: dict, seen: dict) -> None:
+    """One sweep of the dashboard and the status script while the job runs:
+    what each shows of the job's GPU actor, first seen at (seconds since the
+    phase's submit, kept in ``seen``)."""
+    import subprocess
+
+    def get(route: str) -> tuple:
+        status, _, body = _http("GET", base + route, timeout=OPERATOR_WAIT_S)
+        return status, body
+
+    t = time.time() - seen["submitted"]
+    status, body = get("/healthz")
+    if status == 200 and body == b"success":
+        seen.setdefault("healthz", t)
+    status, body = get("/api/cluster/actors")
+    actors = json.loads(body) if status == 200 else []
+    alive = [a for a in actors if a.get("state") == "ALIVE" and a.get("node_id") == "gpu"
+             and (a.get("lease_resources") or {}).get("GPU")]
+    if alive:
+        seen.setdefault("actor_alive", t)
+        seen["actor_row"] = {k: alive[0].get(k) for k in ("state", "node_id", "lease_resources")}
+    status, body = get("/api/cluster/nodes")
+    nodes = json.loads(body) if status == 200 else []
+    gpu = next((n for n in nodes if n.get("node_id") == "gpu"), None)
+    if alive and gpu is not None and gpu.get("available", {}).get("GPU") == 0:
+        seen.setdefault("gpu_taken", t)
+        seen["gpu_node"] = {"available": gpu["available"], "resources": gpu["resources"],
+                            "stats_keys": sorted(gpu.get("stats", {}))}
+    status, body = get("/api/cluster/timeline")
+    names = {e["name"] for e in json.loads(body)} if status == 200 else set()
+    for method in ("info", "serve_queue", "serve"):
+        if f"OperatorServer8B.{method}" in names:
+            seen.setdefault(f"span_{method}", t)
+    status, body = get("/metrics/cluster")
+    if status == 200 and b"ray_tpu_" in body:
+        seen.setdefault("metrics_cluster", t)
+        seen["metrics_cluster_lines"] = body.count(b"\n")
+    if alive and "status_script" not in seen:
+        r = subprocess.run([sys.executable, "-m", "ray_tpu_torch.scripts.status", "--gcs", gcs],
+                           env=env, capture_output=True, text=True, timeout=OPERATOR_WAIT_S)
+        lines = [ln for ln in r.stdout.splitlines() if ln.strip().startswith("gpu ")]
+        if r.returncode == 0 and lines:
+            seen["status_script"] = t
+            seen["status_line"] = lines[0].strip()
+
+
+def operator_phase(dev, engine_first: dict) -> dict:
+    """LLAMA3_8B served on the card by a job submitted through the port's
+    operator CLI: ``cli start --head --resources num_cpus=2,GPU=1
+    --dashboard-port 0`` under a fresh ``RAY_TPU_TORCH_STATE_DIR`` (the GCS,
+    the daemon and the dashboard load no torch; ``status`` shows GPU=1/1);
+    ``cli submit`` of a driver that attaches, creates the ``num_gpus=1``
+    actor and serves the engine phase's 12 twice, first drained from a
+    ``util.Queue``, then through an ``ActorPool``; the dashboard and the
+    status script watched while the job runs; a failing job; ``cli stop``,
+    after which no process of the cluster is left and the card's memory is
+    back."""
+    import os
+    import subprocess
+    import tempfile
+    import threading
+
+    import torch
+
+    from ray_tpu_torch.core import runtime as rt
+
+    t_phase = time.perf_counter()
+    if rt.is_initialized():
+        raise AssertionError("operator: a runtime outlived an earlier phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res: dict = {"phase": "operator"}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_operator_")
+    env = dict(os.environ, RAY_TPU_TORCH_STATE_DIR=os.path.join(work, "state"))
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (repo, env.get("PYTHONPATH")) if p)
+    state_path = os.path.join(work, "state", "cluster.json")
+    app = os.path.join(work, "app")
+    os.makedirs(app)
+    with open(os.path.join(app, "driver.py"), "w") as f:
+        f.write(OPERATOR_DRIVER)
+    result_path = os.path.join(work, "result.json")
+    free0 = torch.cuda.mem_get_info()[0]
+    procs: list = []
+    started = False
+    try:
+        # (1) start: the GCS, the dashboard and a node holding the card
+        t0 = time.perf_counter()
+        r = _operator_cli(env, "start", "--head", "--resources", "num_cpus=2,GPU=1",
+                          "--dashboard-port", "0", "--node-id", "gpu")
+        res["start_s"] = time.perf_counter() - t0
+        started = r.returncode == 0
+        if not started:
+            raise AssertionError(f"operator: cli start exited {r.returncode}: {r.stderr[-2000:]}")
+        with open(state_path) as f:
+            state = json.load(f)
+        procs = state["procs"]
+        gcs = state["gcs_address"]
+        base = r.stdout.split("dashboard started at ", 1)[1].split()[0]
+        res["roles"] = [p["role"] for p in procs]
+        if res["roles"] != ["gcs", "dashboard", "node"]:
+            raise AssertionError(f"operator: the state file's processes {procs}")
+        _no_torch_in([p["pid"] for p in procs])
+        r = _operator_cli(env, "status")
+        node_line = next((ln.strip() for ln in r.stdout.splitlines()
+                          if ln.strip().startswith("gpu ")), "")
+        res["status_line"] = node_line
+        if r.returncode != 0 or "ALIVE" not in node_line or "GPU=1/1" not in node_line:
+            raise AssertionError(f"operator: cli status shows no free card: {r.stdout}")
+
+        # (2) submit the driver; (3) watch it through the dashboard meanwhile
+        submitted = time.time()
+        seen: dict = {"submitted": submitted}
+        submit = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "submit", "--working-dir", app,
+             "--env", "CHIP_SMOKE_PHASE=operator", "--", sys.executable, "driver.py",
+             "--address", gcs, "--out", result_path, "--device", dev.type],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        out_lines: list = []
+        reader = threading.Thread(target=lambda: out_lines.extend(submit.stdout),
+                                  name="operator-submit-reader", daemon=True)
+        reader.start()
+        deadline = time.monotonic() + OPERATOR_JOB_S
+        while submit.poll() is None:
+            if time.monotonic() > deadline:
+                submit.kill()
+                raise AssertionError(f"operator: the job did not end within {OPERATOR_JOB_S} s")
+            try:
+                _watch_dashboard(base, gcs, env, seen)
+            except Exception as e:  # noqa: BLE001 — one failed sweep; the gates below decide
+                seen.setdefault("sweep_errors", []).append(repr(e)[:200])
+            time.sleep(OPERATOR_POLL_S)
+        reader.join(timeout=OPERATOR_WAIT_S)
+        stdout = "".join(out_lines)
+        res["submit_s"] = time.time() - seen.pop("submitted")
+        res["submit_rc"] = submit.returncode
+        res["submit_tail"] = stdout.strip().splitlines()[-3:]
+        res["watch"] = seen
+        if submit.returncode != 0 or "SUCCEEDED" not in stdout \
+                or "operator driver: served 12 requests twice" not in stdout:
+            raise AssertionError(f"operator: the job: rc {submit.returncode}, stdout "
+                                 f"{stdout[-3000:]}, stderr {submit.stderr.read()[-2000:]}")
+        missing = [k for k in ("healthz", "actor_alive", "gpu_taken", "span_info",
+                               "span_serve_queue", "metrics_cluster", "status_script")
+                   if k not in seen]
+        if missing:
+            raise AssertionError(f"operator: the dashboard never showed {missing}: {seen}")
+        with open(result_path) as f:
+            job = json.load(f)
+        res["driver"] = {k: job[k] for k in ("visible", "cards_seen", "job_id", "imports_s",
+                                             "attach_s", "queue_s")}
+        res["submit_to_entry_s"] = job["entered"] - submitted
+        res["actor"] = job["actor"]
+        if job["visible"] != "" or job["cards_seen"] != 0:
+            raise AssertionError(f"operator: the driver saw a card: {res['driver']}")
+        info = job["actor"]
+        if info["node"] != "gpu" or info["cards_seen"] != 1:
+            raise AssertionError(f"operator: the actor is not on the gpu node's card: {info}")
+        if job["queued"] != 12 or job["left_in_queue"] != 0:
+            raise AssertionError(f"operator: queued {job['queued']}, left {job['left_in_queue']}")
+        greedy = 10
+        passes = []
+        for out, tag in zip(job["passes"], ("r", "s")):
+            toks = out.pop("tokens")
+            same = sum(toks[f"{tag}{i}"] == engine_first[f"r{i}"] for i in range(greedy))
+            out["greedy_streams_equal_engine_phase"] = f"{same}/{greedy}"
+            out["tok_per_s"] = sum(len(v) for v in toks.values()) / out["pass_s"]
+            passes.append(out)
+            if same != greedy:
+                raise AssertionError(f"operator: pass {tag}: {same}/{greedy} greedy streams "
+                                     "equal the engine phase's")
+        res["passes"] = passes
+        if passes[0]["drained"] != 12:
+            raise AssertionError(f"operator: the actor drained {passes[0]['drained']} requests")
+        want = {n: FIRST_PASS_LAUNCHES[n]["device"] for n in FIRST_PASS_LAUNCHES}
+        if passes[0]["kernel_launches"] != want:
+            raise AssertionError(f"operator: first-pass launches {passes[0]['kernel_launches']} "
+                                 f"!= {want}")
+        if passes[1]["captures"] != 0:
+            raise AssertionError(f"operator: the second pass captured {passes[1]['captures']}")
+
+        # (4) a failing job exits 1 with FAILED
+        t0 = time.perf_counter()
+        r = _operator_cli(env, "submit", "--", sys.executable, "-c", "raise SystemExit(3)",
+                          timeout=OPERATOR_JOB_S)
+        res["failed_job"] = {"rc": r.returncode, "s": time.perf_counter() - t0,
+                             "line": r.stdout.strip().splitlines()[-1:]}
+        if r.returncode != 1 or "FAILED" not in r.stdout:
+            raise AssertionError(f"operator: the failing job: {res['failed_job']}")
+    finally:
+        t_stop = time.perf_counter()
+        if started:
+            r = _operator_cli(env, "stop")
+            res["stop_s"] = time.perf_counter() - t_stop
+            res["stop_rc"] = r.returncode
+    # (5) stop: no process of the cluster left, the state file gone, the card's memory back
+    pgrps = {p["pid"] for p in procs}
+    deadline = time.monotonic() + OPERATOR_WAIT_S
+    while _group_members(pgrps) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    res["stop_to_gone_s"] = time.perf_counter() - t_stop
+    left = _group_members(pgrps)
+    res["left_after_stop"] = left
+    if left or os.path.exists(state_path) or res.get("stop_rc") != 0:
+        raise AssertionError(f"operator: after stop: processes {left}, state file "
+                             f"{os.path.exists(state_path)}, rc {res.get('stop_rc')}")
+    free1, wait_s = _free_bytes_back(free0 - CLUSTER_FREE_SLACK)
+    res["memory"] = {"free_before": free0, "free_after": free1, "waited_s": wait_s}
+    if free1 < free0 - CLUSTER_FREE_SLACK:
+        raise AssertionError(f"operator: the card's free bytes {free1} not back within 64 MB of "
+                             f"{free0} after stop")
+    res["kernel_launches"] = {n: sum(p["kernel_launches"][n] for p in res["passes"])
+                              for n in res["passes"][0]["kernel_launches"]}
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 PHASES = ("build", "kernels", "flash_kernels", "engine", "lora", "api", "serve", "serve_disagg",
           "data", "disagg",
-          "kvtier", "parity", "spec", "fleet", "process", "cluster", "cluster_ha", "train",
-          "data_feed", "publish", "train_parity")
+          "kvtier", "parity", "spec", "fleet", "process", "cluster", "cluster_ha", "operator",
+          "train", "data_feed", "publish", "train_parity")
 
 SOURCES = {
     "paged_attention": ("ray_tpu_torch/ops/csrc/paged_attention.cu",
@@ -7345,10 +7710,10 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
-    if {"lora", "api", "data", "disagg", "process", "cluster", "cluster_ha"} & set(phases) \
-            and "engine" not in phases:
-        ap.error("the lora, api, data, disagg, process, cluster and cluster_ha phases read the "
-                 "engine phase's results: add engine")
+    if {"lora", "api", "data", "disagg", "process", "cluster", "cluster_ha",
+            "operator"} & set(phases) and "engine" not in phases:
+        ap.error("the lora, api, data, disagg, process, cluster, cluster_ha and operator phases "
+                 "read the engine phase's results: add engine")
     if {"serve", "serve_disagg"} & set(phases) and "api" not in phases:
         ap.error("the serve and serve_disagg phases read the api phase's results: add "
                  "engine,api")
@@ -7389,6 +7754,7 @@ def main(argv=None) -> int:
     disagg_device_launches = {}
     kvtier_launches, fleet_launches, publish_launches, process_launches = {}, {}, {}, {}
     cluster_launches, cluster_serve_launches, cluster_ha_launches = {}, {}, {}
+    operator_launches = {}
     if "engine" in phases:
         engine_res = engine_phase(dev, params, params_s)
         engine_first = engine_res["first_pass_tokens"]  # a few KB, for the process phase
@@ -7440,6 +7806,8 @@ def main(argv=None) -> int:
         cluster_dag_launches = cluster_res["dag_kernel_launches"]
     if "cluster_ha" in phases:
         cluster_ha_launches = cluster_ha_phase(dev, engine_first)["kernel_launches"]
+    if "operator" in phases:
+        operator_launches = operator_phase(dev, engine_first)["kernel_launches"]
     if "train" in phases:
         train_res = train_phase(dev, keep_state="publish" in phases)
         launches.update(train_res["kernel_launches"])
@@ -7491,6 +7859,8 @@ def main(argv=None) -> int:
                if name in cluster_dag_launches else {}),
             **({"launches_cluster_ha_phase": cluster_ha_launches[name]}
                if name in cluster_ha_launches else {}),
+            **({"launches_operator_phase": operator_launches[name]}
+               if name in operator_launches else {}),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
             "library_ms": bf["library_ms"], "dtype": "bfloat16", "shape": bf["shape"],

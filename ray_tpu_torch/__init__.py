@@ -19,11 +19,13 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["autoscale", "chaos", "cluster", "core", "data", "fabric", "fleet", "llm", "models",
-           "nn", "obs", "ops", "resolve_device", "serve", "train", "util", "utils"]
+__all__ = ["autoscale", "chaos", "cluster", "cluster_utils", "core", "dashboard", "data",
+           "fabric", "fleet", "job_submission", "llm", "models", "nn", "obs", "ops",
+           "resolve_device", "scripts", "serve", "train", "util", "utils"]
 
-_SUBPACKAGES = ("autoscale", "chaos", "cluster", "core", "data", "fabric", "fleet", "llm", "models",
-                "nn", "obs", "ops", "serve", "train", "util", "utils")
+_SUBPACKAGES = ("autoscale", "chaos", "cluster", "cluster_utils", "core", "dashboard", "data",
+                "fabric", "fleet", "job_submission", "llm", "models", "nn", "obs", "ops",
+                "scripts", "serve", "train", "util", "utils")
 
 
 def resolve_device(device) -> "torch.device":  # noqa: F821

@@ -5,9 +5,9 @@ Upstream Ray's placement groups (python/ray/util/placement_group.py:41,145;
 bundle packing policies in
 src/ray/raylet/scheduling/policy/bundle_scheduling_policy.cc; strategy
 enum src/ray/protobuf/common.proto:978-985). The in-process runtime has
-one node, so every strategy but STRICT_SPREAD with more than one bundle
-places all bundles on it; the reservation and per-bundle accounting are
-the reference's.
+one node unless ``cluster_utils.Cluster`` registers more capacity domains
+(its ``add_node`` then retries the pending groups); the reservation and
+per-bundle accounting are the reference's.
 """
 
 from __future__ import annotations
@@ -172,6 +172,15 @@ def create_placement_group(
         raise ValueError("placement group needs at least one bundle")
     pg = PlacementGroup(PlacementGroupID.from_random(), bundles, strategy, name, runtime)
     return reserve_placement_group(pg, runtime.gcs.alive_nodes())
+
+
+def retry_pending_placement_groups(runtime: "Runtime") -> None:
+    """Re-attempt reservation for every PENDING/INFEASIBLE group (called
+    by ``cluster_utils.Cluster`` after adding nodes)."""
+    nodes = runtime.gcs.alive_nodes()
+    for pg in runtime.gcs.list_placement_groups():
+        if getattr(pg, "_state", None) in ("PENDING", "INFEASIBLE"):
+            reserve_placement_group(pg, nodes)
 
 
 def reserve_placement_group(pg: PlacementGroup, nodes: list) -> PlacementGroup:

@@ -7,7 +7,9 @@ so a long-running server holds the most recent window) and
 without bound); drops are counted, never silent.
 
 Reads: ``get(trace_id)`` the raw spans, ``traces()`` the listing,
-``summary(trace_id)`` end-to-end time and span coverage.
+``summary(trace_id)`` end-to-end time and span coverage,
+``chrome_trace_bounded`` a capped Chrome-trace export (the dashboard's
+``/api/trace``).
 """
 
 from __future__ import annotations
@@ -197,6 +199,56 @@ class SpanRecorder:
             "coverage_pct": round(coverage, 2),
             "attrs": dict(root.attrs),
         }
+
+    # default export cap: ~200 bytes/event keeps the largest export well
+    # under RPC framing / HTTP response sanity (a full recorder at
+    # 256 traces x 512 spans is 131k spans, tens of MB otherwise)
+    DEFAULT_EXPORT_MAX_EVENTS = 50_000
+
+    def chrome_trace(self, trace_id: Optional[str] = None,
+                     max_events: Optional[int] = None) -> list[dict]:
+        """Chrome trace-event JSON ("X" complete events); rows grouped by
+        trace so one request reads as one strip in Perfetto.
+        ``max_events`` caps the export (earliest first after a time
+        sort); :meth:`chrome_trace_bounded` also says whether the cap bit."""
+        return self.chrome_trace_bounded(trace_id=trace_id, max_events=max_events)["events"]
+
+    def chrome_trace_bounded(self, trace_id: Optional[str] = None,
+                             max_events: Optional[int] = None) -> dict:
+        """Bounded export: {"events", "truncated", "total_spans"}. The cap
+        drops the NEWEST events after an ascending time sort and says so,
+        so a large trace never yields an export past the RPC frame limit
+        or an HTTP response nothing can open."""
+        cap = self.DEFAULT_EXPORT_MAX_EVENTS if max_events is None else int(max_events)
+        with self._lock:
+            if trace_id is not None:
+                groups = {trace_id: list(self._traces.get(trace_id, ()))}
+            else:
+                groups = {tid: list(sp) for tid, sp in self._traces.items()}
+        out = []
+        for tid, spans in groups.items():
+            for s in spans:
+                out.append({
+                    "name": s.name,
+                    "cat": "request" if s.status == "ok" else "request_error",
+                    "ph": "X",
+                    "ts": s.start * 1e6,
+                    "dur": s.duration_s * 1e6,
+                    "pid": f"trace:{tid[:8]}",
+                    "tid": s.name.split(".")[0],
+                    "args": {
+                        "trace_id": s.trace_id,
+                        "span_id": s.span_id,
+                        "parent_id": s.parent_id,
+                        **s.attrs,
+                    },
+                })
+        total = len(out)
+        truncated = cap >= 0 and total > cap
+        if truncated:
+            out.sort(key=lambda e: e["ts"])
+            out = out[:cap]
+        return {"events": out, "truncated": truncated, "total_spans": total}
 
 
 _RECORDER = SpanRecorder()

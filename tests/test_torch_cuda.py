@@ -2255,3 +2255,63 @@ def test_cluster_ha_gpu_actor_rides_a_failover_and_leases_through_the_new_primar
         ray_tpu_torch.shutdown()
         c.shutdown()
     assert c.leftovers() == {"processes": [], "store_files": []}
+
+
+_JOB_DRIVER = """
+import json, os, sys
+import torch
+import ray_tpu_torch
+
+ray_tpu_torch.init(address=sys.argv[1])
+
+
+class Probe:
+    def cards(self):
+        import os
+        import torch
+        return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "count": torch.cuda.device_count(), "node": os.environ.get("RAY_TPU_NODE_ID")}
+
+
+a = ray_tpu_torch.remote(num_gpus=1)(Probe).remote()
+got = ray_tpu_torch.get(a.cards.remote(), timeout=300)
+print("RESULT", json.dumps({"actor": got, "driver": {
+    "visible": os.environ.get("CUDA_VISIBLE_DEVICES"), "count": torch.cuda.device_count()}}))
+ray_tpu_torch.kill(a)
+ray_tpu_torch.shutdown()
+"""
+
+
+def test_cli_job_driver_sees_no_card_and_its_gpu_actor_sees_one(tmp_path):
+    """A cluster started with the operator CLI (``GPU=1``), a driver
+    submitted as a job: the driver's process sees no card, the
+    ``num_gpus=1`` actor it creates sees exactly one, on the CLI's node."""
+    _need_cuda()
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, RAY_TPU_TORCH_STATE_DIR=str(tmp_path / "state"), PYTHONPATH=repo)
+    wd = tmp_path / "app"
+    wd.mkdir()
+    (wd / "driver.py").write_text(_JOB_DRIVER)
+
+    def cli(*argv, timeout=600):
+        return subprocess.run([sys.executable, "-m", "ray_tpu_torch.scripts.cli", *argv],
+                              env=env, capture_output=True, text=True, timeout=timeout)
+
+    r = cli("start", "--head", "--resources", "num_cpus=2,GPU=1", "--node-id", "gpu0")
+    assert r.returncode == 0, r.stderr
+    try:
+        gcs = json.load(open(tmp_path / "state" / "cluster.json"))["gcs_address"]
+        r = cli("submit", "--working-dir", str(wd), "--", sys.executable, "driver.py", gcs)
+        assert r.returncode == 0 and "SUCCEEDED" in r.stdout, (r.stdout, r.stderr)
+        got = json.loads(next(ln for ln in r.stdout.splitlines()
+                              if ln.startswith("RESULT "))[len("RESULT "):])
+    finally:
+        cli("stop", timeout=60)
+    assert got["driver"] == {"visible": "", "count": 0}
+    assert got["actor"]["count"] == 1 and got["actor"]["node"] == "gpu0"
+    assert got["actor"]["visible"] not in (None, "")
